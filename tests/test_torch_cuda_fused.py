@@ -1,0 +1,245 @@
+"""The port's kernels and the cuda_fused backend, without the JAX package.
+
+CPU tests hold each kernel wrapper's plain path (the one it takes for CPU
+tensors) to the port's NumPy replays, and check the tiling arithmetic and
+the refusals that stay in Python. Tests marked ``gpu`` hold each CUDA
+kernel to its plain version on the card, at small shapes that reach every
+tail; they decide inside the test (through the ``cuda`` fixture) whether
+there is a card and skip where there is none. This file imports no jax, so
+it runs as it is on a machine with a card:
+
+    python -m pytest -q -m gpu tests/test_torch_cuda_fused.py
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.core import matmul as mm
+from repro_torch.core.topology import D3
+from repro_torch.dist import collectives as dc
+from repro_torch.dist.mesh import DeviceLayout
+from repro_torch.kernels.block_matmul.block_matmul import block_matmul
+from repro_torch.kernels.block_matmul.ref import block_matmul_ref
+from repro_torch.runtime import optimize as opt
+from repro_torch.runtime.backends import cuda_fused as cf
+from repro_torch.runtime.backends.reference import NumpyReferenceBackend
+
+REF = NumpyReferenceBackend()
+LAYOUTS = [(2, 2), (4, 2), (2, 4), (4, 4)]
+GRIDS = [(1, 2), (2, 2), (1, 3)]
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    return torch.device("cuda")
+
+
+def _special_values(rng, shape):
+    """Random-normal float32 with NaN, ±inf and ±0 sprinkled in."""
+    x = rng.standard_normal(shape).astype(np.float32)
+    flat = x.reshape(-1)
+    picks = rng.choice(flat.size, size=min(flat.size, 8), replace=False)
+    flat[picks] = np.array([np.nan, np.inf, -np.inf, -0.0, 0.0, -0.0, np.nan, 1e30],
+                           np.float32)[: len(picks)]
+    return x
+
+
+def _combine_groups(grid):
+    prog = dc.matmul_program(*grid, optimized=True)
+    return [op for op in prog.ops if isinstance(op, opt.FusedCombine)]
+
+
+# ------------------------------------------------------------ CPU: plain path
+@pytest.mark.parametrize("km", LAYOUTS, ids=str)
+def test_reduce_rounds_plain_is_np_allreduce(km):
+    p = dc.allreduce_program(DeviceLayout(D3(*km)), optimized=True)
+    x = _special_values(np.random.default_rng(0), (p.n, 7))
+    g, m = opt.stacked_combine_tables(p)
+    got = cf.reduce_rounds(torch.from_numpy(x), torch.from_numpy(g), torch.from_numpy(m))
+    np.testing.assert_array_equal(got.numpy(), opt.np_allreduce(x, p))
+
+
+@pytest.mark.parametrize("grid", GRIDS, ids=str)
+def test_combine_rows_plain_is_stage_order_fold(grid):
+    rng = np.random.default_rng(1)
+    for op in _combine_groups(grid):
+        val = _special_values(rng, (op.gather.shape[1], 5))
+        want = np.zeros_like(val)
+        with np.errstate(invalid="ignore"):  # inf + -inf is NaN on both sides
+            for g, m in zip(op.gather, op.mask):
+                want[m] = want[m] + val[g[m]]
+        got = cf.combine_rows(torch.from_numpy(val), torch.from_numpy(op.gather),
+                              torch.from_numpy(op.mask))
+        np.testing.assert_array_equal(got.numpy(), want)
+
+
+def test_block_matmul_plain_keeps_dtype_and_is_exact_on_integers():
+    rng = np.random.default_rng(2)
+    a = torch.from_numpy(rng.integers(-4, 5, (3, 5, 6)).astype(np.float32))
+    b = torch.from_numpy(rng.integers(-4, 5, (3, 6, 4)).astype(np.float32))
+    np.testing.assert_array_equal(block_matmul(a, b).numpy(),
+                                  np.einsum("nab,nbc->nac", a.numpy(), b.numpy()))
+    assert block_matmul(a.bfloat16(), b.bfloat16()).dtype == torch.bfloat16
+
+
+@pytest.mark.parametrize("n,features,slab,block_f", [
+    (64, 6553600, 16384, 256), (256, 262144, 16384, 64), (4, 3, 16384, 4),
+    (16, 1, 16384, 1), (16384, 9, 16384, 1), (3, 100, 16, 4)])
+def test_column_tile_fits_the_slab(n, features, slab, block_f):
+    shift = cf.column_shift(n, features, slab)
+    assert 1 << shift == block_f and n * block_f <= slab
+
+
+def test_column_tile_refuses_more_rows_than_the_slab():
+    with pytest.raises(ValueError, match="slab"):
+        cf.column_shift(16385, 4, 16384)
+
+
+@pytest.mark.parametrize("wrapper", ["reduce_rounds", "combine_rows", "block_matmul"])
+def test_wrappers_refuse_devices_without_a_kernel(wrapper):
+    """No silent fallback: only CPU tensors take the plain version; a tensor
+    on any device without the kernel is refused before anything runs."""
+    x = torch.empty((4, 4), device="meta")
+    g = torch.empty((1, 1, 4), dtype=torch.int32, device="meta")
+    m = torch.empty((1, 1, 4), dtype=torch.bool, device="meta")
+    with pytest.raises(ValueError, match="CUDA"):
+        if wrapper == "reduce_rounds":
+            cf.reduce_rounds(x, g, m)
+        elif wrapper == "combine_rows":
+            cf.combine_rows(x, g[0], m[0])
+        else:
+            block_matmul(x[None], x[None])
+
+
+@pytest.mark.parametrize("km", LAYOUTS + [(1, 2)], ids=str)
+def test_backend_cpu_path_matches_reference(km):
+    """All four kinds through cuda_fused(device='cpu'), plain and optimized,
+    bit-exact with the NumPy reference on integer-valued float32."""
+    layout = DeviceLayout(D3(*km))
+    be = cf.CudaFusedBackend(device="cpu")
+    rng = np.random.default_rng(3)
+    n = layout.n
+    x = rng.integers(-4, 5, (n, n, 3)).astype(np.float32)
+    y = rng.integers(-4, 5, (n, 6)).astype(np.float32)
+    for optimized in (False, True):
+        p = dc.alltoall_program(layout, optimized=optimized)
+        np.testing.assert_array_equal(be.run_alltoall(x, p).numpy(), REF.run_alltoall(x, p))
+        p = dc.allreduce_program(layout, optimized=optimized)
+        np.testing.assert_array_equal(be.run_allreduce(y, p).numpy(), REF.run_allreduce(y, p))
+        p = dc.broadcast_program(layout, n - 1, optimized=optimized)
+        np.testing.assert_array_equal(be.run_broadcast(y, p).numpy(), REF.run_broadcast(y, p))
+
+
+@pytest.mark.parametrize("grid,X", [((1, 2), 4), ((2, 2), 2), ((1, 3), 3)], ids=str)
+def test_backend_cpu_matmul_is_exact(grid, X):
+    be = cf.CudaFusedBackend(device="cpu")
+    rng = np.random.default_rng(4)
+    N = mm.MatmulGrid(*grid).n * X
+    B = rng.integers(-4, 5, (N, N)).astype(np.float32)
+    A = rng.integers(-4, 5, (N, N)).astype(np.float32)
+    for optimized in (False, True):
+        got = be.run_matmul(B, A, dc.matmul_program(*grid, optimized=optimized)).numpy()
+        np.testing.assert_array_equal(got, B @ A)
+
+
+def test_backend_checks_the_device_axis():
+    be = cf.CudaFusedBackend(device="cpu")
+    p = dc.allreduce_program(DeviceLayout(D3(2, 2)))
+    with pytest.raises(ValueError, match="leading dim"):
+        be.run_allreduce(np.zeros((p.n + 1, 2), np.float32), p)
+    with pytest.raises(ValueError, match="expected 'alltoall'"):
+        be.run_alltoall(np.zeros((p.n, p.n), np.float32), p)
+
+
+# ------------------------------------------------------------- card: kernels
+@pytest.mark.gpu
+@pytest.mark.parametrize("km", LAYOUTS, ids=str)
+@pytest.mark.parametrize("F", [1, 37, 1000, 4097])
+def test_reduce_rounds_kernel_bit_exact(cuda, km, F):
+    p = dc.allreduce_program(DeviceLayout(D3(*km)), optimized=True)
+    t = opt.to_device_tables(opt.allreduce_tables(p), cuda)
+    x = torch.from_numpy(_special_values(np.random.default_rng(F), (p.n, F))).to(cuda)
+    before = cf.reduce_rounds.launches
+    got = cf.reduce_rounds(x, t["gather"], t["mask"])
+    torch.cuda.synchronize()
+    assert cf.reduce_rounds.launches == before + 1
+    want = cf._reduce_rounds_plain(x, t["gather"], t["mask"])
+    np.testing.assert_array_equal(got.cpu().numpy(), want.cpu().numpy())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("grid", GRIDS + [(4, 4)], ids=str)
+@pytest.mark.parametrize("X", [2, 3, 33])
+def test_combine_rows_kernel_bit_exact(cuda, grid, X):
+    rng = np.random.default_rng(X)
+    for op in _combine_groups(grid):
+        t = opt.to_device_tables({"gather": op.gather, "mask": op.mask}, cuda)
+        val = torch.from_numpy(_special_values(rng, (op.gather.shape[1], X * X))).to(cuda)
+        got = cf.combine_rows(val, t["gather"], t["mask"])
+        want = cf._combine_rows_plain(val, t["gather"], t["mask"])
+        np.testing.assert_array_equal(got.cpu().numpy(), want.cpu().numpy())
+
+
+@pytest.mark.gpu
+def test_reduce_kernels_refuse_other_dtypes(cuda):
+    p = dc.allreduce_program(DeviceLayout(D3(2, 2)), optimized=True)
+    t = opt.to_device_tables(opt.allreduce_tables(p), cuda)
+    with pytest.raises(TypeError, match="float32"):
+        cf.reduce_rounds(torch.zeros((p.n, 4), dtype=torch.float64, device=cuda),
+                         t["gather"], t["mask"])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", [(5, 2, 2, 2), (7, 3, 3, 3), (4, 4, 4, 4), (3, 130, 67, 129),
+                                   (2, 128, 128, 128), (1, 256, 512, 128)], ids=str)
+def test_block_matmul_kernel_exact_on_integers(cuda, shape):
+    batch, m, k, n = shape
+    rng = np.random.default_rng(5)
+    a = torch.from_numpy(rng.integers(-4, 5, (batch, m, k)).astype(np.float32)).to(cuda)
+    b = torch.from_numpy(rng.integers(-4, 5, (batch, k, n)).astype(np.float32)).to(cuda)
+    got = block_matmul(a, b)
+    np.testing.assert_array_equal(got.cpu().numpy(), block_matmul_ref(a, b).cpu().numpy())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("m,n,k", [(128, 128, 128), (256, 128, 512), (128, 384, 256)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=str)
+def test_block_matmul_kernel_tolerance(cuda, m, n, k, dtype):
+    rng = np.random.default_rng(6)
+    a = torch.from_numpy(rng.standard_normal((2, m, k)).astype(np.float32)).to(cuda, dtype)
+    b = torch.from_numpy(rng.standard_normal((2, k, n)).astype(np.float32)).to(cuda, dtype)
+    got = block_matmul(a, b)
+    assert got.dtype == dtype
+    tol = 2e-2 if dtype == torch.bfloat16 else 2e-4
+    np.testing.assert_allclose(got.float().cpu().numpy(),
+                               block_matmul_ref(a, b).float().cpu().numpy(),
+                               rtol=tol, atol=tol)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("km", [(2, 2), (4, 2)], ids=str)
+def test_backend_on_card_matches_reference(cuda, km):
+    layout = DeviceLayout(D3(*km))
+    be = cf.CudaFusedBackend()
+    rng = np.random.default_rng(7)
+    n = layout.n
+    x = rng.integers(-4, 5, (n, n, 3)).astype(np.float32)
+    y = rng.integers(-4, 5, (n, 6)).astype(np.float32)
+    p = dc.alltoall_program(layout, optimized=True)
+    np.testing.assert_array_equal(be.run_alltoall(x, p).cpu().numpy(), REF.run_alltoall(x, p))
+    p = dc.allreduce_program(layout, optimized=True)
+    np.testing.assert_array_equal(be.run_allreduce(y, p).cpu().numpy(), REF.run_allreduce(y, p))
+    p = dc.broadcast_program(layout, 1, optimized=True)
+    np.testing.assert_array_equal(be.run_broadcast(y, p).cpu().numpy(), REF.run_broadcast(y, p))
+    grid, X = (2, 2), 3
+    N = mm.MatmulGrid(*grid).n * X
+    B = rng.integers(-4, 5, (N, N)).astype(np.float32)
+    A = rng.integers(-4, 5, (N, N)).astype(np.float32)
+    before = (cf.combine_rows.launches, block_matmul.launches)
+    got = be.run_matmul(B, A, dc.matmul_program(*grid)).cpu().numpy()
+    np.testing.assert_array_equal(got, B @ A)
+    assert cf.combine_rows.launches > before[0] and block_matmul.launches > before[1]

@@ -1,0 +1,74 @@
+"""The port stands alone: it imports neither jax nor the JAX package, builds
+nothing at import time, and never moves to the CPU on its own."""
+
+import ast
+import pathlib
+import subprocess
+import sys
+
+import pytest
+import torch
+
+from repro_torch.runtime.backends import get_backend
+from repro_torch.runtime.backends.cuda_fused import CudaFusedBackend
+
+ROOT = pathlib.Path(__file__).resolve().parents[1]
+PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+
+
+def _imported_roots(path: pathlib.Path):
+    for node in ast.walk(ast.parse(path.read_text(), str(path))):
+        if isinstance(node, ast.Import):
+            yield from (alias.name for alias in node.names)
+        elif isinstance(node, ast.ImportFrom):
+            assert node.level == 0, f"{path}: relative import"
+            yield node.module
+
+
+@pytest.mark.parametrize("path", PORT_FILES, ids=lambda p: str(p.relative_to(ROOT)))
+def test_port_imports_neither_jax_nor_the_jax_package(path):
+    for name in _imported_roots(path):
+        root = name.split(".")[0]
+        assert root not in ("jax", "jaxlib", "repro"), f"{path} imports {name}"
+
+
+def _run(code: str) -> None:
+    subprocess.run([sys.executable, "-c", code], check=True, cwd=ROOT,
+                   env={"PYTHONPATH": str(ROOT / "src"), "PATH": "/usr/bin:/bin"},
+                   timeout=120)
+
+
+def test_importing_every_port_module_loads_no_jax():
+    _run(
+        "import importlib, pkgutil, sys\n"
+        "import repro_torch\n"
+        "for m in pkgutil.walk_packages(repro_torch.__path__, 'repro_torch.'):\n"
+        "    importlib.import_module(m.name)\n"
+        "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'repro')]\n"
+        "assert not bad, bad\n"
+        "from repro_torch.kernels import build\n"
+        "assert build.load.cache_info().currsize == 0, 'a kernel was loaded at import'\n"
+    )
+
+
+def test_package_imports_are_light():
+    _run(
+        "import sys\n"
+        "import repro_torch.runtime, repro_torch.runtime.backends, repro_torch.kernels\n"
+        "loaded = [m for m in sys.modules if m.startswith(('torch', 'repro_torch.runtime.'))]\n"
+        "assert loaded == ['repro_torch.runtime.backends'], loaded\n"
+    )
+
+
+def test_default_device_is_the_card_and_raises_without_one(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA card"):
+        CudaFusedBackend()
+    with pytest.raises(RuntimeError, match="CUDA card"):
+        get_backend("cuda_fused")
+    assert CudaFusedBackend(device="cpu").device == torch.device("cpu")
+
+
+def test_other_devices_are_refused():
+    with pytest.raises(ValueError, match="'cuda' or 'cpu'"):
+        CudaFusedBackend(device="meta")
