@@ -15,10 +15,11 @@
 // written once, 2·n·F·4 bytes in all. Columns are independent (a gather
 // only moves rows), so blocks never talk to each other.
 //
-// Bit-exactness: every thread computes its elements' new values in
-// registers — recv starts at +0.0f and adds `m ? v : 0.0f` for k in order,
-// then val + recv — and only after a barrier writes them back, so every
-// round reads the pre-round values. A select and not a product with the
+// Bit-exactness: every thread keeps its elements' values in registers and
+// computes each round's new value there — recv starts at +0.0f and adds
+// `m ? v : 0.0f` for k in order, then val + recv. A round writes the
+// pre-round values to the slab, a barrier, all reads, a barrier: every
+// round reads only pre-round values. A select and not a product with the
 // mask, so -0.0, inf and NaN behave as jnp.where does. Build without
 // fast-math.
 //
@@ -31,58 +32,70 @@
 namespace {
 
 constexpr int kThreads = 512;
-constexpr int kPerThread = 32;
-// Slab capacity in floats (64 KiB); repro_torch.runtime.backends.cuda_fused
-// chooses block_f so that n * block_f stays within it.
+constexpr int kPerThread = 16;
+// Slab capacity in floats (32 KiB of static shared memory, so two blocks
+// share an SM and one block's rounds overlap another's loads);
+// repro_torch.runtime.backends.cuda_fused chooses block_f so that
+// n * block_f stays within it.
 constexpr int kSlabFloats = kThreads * kPerThread;
 
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kThreads, 2)
 reduce_rounds_kernel(const float* __restrict__ x, float* __restrict__ out,
                      const int32_t* __restrict__ gather,
                      const uint8_t* __restrict__ mask, int rounds, int k_rows,
                      int n, long long features, int shift, bool self_add) {
-  extern __shared__ float slab[];  // (n, block_f), row-major
+  __shared__ float slab[kSlabFloats];  // (n, block_f), row-major
   const int block_f = 1 << shift;
   const long long f0 = static_cast<long long>(blockIdx.x) << shift;
   const long long left = features - f0;
   const int width = left < block_f ? static_cast<int>(left) : block_f;
   const int elems = n << shift;
 
-  for (int e = threadIdx.x; e < elems; e += kThreads) {
+  // Each thread owns elements e = threadIdx.x + j * kThreads and keeps
+  // their current values in registers. All loads are issued before the
+  // first is used, so a block has its whole slab in flight at once.
+  float v[kPerThread];
+#pragma unroll
+  for (int j = 0; j < kPerThread; ++j) {
+    const int e = threadIdx.x + j * kThreads;
     const int i = e >> shift, c = e & (block_f - 1);
-    if (c < width) slab[e] = x[static_cast<long long>(i) * features + f0 + c];
+    v[j] = (e < elems && c < width) ? x[static_cast<long long>(i) * features + f0 + c] : 0.0f;
   }
-  __syncthreads();
 
-  float next[kPerThread];
   for (int r = 0; r < rounds; ++r) {
-    const int32_t* g_r = gather + static_cast<long long>(r) * k_rows * n;
-    const uint8_t* m_r = mask + static_cast<long long>(r) * k_rows * n;
 #pragma unroll
     for (int j = 0; j < kPerThread; ++j) {
       const int e = threadIdx.x + j * kThreads;
-      if (e < elems) {
-        const int i = e >> shift, c = e & (block_f - 1);
-        float recv = 0.0f;
-        for (int k = 0; k < k_rows; ++k) {
-          const float v = slab[(g_r[k * n + i] << shift) + c];
-          recv += m_r[k * n + i] ? v : 0.0f;
+      if (e < elems) slab[e] = v[j];
+    }
+    __syncthreads();
+    // Rows k outside, elements j inside: the kPerThread gathers of one row
+    // are independent, so their table and slab loads overlap.
+    float recv[kPerThread];
+#pragma unroll
+    for (int j = 0; j < kPerThread; ++j) recv[j] = 0.0f;
+    for (int k = 0; k < k_rows; ++k) {
+      const long long row = (static_cast<long long>(r) * k_rows + k) * n;
+#pragma unroll
+      for (int j = 0; j < kPerThread; ++j) {
+        const int e = threadIdx.x + j * kThreads;
+        if (e < elems) {
+          const int i = e >> shift, c = e & (block_f - 1);
+          const float val = slab[(__ldg(gather + row + i) << shift) + c];
+          recv[j] += __ldg(mask + row + i) ? val : 0.0f;
         }
-        next[j] = self_add ? slab[e] + recv : recv;
       }
     }
-    __syncthreads();
 #pragma unroll
-    for (int j = 0; j < kPerThread; ++j) {
-      const int e = threadIdx.x + j * kThreads;
-      if (e < elems) slab[e] = next[j];
-    }
-    __syncthreads();
+    for (int j = 0; j < kPerThread; ++j) v[j] = self_add ? v[j] + recv[j] : recv[j];
+    __syncthreads();  // every read of this round's slab is done
   }
 
-  for (int e = threadIdx.x; e < elems; e += kThreads) {
+#pragma unroll
+  for (int j = 0; j < kPerThread; ++j) {
+    const int e = threadIdx.x + j * kThreads;
     const int i = e >> shift, c = e & (block_f - 1);
-    if (c < width) out[static_cast<long long>(i) * features + f0 + c] = slab[e];
+    if (e < elems && c < width) out[static_cast<long long>(i) * features + f0 + c] = v[j];
   }
 }
 
@@ -97,14 +110,8 @@ extern "C" int reduce_rounds_launch(const void* x, void* out, const void* gather
                                     const void* mask, int rounds, int k_rows,
                                     int n, long long features, int shift,
                                     int self_add, void* stream) {
-  const int block_f = 1 << shift;
-  const long long n_blocks = (features + block_f - 1) / block_f;
-  const size_t smem = static_cast<size_t>(n) * block_f * sizeof(float);
-  cudaError_t err = cudaFuncSetAttribute(
-      reduce_rounds_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(kSlabFloats * sizeof(float)));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  reduce_rounds_kernel<<<static_cast<unsigned>(n_blocks), kThreads, smem,
+  const long long n_blocks = (features + (1LL << shift) - 1) >> shift;
+  reduce_rounds_kernel<<<static_cast<unsigned>(n_blocks), kThreads, 0,
                          static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(x), static_cast<float*>(out),
       static_cast<const int32_t*>(gather), static_cast<const uint8_t*>(mask),

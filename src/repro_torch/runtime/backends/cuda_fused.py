@@ -40,12 +40,8 @@ from repro_torch.runtime.program import check_kind as _check_kind
 # Kernels: the reduce rounds (csrc/reduce_rounds.cu) and their plain versions.
 # ---------------------------------------------------------------------------
 
-def _reduce_rounds_plain(flat: torch.Tensor, gather: torch.Tensor,
-                         mask: torch.Tensor) -> torch.Tensor:
-    val = flat
-    for r in range(gather.shape[0]):
-        val = val + _opt.combine_fold(torch.zeros_like(val), val, gather[r], mask[r])
-    return val
+#: The reduce kernel's plain version at R rounds is the optimizer's torch replay.
+_reduce_rounds_plain = _opt.replay_allreduce
 
 
 def _combine_rows_plain(flat: torch.Tensor, gather: torch.Tensor,
