@@ -244,7 +244,7 @@ def pipelined_schedule(p: DAParams, offset: int = 1,
     rounds as ``schedule()`` with each round's ``meta["start_step"]``
     stamped from the Schedule-``offset`` launch sequence (minimal measured
     delays, ``round_starts``). Lowering propagates the stamps onto every
-    stage, so ``start_step``-ordered replay (``overlap=True`` on the JAX
+    stage, so ``start_step``-ordered replay (an overlapping per-stage
     backend) interleaves rounds exactly as the paper's Schedule 1–3 —
     and stays bit-exact, since all-to-all stages read only the immutable
     input."""

@@ -1,6 +1,6 @@
 """Unified Schedule IR — the one conflict-checkable representation that all
 four D3 algorithms emit, the simulator verifies, the cost model prices, and
-the runtime lowers onto a JAX device mesh.
+the runtime lowers into backend-neutral collective programs.
 
 A ``Schedule`` is an ordered sequence of ``Round``s. A ``Round`` is a set of
 directed ``Hop``s, each stamped with a *step* offset inside the round and a

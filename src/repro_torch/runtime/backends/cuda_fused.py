@@ -101,7 +101,8 @@ def reduce_rounds(flat: torch.Tensor, gather: torch.Tensor,
     """K1, the §4 all-reduce replay in one launch: for each of R rounds,
     ``val += Σ_k where(mask[r, k], val[gather[r, k]], 0)`` folded in k
     order. ``flat`` is (n, F) float32; the tables are (R, k, n) int32 / bool
-    (``optimize.stacked_combine_tables``). Bit-exact with the plain
+    (``optimize.stacked_combine_tables``), gathers in [0, n) as ``optimize``
+    builds them (the kernel does not check). Bit-exact with the plain
     version. Every launch adds one to ``reduce_rounds.launches``."""
     if flat.device.type == "cpu":
         return _reduce_rounds_plain(flat, gather, mask)

@@ -90,8 +90,8 @@ class NumpyReferenceBackend:
     def run_alltoall_compute(
         self, x: np.ndarray, program: CollectiveProgram, compute=None
     ) -> np.ndarray:
-        """Fused dispatch+compute round trip, ground truth for the JAX
-        backend's ``alltoall_compute``: every chunk x[i, j] is processed AT
+        """Fused dispatch+compute round trip, ground truth for a per-stage
+        backend's ``alltoall_compute`` (the MoE dispatch path): every chunk x[i, j] is processed AT
         its destination j and returned to sender i, so
         out[i, j] = compute_j(x[i, j]) — NOT the all-to-all transpose.
         ``compute(d, chunks)`` maps destination id d and the (k, ...) stack

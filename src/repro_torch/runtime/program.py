@@ -5,13 +5,14 @@
 with the IR round and hop step it came from plus a ``start_step`` (the
 global launch step under pipelined replay) so pipelined schedules survive
 lowering. Backends (``runtime.backends``) replay the same program on
-different substrates — ppermutes on a JAX mesh, a pure-NumPy host replay —
+different substrates — torch table replays with CUDA kernels on the card,
+a pure-NumPy host replay —
 without knowing which of the paper's four algorithms produced it.
 
 Stage primitives
 ----------------
 ``Perm``           full device permutation: device i sends its value to
-                   ``sigma[i]`` (one ``ppermute`` on the JAX backend).
+                   ``sigma[i]`` (one device permute on a per-stage backend).
 ``Match``          partial permutation (a matching): listed destinations
                    replace their value with the sender's; everyone else
                    keeps theirs. Identity pairs are elided at build time.
@@ -321,7 +322,7 @@ class CollectiveProgram:
 
     @property
     def num_permutes(self) -> int:
-        """Communication stages = ppermutes the JAX backend issues."""
+        """Communication stages = permutes a per-stage backend issues."""
         return len(self.comm_stages)
 
     def stages_of_round(self, i: int) -> tuple[Stage, ...]:

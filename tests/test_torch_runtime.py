@@ -118,6 +118,13 @@ def test_reference_backends_bit_equal(km):
         for kind, (jp, tp) in programs(km, optimized).items():
             x = inputs(kind, jp.n, 3)
             assert_bits(getattr(TREF, f"run_{kind}")(x, tp), getattr(JREF, f"run_{kind}")(x, jp))
+    jp, tp = programs(km, False)["alltoall"]
+    x = inputs("alltoall", jp.n, 10)
+
+    def compute(dst, chunks):
+        return chunks * (dst + 1) - 1
+
+    assert_bits(TREF.run_alltoall_compute(x, tp, compute), JREF.run_alltoall_compute(x, jp, compute))
 
 
 # ------------------------------------ the port's CPU path vs pallas_fused
@@ -194,6 +201,31 @@ def test_matmul_replay_on_the_jax_package_tables(grid, X):
     got = t_opt.replay_matmul(recipe, torch.from_numpy(b), torch.from_numpy(a))
     assert_bits(got.numpy(), j_opt.jax_matmul_blocks(jo)(b, a))
     assert_bits(got.numpy(), JREF.matmul_blocks(b, a, jo))
+
+
+@pytest.mark.parametrize("grid,X", GRIDS + [((1, 3), 3)], ids=str)
+def test_block_scatter_gather_match_the_jax_helpers(grid, X):
+    N = MatmulGrid(*grid).n * X
+    mat = np.random.default_rng(11).standard_normal((N, N)).astype(np.float32)
+    blocks = t_opt.torch_scatter_blocks(torch.from_numpy(mat), grid)
+    assert blocks.is_contiguous()
+    assert_bits(blocks.numpy(), j_opt.jax_scatter_blocks(mat, grid))
+    assert_bits(t_opt.torch_gather_blocks(blocks, grid).numpy(), mat)
+
+
+@pytest.mark.parametrize("axes", [(0,), (0, 1)], ids=str)
+def test_guest_scatter_gather_match_the_jax_helpers(axes):
+    """Programs whose ``active_devices`` name a guest's host slots: idle
+    slots are zero-filled on the way in and dropped on the way out."""
+    from repro.runtime.program import CollectiveProgram as JProgram
+    from repro_torch.runtime.program import CollectiveProgram as TProgram
+
+    active = (5, 1, 3, 7)
+    jp, tp = (P("alltoall", 8, 0, (), active_devices=active) for P in (JProgram, TProgram))
+    x = np.random.default_rng(12).standard_normal((4, 4, 2)).astype(np.float32)
+    host = t_opt.torch_scatter_guest(torch.from_numpy(x), tp, axes=axes)
+    assert_bits(host.numpy(), j_opt.jax_scatter_guest(x, jp, axes=axes))
+    assert_bits(t_opt.torch_gather_guest(host, tp, axes=axes).numpy(), x)
 
 
 # ---------------------------------------------------- block matmul oracle
