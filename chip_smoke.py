@@ -184,11 +184,11 @@ def main() -> None:
     del x, got, want
     release()
 
-    groups = [(kd, tabs) for kd, _, tabs in opt.matmul_tables(progs["matmul"]) if kd == "combine"]
+    groups = [tabs for kind_, _, tabs in opt.matmul_tables(progs["matmul"]) if kind_ == "combine"]
     require(len(groups) == 32, f"expected 32 combine groups at grid (4,4), got {len(groups)}")
     val = randn(n_mm, X * X)
     err, widths = 0.0, set()
-    for _, tabs in groups[:2]:  # one round's two groups (k = 5 and k = 4)
+    for tabs in groups[:2]:  # one round's two groups (k = 5 and k = 4)
         t = opt.to_device_tables(tabs, dev)
         got, want = cf.combine_rows(val, t["gather"], t["mask"]), cf._combine_rows_plain(val, t["gather"], t["mask"])
         require(same_bits(got, want), "combine_rows differs from its plain version")
