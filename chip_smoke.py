@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the port's collective runtime on one NVIDIA card, end to end.
+"""Drive the port's collective runtime and dense model path on one NVIDIA
+card, end to end.
 
     python3 chip_smoke.py
 
@@ -8,7 +9,7 @@
    build time and the compiler's register and spill report;
 3. holds each kernel against its plain torch version on the card, at the
    shapes the main path gives it: reduce_rounds and combine_rows
-   bit-exact, block_matmul exact on integer-valued inputs and within
+   bit-exact, in float32 and in bf16, block_matmul exact on integer-valued inputs and within
    rtol = atol = 2e-4 on random-normal ones (the summation order differs);
 4. drives the four collectives at full width through the user's entry
    points (``dist.collectives.*_program``, then
@@ -21,7 +22,40 @@
    runs after a warm-up) beside its bound, the least time the card could
    take: the larger of bytes moved over 3.35 TB/s and operations over the
    float32 (non-tensor-core) rate of 67 TFLOP/s, the H100 SXM data-sheet
-   peaks at 700 W.
+   peaks at 700 W;
+7. holds flash attention (K4) against its plain version on the card: at
+   TinyLlama-1.1B's prefill shape (q (8, 2048, 32, 64) bf16, k/v
+   (8, 2048, 4, 64), causal), at small shapes with head_dim 64, 96
+   (Phi-3-mini's) and 128, with a sliding window of 32 at Sq != Sk and at
+   ragged lengths. bf16 within |Δ| <= 1e-2 + 1e-2·|want| everywhere and
+   ||Δ|| <= 1e-2·||want|| (bf16 out, and p rounds to bf16 after scaling
+   by running maxima taken over other key tiles: about one bf16 step of
+   2^-8); float32 within 2e-4 in both. Shows that the bf16 bound rejects
+   planted faults: on batch row 0 of the prefill shape, a materialised
+   attention with the causal mask off by one, or without the diagonal
+   key, or without the diagonal 64-key tile, fails it, and the same
+   attention with the right mask passes. Times the kernel beside the
+   plain version and ``F.scaled_dot_product_attention`` (timed only,
+   never called by the port) and its bound at the 989 TFLOP/s of the bf16
+   tensor cores;
+8. runs TinyLlama-1.1B's prefill forward at full width (22 layers,
+   random weights from a seed, tokens (8, 2048), its published context)
+   through ``models.model.forward_train`` and ``loss_fn``: exactly 22 K4
+   launches per forward, finite logits and loss, and last-token logits
+   and loss held against the same forward on the naive attention oracle
+   (bf16 through 22 layers: max |Δ| <= 0.5 and ||Δ|| <= 5 % of ||logits||,
+   loss within 0.1 %); prints its ms, tokens/s and peak GiB;
+9. serves 6 requests (prompts of 3–8 tokens, 12 new tokens each, the JAX
+   launcher's smoke defaults) through ``serve.engine.Engine`` at full
+   width with 4 slots and a 2048-token cache, checks that each gets its
+   12 tokens and that the decode path's logits at the first request's
+   last prompt token match the prefill forward's on that prompt (the
+   logits tolerance of step 8); prints its steps, tokens/s and peak GiB. This
+   is a functional check: such toy traffic does not measure serving
+   throughput;
+10. profiles one prefill forward and one engine step with torch.profiler:
+   device time by kernel group (flash attention, matrix products, the
+   rest), kernels per call, and the idle share of the wall time.
 
 Float32 matrix products run in full float32: TF32 is switched off for
 cuBLAS and cuDNN. Every failure raises and exits non-zero before the last
@@ -50,10 +84,14 @@ import time
 
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOP_PER_S = 67e12
+BF16_FLOP_PER_S = 989e12  # dense bf16 tensor-core rate; only for bf16 tensor-core work
 SEED = 0
 CHUNK = 262144  # all-to-all: floats per (src, dst) chunk, 1 MiB
 BUCKET = 6553600  # all-reduce and broadcast: floats per router, 25 MiB
 BLOCK = 512  # matmul: X, the side of each router's block
+PREFILL = (8, 2048)  # TinyLlama-1.1B prefill: batch, tokens (its published context)
+FLASH_TOL = {"torch.bfloat16": 1e-2, "torch.float32": 2e-4}  # K4: rtol = atol = relative rms
+LOGIT_MAX_ABS, LOGIT_REL_RMS, LOSS_REL = 0.5, 0.05, 1e-3  # bf16 model-path tolerances
 
 
 def require(cond: bool, what: str) -> None:
@@ -75,15 +113,20 @@ def main() -> None:
 
     import numpy as np
 
+    from repro_torch.configs import get_config
     from repro_torch.core.matmul import MatmulGrid
     from repro_torch.dist import collectives as dc
     from repro_torch.dist.mesh import dragonfly_layout
     from repro_torch.kernels import build
     from repro_torch.kernels.block_matmul.block_matmul import block_matmul
     from repro_torch.kernels.block_matmul.ref import block_matmul_ref
+    from repro_torch.kernels.flash_attention.flash_attention import (
+        flash_attention, flash_attention_plain)
+    from repro_torch.models import model as M
     from repro_torch.runtime import optimize as opt
     from repro_torch.runtime.backends import get_backend
     from repro_torch.runtime.backends import cuda_fused as cf
+    from repro_torch.serve.engine import Engine, Request
 
     dev = torch.device("cuda", 0)
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -120,8 +163,8 @@ def main() -> None:
             times.append(start.elapsed_time(stop))
         return statistics.median(times)
 
-    def bound(nbytes: float, flops: float) -> tuple[float, str]:
-        t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / FP32_FLOP_PER_S
+    def bound(nbytes: float, flops: float, rate: float = FP32_FLOP_PER_S) -> tuple[float, str]:
+        t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / rate
         return (max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations")
 
     def release():
@@ -205,6 +248,29 @@ def main() -> None:
     emit({"check": "combine_rows", "shape": [n_mm, X * X], "k": sorted(widths), "bit_exact": True,
           **{key: kernels["combine_rows"][key] for key in ("ms", "plain_ms", "bound_ms")}})
     del val, got, want
+    release()
+
+    # K1 and K2 in bf16: every add rounded at once, as the plain replay does
+    ta = opt.to_device_tables(opt.allreduce_tables(progs["allreduce"]), dev)
+    x = randn(n, F).bfloat16()
+    require(same_bits(cf.reduce_rounds(x, ta["gather"], ta["mask"]),
+                      cf._reduce_rounds_plain(x, ta["gather"], ta["mask"])),
+            "reduce_rounds differs from its plain version in bf16")
+    tc = opt.to_device_tables(groups[0], dev)
+    val = randn(n_mm, X * X).bfloat16()
+    require(same_bits(cf.combine_rows(val, tc["gather"], tc["mask"]),
+                      cf._combine_rows_plain(val, tc["gather"], tc["mask"])),
+            "combine_rows differs from its plain version in bf16")
+    emit({"check": "reduce_rounds and combine_rows in bf16", "shapes": [[n, F], [n_mm, X * X]],
+          "bit_exact": True,
+          "reduce_rounds_ms": time_ms(lambda: cf.reduce_rounds(x, ta["gather"], ta["mask"])),
+          "reduce_rounds_plain_ms": time_ms(
+              lambda: cf._reduce_rounds_plain(x, ta["gather"], ta["mask"])),
+          "combine_rows_ms": time_ms(lambda: cf.combine_rows(val, tc["gather"], tc["mask"]),
+                                     reps=20),
+          "combine_rows_plain_ms": time_ms(
+              lambda: cf._combine_rows_plain(val, tc["gather"], tc["mask"]), reps=20)})
+    del x, val
     release()
 
     a, b = randint(n_mm, X, X), randint(n_mm, X, X)
@@ -327,6 +393,226 @@ def main() -> None:
                     f"run_{coll} ({form}) differs from the NumPy reference")
         emit({"reference": coll, "shape": [list(a.shape) for a in args], "forms": ["optimized", "plain"],
               "bit_exact": True})
+
+    # ------------------------- 7. flash attention against its plain version
+    B, S = PREFILL
+    cfg = get_config("tinyllama-1.1b")
+    Hq, Hkv, D = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    cases = [  # (B, Sq, Sk, Hq, Hkv, D, causal, window, dtype)
+        (B, S, S, Hq, Hkv, D, True, None, torch.bfloat16),  # the prefill shape
+        (2, 256, 256, 8, 2, 64, True, None, torch.float32),
+        (2, 192, 320, 4, 4, 96, False, None, torch.float32),  # Phi-3-mini's head_dim
+        (2, 160, 160, 8, 8, 96, True, None, torch.bfloat16),
+        (1, 128, 128, 4, 1, 128, True, None, torch.float32),
+        (2, 200, 333, 8, 2, 64, True, 32, torch.float32),  # window, Sq != Sk, ragged
+        (2, 333, 200, 8, 2, 64, True, 32, torch.bfloat16),  # rows that see no key
+        (3, 1, 77, 8, 8, 64, False, None, torch.bfloat16),
+    ]
+
+    def attention_close(got, want, tol):
+        """|Δ| <= tol + tol·|want| everywhere and ||Δ|| <= tol·||want||:
+        whether both hold, max |Δ| and the relative rms error."""
+        got, want = got.float(), want.float()
+        diff = got - want
+        rel = float(diff.norm() / want.norm())
+        ok = bool((diff.abs() <= tol + tol * want.abs()).all()) and rel <= tol
+        return ok, float(diff.abs().max()), rel
+
+    for i, (b_, sq, sk, hq, hkv, d, causal, window, dtype) in enumerate(cases):
+        tol = FLASH_TOL[str(dtype)]
+        q, k, v = randn(b_, sq, hq, d).to(dtype), randn(b_, sk, hkv, d).to(dtype), \
+            randn(b_, sk, hkv, d).to(dtype)
+        got = flash_attention(q, k, v, causal=causal, window=window)
+        want = flash_attention_plain(q, k, v, causal=causal, window=window)
+        require(got.dtype == dtype and bool(torch.isfinite(got).all()), "flash_attention output")
+        ok, err, rel = attention_close(got, want, tol)
+        require(ok, f"flash_attention off by max {err}, relative rms {rel} at "
+                    f"{(b_, sq, sk, hq, hkv, d, causal, window, dtype)}")
+        emit({"check": "flash_attention", "q": [b_, sq, hq, d], "kv": [b_, sk, hkv, d],
+              "causal": causal, "window": window, "dtype": str(dtype), "rtol": tol, "atol": tol,
+              "rel_rms_tol": tol, "max_abs_err": err, "rel_rms": rel})
+        if i == 0:
+            prefill_err, prefill_qkv, prefill_want0 = err, (q, k, v), want[0]
+    q, k, v = prefill_qkv
+
+    # The bf16 bound rejects a kernel with a planted fault: a materialised
+    # attention on batch row 0 of the prefill shape with the causal mask off
+    # by one, without the diagonal key or without the diagonal 64-key tile
+    # fails it, and the same attention with the right mask passes.
+    def masked_attention(q, k, v, mask):
+        """q (Sq, Hq, D), k/v (Sk, Hkv, D), mask (Sq, Sk); float32 softmax,
+        rows that see no key give 0."""
+        G = q.shape[1] // k.shape[1]
+        kf, vf = (t.float().repeat_interleave(G, dim=1) for t in (k, v))
+        s = torch.einsum("qhd,khd->hqk", q.float(), kf) / q.shape[-1] ** 0.5
+        p = torch.softmax(s.masked_fill(~mask, float("-inf")), dim=-1).nan_to_num(0.0)
+        return torch.einsum("hqk,khd->qhd", p, vf).to(q.dtype)
+
+    pos = torch.arange(S, device=dev)
+    q_pos, k_pos = pos[:, None], pos[None, :]
+    faults = {"right mask": k_pos <= q_pos, "causal mask off by one": k_pos <= q_pos + 1,
+              "diagonal key dropped": k_pos < q_pos,
+              "diagonal 64-key tile dropped": k_pos < q_pos // 64 * 64}
+    verdicts = {}
+    for name, mask in faults.items():
+        ok, err, rel = attention_close(masked_attention(q[0], k[0], v[0], mask), prefill_want0,
+                                       FLASH_TOL["torch.bfloat16"])
+        require(ok == (name == "right mask"),
+                f"the bf16 bound {'rejects' if name == 'right mask' else 'passes'} {name}: "
+                f"max {err}, relative rms {rel}")
+        verdicts[name] = {"passes": ok, "max_abs_err": err, "rel_rms": rel}
+    emit({"check": "flash_attention bound against planted faults", "q": [1, S, Hq, D],
+          "tol": FLASH_TOL["torch.bfloat16"], **verdicts})
+    del prefill_want0, faults, mask
+    nbytes = 2 * q.numel() * 2 + 2 * k.numel() * 2  # q and o, k and v, bf16
+    b_ms, b_by = bound(nbytes, 4 * B * Hq * S * S * D / 2, BF16_FLOP_PER_S)
+    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+    kernels["flash_attention"] = dict(
+        name="flash_attention", route="cuda", source="src/repro_torch/csrc/flash_attention.cu",
+        replaces="src/repro/kernels/flash_attention/flash_attention.py:84",
+        max_abs_err=prefill_err, bound_ms=b_ms, bound_by=b_by,
+        ms=time_ms(lambda: flash_attention(q, k, v, causal=True), reps=10),
+        plain_ms=time_ms(lambda: flash_attention_plain(q, k, v, causal=True), reps=3, warmup=1),
+        library_ms=time_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
+            qt, kt, vt, is_causal=True, enable_gqa=True), reps=10))
+    emit({"check": "flash_attention timing", "q": list(q.shape), "kv": list(k.shape),
+          **{key: kernels["flash_attention"][key] for key in ("ms", "plain_ms", "library_ms",
+                                                             "bound_ms", "bound_by")}})
+    del q, k, v, qt, kt, vt, prefill_qkv, got, want
+    release()
+
+    # ------------------------------- 8. TinyLlama-1.1B prefill at full width
+    all_counters = counters + (flash_attention,)
+    params = M.init_params(torch.Generator(device=dev).manual_seed(SEED), cfg, device=dev)
+    tokens = torch.randint(1, cfg.vocab, PREFILL, generator=gen, device=dev)
+    batch = {"tokens": tokens, "labels": tokens}
+
+    def model_run(fn, *args):
+        """Run fn with every launch count at 0; return its result and the counts."""
+        for c in all_counters:
+            c.launches = 0
+        out = fn(*args)
+        torch.cuda.synchronize()
+        return out, {c.__name__: c.launches for c in all_counters}
+
+    def logits_close(got, want, what):
+        got, want = got.float(), want.float()
+        err = max_abs_err(got, want)
+        rel = float((got - want).norm() / want.norm())
+        require(bool(torch.isfinite(got).all()), f"{what}: non-finite logits")
+        require(err <= LOGIT_MAX_ABS and rel <= LOGIT_REL_RMS,
+                f"{what}: logits off by max {err}, relative rms {rel}")
+        return err, rel
+
+    only_k4 = {name: 0 for name in launches} | {"flash_attention": cfg.n_layers}
+    torch.cuda.reset_peak_memory_stats()
+    (logits, _, _), counts = model_run(M.forward_train, params, batch, cfg, True)
+    prefill_peak = torch.cuda.max_memory_allocated() / 2**30
+    require(counts == only_k4, f"forward_train launched {counts}, expected {only_k4}")
+    launches["flash_attention"] = counts["flash_attention"]
+    last = logits[:, -1].float()
+    del logits
+    (loss, metrics), counts = model_run(M.loss_fn, params, batch, cfg, True)
+    require(counts == only_k4, f"loss_fn launched {counts}, expected {only_k4}")
+    require(bool(torch.isfinite(loss)), f"loss is {float(loss)}")
+    (naive, _, _), counts = model_run(M.forward_train, params, batch, cfg, False)
+    require(counts["flash_attention"] == 0, "the naive forward launched flash_attention")
+    naive_last = naive[:, -1].float()
+    del naive
+    release()
+    naive_loss = M.loss_fn(params, batch, cfg, False)[0]
+    err, rel = logits_close(last, naive_last, "kernel vs naive forward")
+    loss_rel = abs(float(loss) - float(naive_loss)) / abs(float(naive_loss))
+    require(loss_rel <= LOSS_REL, f"loss {float(loss)} vs naive {float(naive_loss)}")
+    fwd_ms = time_ms(lambda: M.forward_train(params, batch, cfg, True), reps=3, warmup=1)
+    runs.append({"run": "prefill", "model": cfg.name, "tokens": list(PREFILL),
+                 "launches": {"flash_attention": cfg.n_layers}, "ms": fwd_ms,
+                 "tokens_per_s": B * S / fwd_ms * 1e3, "peak_gib": prefill_peak,
+                 "loss": float(loss), "naive_loss": float(naive_loss),
+                 "last_logits_vs_naive": {"max_abs_err": err, "rel_rms": rel}})
+    emit(runs[-1])
+    del last, naive_last
+    release()
+
+    # --------------------------------- 9. serving at full width, 4 slots
+    class Recording(Engine):
+        """The engine, keeping each step's positions and logits."""
+
+        def _forward(self):
+            out = super()._forward()
+            self.trace.append((self.positions.copy(), out))
+            return out
+
+    rng = np.random.default_rng(SEED)
+    reqs = [Request(rid=i, prompt=rng.integers(1, cfg.vocab, size=rng.integers(3, 9)).astype(np.int32),
+                    max_new_tokens=12) for i in range(6)]
+    torch.cuda.reset_peak_memory_stats()
+    eng = Recording(cfg, params, batch_slots=4, max_seq=2048, device=dev)
+    eng.trace = []
+    for c in all_counters:
+        c.launches = 0
+    pending = list(reqs)
+    t0 = time.perf_counter()
+    while pending or eng.slot_req:
+        while pending and eng.free_slots:
+            eng.admit(pending.pop(0))
+        eng.step()
+    torch.cuda.synchronize()
+    serve_s = time.perf_counter() - t0
+    serve_peak = torch.cuda.max_memory_allocated() / 2**30
+    serve_counts = {c.__name__: c.launches for c in all_counters}
+    require(all(r.done and len(r.out) == 12 for r in reqs),
+            f"requests not answered: {[(r.rid, r.done, len(r.out)) for r in reqs]}")
+    require(eng.tokens_out == 72, f"engine committed {eng.tokens_out} tokens, expected 72")
+    p0 = reqs[0].prompt  # request 0 sits in slot 0
+    step_logits = next(out[0] for pos, out in eng.trace if pos[0] == len(p0) - 1)
+    full = M.forward_train(params, {"tokens": torch.from_numpy(p0).to(dev)[None]}, cfg, True)[0]
+    err, rel = logits_close(torch.from_numpy(step_logits).to(dev), full[0, -1],
+                            "decode vs prefill logits")
+    runs.append({"run": "serve", "model": cfg.name, "slots": 4, "max_seq": 2048,
+                 "requests": len(reqs), "prompt_lens": [len(r.prompt) for r in reqs],
+                 "steps": eng.steps_run, "tokens": eng.tokens_out, "s": serve_s,
+                 "tokens_per_s": eng.tokens_out / serve_s, "peak_gib": serve_peak,
+                 "launches": serve_counts,
+                 "decode_vs_prefill_logits": {"max_abs_err": err, "rel_rms": rel}})
+    emit(runs[-1])
+    del full
+    release()
+
+    # ---------------------------- 10. where the model path's device time goes
+    def device_profile(fn, wall_ms, reps=3):
+        """Device time per call by kernel group, from torch.profiler, beside
+        a wall time taken without the profiler; the idle share is the part
+        of the wall time with no kernel running (None where the profiler
+        saw no device time)."""
+        from torch.profiler import ProfilerActivity, profile
+
+        fn()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        groups, n_kernels = {}, 0
+        for e in prof.key_averages():
+            if e.device_type != torch.autograd.DeviceType.CUDA:
+                continue
+            name = e.key.lower()
+            group = ("flash_attention" if "flash_attention" in name else
+                     "matmul" if any(w in name for w in ("gemm", "gemv", "cutlass", "xmma", "nvjet"))
+                     else "other")
+            groups[group] = groups.get(group, 0.0) + e.self_device_time_total / 1e3 / reps
+            n_kernels += e.count
+        busy = sum(groups.values())
+        return {"wall_ms": wall_ms, "device_ms": busy, "kernels_per_call": n_kernels / reps,
+                "idle_share": 1 - busy / wall_ms if busy else None, "device_ms_by_group": groups}
+
+    step_ms = time_ms(eng._forward, reps=5, warmup=1)
+    emit({"profile": "prefill forward", **device_profile(
+        lambda: M.forward_train(params, batch, cfg, True), fwd_ms)})
+    emit({"profile": "engine step, 4 slots", **device_profile(eng._forward, step_ms)})
+    del params, eng, batch
+    release()
 
     # --------------------------------------------------------------- report
     for name, rec in kernels.items():

@@ -12,7 +12,7 @@
 // memory each round would move the buffer 2·R times. Here each block owns
 // a column tile [f0, f0 + block_f) of every row and keeps that (n, block_f)
 // slab in shared memory across all R rounds: the buffer is read once and
-// written once, 2·n·F·4 bytes in all. Columns are independent (a gather
+// written once, 2·n·F times the element size in bytes. Columns are independent (a gather
 // only moves rows), so blocks never talk to each other.
 //
 // Bit-exactness: every thread keeps its elements' values in registers and
@@ -23,9 +23,16 @@
 // mask, so -0.0, inf and NaN behave as jnp.where does. Build without
 // fast-math.
 //
+// Float32 and bfloat16 values. A bf16 buffer is held as float in registers
+// and in the slab, and every add is done in float32 and rounded to bf16
+// at once (__float2bfloat16, round to nearest even), which is what a torch
+// bf16 add does on the card: the kernel stays bit-exact with the plain
+// replay in bf16 too. Column tiles are counted in elements either way.
+//
 // Plain C interface for ctypes. Launches on the caller's stream, allocates
 // nothing, returns cudaGetLastError() after the launch.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -39,8 +46,19 @@ constexpr int kPerThread = 16;
 // n * block_f stays within it.
 constexpr int kSlabFloats = kThreads * kPerThread;
 
+// The value type's rounding of a float32 sum.
+__device__ __forceinline__ float rounded(float x, float) { return x; }
+__device__ __forceinline__ float rounded(float x, __nv_bfloat16) {
+  return __bfloat162float(__float2bfloat16(x));
+}
+__device__ __forceinline__ float to_float(float x) { return x; }
+__device__ __forceinline__ float to_float(__nv_bfloat16 x) { return __bfloat162float(x); }
+__device__ __forceinline__ void store(float* p, float x) { *p = x; }
+__device__ __forceinline__ void store(__nv_bfloat16* p, float x) { *p = __float2bfloat16(x); }
+
+template <typename T>
 __global__ void __launch_bounds__(kThreads, 2)
-reduce_rounds_kernel(const float* __restrict__ x, float* __restrict__ out,
+reduce_rounds_kernel(const T* __restrict__ x, T* __restrict__ out,
                      const int32_t* __restrict__ gather,
                      const uint8_t* __restrict__ mask, int rounds, int k_rows,
                      int n, long long features, int shift, bool self_add) {
@@ -59,7 +77,7 @@ reduce_rounds_kernel(const float* __restrict__ x, float* __restrict__ out,
   for (int j = 0; j < kPerThread; ++j) {
     const int e = threadIdx.x + j * kThreads;
     const int i = e >> shift, c = e & (block_f - 1);
-    v[j] = (e < elems && c < width) ? x[static_cast<long long>(i) * features + f0 + c] : 0.0f;
+    v[j] = (e < elems && c < width) ? to_float(x[static_cast<long long>(i) * features + f0 + c]) : 0.0f;
   }
 
   for (int r = 0; r < rounds; ++r) {
@@ -82,12 +100,12 @@ reduce_rounds_kernel(const float* __restrict__ x, float* __restrict__ out,
         if (e < elems) {
           const int i = e >> shift, c = e & (block_f - 1);
           const float val = slab[(__ldg(gather + row + i) << shift) + c];
-          recv[j] += __ldg(mask + row + i) ? val : 0.0f;
+          recv[j] = rounded(recv[j] + (__ldg(mask + row + i) ? val : 0.0f), T());
         }
       }
     }
 #pragma unroll
-    for (int j = 0; j < kPerThread; ++j) v[j] = self_add ? v[j] + recv[j] : recv[j];
+    for (int j = 0; j < kPerThread; ++j) v[j] = self_add ? rounded(v[j] + recv[j], T()) : recv[j];
     __syncthreads();  // every read of this round's slab is done
   }
 
@@ -95,7 +113,7 @@ reduce_rounds_kernel(const float* __restrict__ x, float* __restrict__ out,
   for (int j = 0; j < kPerThread; ++j) {
     const int e = threadIdx.x + j * kThreads;
     const int i = e >> shift, c = e & (block_f - 1);
-    if (e < elems && c < width) out[static_cast<long long>(i) * features + f0 + c] = v[j];
+    if (e < elems && c < width) store(out + static_cast<long long>(i) * features + f0 + c, v[j]);
   }
 }
 
@@ -103,18 +121,28 @@ reduce_rounds_kernel(const float* __restrict__ x, float* __restrict__ out,
 
 extern "C" int reduce_rounds_slab_floats() { return kSlabFloats; }
 
-// x, out: (n, features) float32, contiguous. gather: (rounds, k_rows, n)
-// int32 with entries in [0, n); mask: (rounds, k_rows, n) bool bytes.
-// block_f = 1 << shift with n * block_f <= kSlabFloats.
+// x, out: (n, features) float32 (dtype 0) or bfloat16 (dtype 1), contiguous.
+// gather: (rounds, k_rows, n) int32 with entries in [0, n); mask: (rounds,
+// k_rows, n) bool bytes. block_f = 1 << shift with n * block_f <= kSlabFloats.
 extern "C" int reduce_rounds_launch(const void* x, void* out, const void* gather,
                                     const void* mask, int rounds, int k_rows,
                                     int n, long long features, int shift,
-                                    int self_add, void* stream) {
+                                    int self_add, int dtype, void* stream) {
   const long long n_blocks = (features + (1LL << shift) - 1) >> shift;
-  reduce_rounds_kernel<<<static_cast<unsigned>(n_blocks), kThreads, 0,
-                         static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(x), static_cast<float*>(out),
-      static_cast<const int32_t*>(gather), static_cast<const uint8_t*>(mask),
-      rounds, k_rows, n, features, shift, self_add != 0);
+  const dim3 grid(static_cast<unsigned>(n_blocks));
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int32_t* g = static_cast<const int32_t*>(gather);
+  const uint8_t* m = static_cast<const uint8_t*>(mask);
+  if (dtype == 0) {
+    reduce_rounds_kernel<float><<<grid, kThreads, 0, s>>>(
+        static_cast<const float*>(x), static_cast<float*>(out), g, m, rounds, k_rows, n,
+        features, shift, self_add != 0);
+  } else if (dtype == 1) {
+    reduce_rounds_kernel<__nv_bfloat16><<<grid, kThreads, 0, s>>>(
+        static_cast<const __nv_bfloat16*>(x), static_cast<__nv_bfloat16*>(out), g, m, rounds,
+        k_rows, n, features, shift, self_add != 0);
+  } else {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   return static_cast<int>(cudaGetLastError());
 }

@@ -23,20 +23,24 @@ import threading
 
 CSRC = pathlib.Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = pathlib.Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
-SOURCES = ("reduce_rounds", "block_matmul")
+SOURCES = ("reduce_rounds", "block_matmul", "flash_attention")
 # No fast-math: the reduce kernels must be bit-exact with the plain replay.
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
-_P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+_P, _I, _LL, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
 #: C signatures of every exported function: name -> argument types (all return int).
 SIGNATURES = {
     "reduce_rounds": {
         "reduce_rounds_slab_floats": [],
-        "reduce_rounds_launch": [_P, _P, _P, _P, _I, _I, _I, _LL, _I, _I, _P],
+        "reduce_rounds_launch": [_P, _P, _P, _P, _I, _I, _I, _LL, _I, _I, _I, _P],
     },
     "block_matmul": {
         "block_matmul_launch": [_P, _P, _P, _I, _I, _I, _I, _I, _P],
+    },
+    "flash_attention": {
+        "flash_attention_launch": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, *[_LL] * 12,
+                                   _I, _I, _F, _I, _P],
     },
 }
 

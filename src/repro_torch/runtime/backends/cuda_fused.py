@@ -49,6 +49,9 @@ def _combine_rows_plain(flat: torch.Tensor, gather: torch.Tensor,
     return _opt.combine_fold(torch.zeros_like(flat), flat, gather, mask)
 
 
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+
+
 @functools.lru_cache(maxsize=None)
 def _slab_floats() -> int:
     return build.load("reduce_rounds").reduce_rounds_slab_floats()
@@ -70,8 +73,8 @@ def _launch_rounds(flat, gather, mask, *, self_add: bool, what: str):
     if flat.device.type != "cuda" or gather.device != flat.device or mask.device != flat.device:
         raise ValueError(f"{what} takes CPU or same-card CUDA tensors, got "
                          f"{flat.device}, {gather.device}, {mask.device}")
-    if flat.dtype != torch.float32:
-        raise TypeError(f"{what} takes float32 on the card, got {flat.dtype}")
+    if flat.dtype not in _DTYPES:
+        raise TypeError(f"{what} takes float32 or bfloat16 on the card, got {flat.dtype}")
     if gather.dtype != torch.int32 or mask.dtype != torch.bool:
         raise TypeError(f"{what} takes int32 gather and bool mask tables, got "
                         f"{gather.dtype} and {mask.dtype}")
@@ -90,7 +93,7 @@ def _launch_rounds(flat, gather, mask, *, self_add: bool, what: str):
     with torch.cuda.device(flat.device):
         err = build.load("reduce_rounds").reduce_rounds_launch(
             flat.data_ptr(), out.data_ptr(), gather.data_ptr(), mask.data_ptr(),
-            rounds, k_rows, n, features, shift, int(self_add),
+            rounds, k_rows, n, features, shift, int(self_add), _DTYPES[flat.dtype],
             torch.cuda.current_stream().cuda_stream)
     build.check(err, f"{what} launch")
     return out
@@ -100,7 +103,8 @@ def reduce_rounds(flat: torch.Tensor, gather: torch.Tensor,
                   mask: torch.Tensor) -> torch.Tensor:
     """K1, the §4 all-reduce replay in one launch: for each of R rounds,
     ``val += Σ_k where(mask[r, k], val[gather[r, k]], 0)`` folded in k
-    order. ``flat`` is (n, F) float32; the tables are (R, k, n) int32 / bool
+    order. ``flat`` is (n, F) float32 or bfloat16 (each bf16 add is rounded
+    at once, as a torch bf16 add is); the tables are (R, k, n) int32 / bool
     (``optimize.stacked_combine_tables``), gathers in [0, n) as ``optimize``
     builds them (the kernel does not check). Bit-exact with the plain
     version. Every launch adds one to ``reduce_rounds.launches``."""

@@ -20,6 +20,8 @@ from repro_torch.core.topology import D3
 from repro_torch.dist import collectives as dc
 from repro_torch.dist.mesh import DeviceLayout
 from repro_torch.kernels.block_matmul.block_matmul import block_matmul
+from repro_torch.kernels.flash_attention.flash_attention import (
+    flash_attention, flash_attention_plain)
 from repro_torch.kernels.block_matmul.ref import block_matmul_ref
 from repro_torch.runtime import optimize as opt
 from repro_torch.runtime.backends import cuda_fused as cf
@@ -46,6 +48,11 @@ def _special_values(rng, shape):
     flat[picks] = np.array([np.nan, np.inf, -np.inf, -0.0, 0.0, -0.0, np.nan, 1e30],
                            np.float32)[: len(picks)]
     return x
+
+
+def _same_bits(got, want):
+    assert got.dtype == want.dtype and got.shape == want.shape
+    assert torch.equal(got.contiguous().view(torch.uint8), want.contiguous().view(torch.uint8))
 
 
 def _combine_groups(grid):
@@ -185,6 +192,35 @@ def test_combine_rows_kernel_bit_exact(cuda, grid, X):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("km", LAYOUTS, ids=str)
+@pytest.mark.parametrize("F", [1, 37, 4097])
+def test_reduce_rounds_kernel_bit_exact_in_bf16(cuda, km, F):
+    """Each bf16 add rounded at once, as the plain torch replay does on the
+    card: the same bits, NaN, ±inf and ±0 included."""
+    p = dc.allreduce_program(DeviceLayout(D3(*km)), optimized=True)
+    t = opt.to_device_tables(opt.allreduce_tables(p), cuda)
+    x = torch.from_numpy(_special_values(np.random.default_rng(F), (p.n, F))).to(cuda, torch.bfloat16)
+    before = cf.reduce_rounds.launches
+    got = cf.reduce_rounds(x, t["gather"], t["mask"])
+    torch.cuda.synchronize()
+    assert cf.reduce_rounds.launches == before + 1
+    _same_bits(got, cf._reduce_rounds_plain(x, t["gather"], t["mask"]))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("grid", GRIDS + [(4, 4)], ids=str)
+@pytest.mark.parametrize("X", [3, 33])
+def test_combine_rows_kernel_bit_exact_in_bf16(cuda, grid, X):
+    rng = np.random.default_rng(X)
+    for op in _combine_groups(grid):
+        t = opt.to_device_tables({"gather": op.gather, "mask": op.mask}, cuda)
+        val = torch.from_numpy(_special_values(rng, (op.gather.shape[1], X * X))).to(
+            cuda, torch.bfloat16)
+        _same_bits(cf.combine_rows(val, t["gather"], t["mask"]),
+                   cf._combine_rows_plain(val, t["gather"], t["mask"]))
+
+
+@pytest.mark.gpu
 def test_reduce_kernels_refuse_other_dtypes(cuda):
     p = dc.allreduce_program(DeviceLayout(D3(2, 2)), optimized=True)
     t = opt.to_device_tables(opt.allreduce_tables(p), cuda)
@@ -243,3 +279,53 @@ def test_backend_on_card_matches_reference(cuda, km):
     got = be.run_matmul(B, A, dc.matmul_program(*grid)).cpu().numpy()
     np.testing.assert_array_equal(got, B @ A)
     assert cf.combine_rows.launches > before[0] and block_matmul.launches > before[1]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=str)
+@pytest.mark.parametrize("b,sq,sk,hq,hkv,d,causal,window", [
+    (2, 128, 128, 4, 4, 64, True, None),
+    (2, 128, 256, 4, 2, 64, False, None),
+    (2, 256, 256, 8, 1, 64, True, 64),
+    (1, 100, 130, 8, 2, 96, True, 32),
+    (2, 192, 192, 4, 4, 96, True, None),
+    (1, 130, 70, 4, 1, 128, True, 32),
+    (3, 1, 200, 4, 4, 64, False, None),
+], ids=str)
+def test_flash_attention_kernel_matches_plain(cuda, dtype, b, sq, sk, hq, hkv, d, causal,
+                                               window):
+    """K4 against its plain version on the card, in the (B, S, H, D) layout
+    with grouped KV heads, head_dim 64, 96 (Phi-3-mini) and 128, ragged
+    lengths, Sq != Sk and windows that leave rows with no key. float32
+    within 2e-4 (the sums run in another order; the kernel's hi/lo bf16
+    split keeps about 16 bits); bf16 within rtol = atol = 1e-2 and a
+    relative rms error of 1e-2 (the kernel and the plain version round p
+    and the output at other points: about one bf16 step of 2^-8)."""
+    rng = np.random.default_rng(10)
+    q, k, v = (torch.from_numpy(rng.standard_normal(s).astype(np.float32)).to(cuda, dtype)
+               for s in [(b, sq, hq, d), (b, sk, hkv, d), (b, sk, hkv, d)])
+    before = flash_attention.launches
+    got = flash_attention(q, k, v, causal=causal, window=window)
+    torch.cuda.synchronize()
+    assert flash_attention.launches == before + 1 and got.dtype == dtype
+    want = flash_attention_plain(q, k, v, causal=causal, window=window)
+    tol = 1e-2 if dtype == torch.bfloat16 else 2e-4
+    np.testing.assert_allclose(got.float().cpu().numpy(), want.float().cpu().numpy(),
+                               rtol=tol, atol=tol)
+    assert float((got.float() - want.float()).norm() / want.float().norm()) <= 1e-2
+    # head 0 alone, through strided views, is head 0 of the group bit for bit
+    head0 = flash_attention(q[:, :, :1], k[:, :, :1], v[:, :, :1], causal=causal, window=window)
+    np.testing.assert_array_equal(head0.float().cpu().numpy(), got[:, :, :1].float().cpu().numpy())
+
+
+@pytest.mark.gpu
+def test_flash_attention_kernel_refuses_what_it_does_not_take(cuda):
+    x = torch.zeros((1, 64, 2, 48), device=cuda)
+    with pytest.raises(ValueError, match="head_dim"):
+        flash_attention(x, x, x)
+    x = torch.zeros((1, 64, 2, 64), device=cuda, dtype=torch.float16)
+    with pytest.raises(TypeError, match="bfloat16"):
+        flash_attention(x, x, x)
+    x = torch.zeros((1, 64, 2, 72), device=cuda)[..., 2:66]  # rows 8 bytes off 16
+    with pytest.raises(ValueError, match="aligned"):
+        flash_attention(x, x, x)

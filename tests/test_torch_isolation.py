@@ -72,3 +72,32 @@ def test_default_device_is_the_card_and_raises_without_one(monkeypatch):
 def test_other_devices_are_refused():
     with pytest.raises(ValueError, match="'cuda' or 'cpu'"):
         CudaFusedBackend(device="meta")
+
+
+def test_model_entry_points_default_to_the_card_and_raise_without_one(monkeypatch):
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models import model as M
+    from repro_torch.serve.engine import Engine
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = get_smoke_config("tinyllama-1.1b")
+    with pytest.raises(RuntimeError, match="CUDA card"):
+        M.init_params(0, cfg)
+    with pytest.raises(RuntimeError, match="CUDA card"):
+        M.init_cache(cfg, 1, 8)
+    params = M.init_params(0, cfg, device="cpu")
+    assert params["embed"]["table"].device == torch.device("cpu")
+    with pytest.raises(RuntimeError, match="CUDA card"):
+        Engine(cfg, params, batch_slots=1, max_seq=8)
+    assert Engine(cfg, params, batch_slots=1, max_seq=8, device="cpu").device.type == "cpu"
+
+
+def test_engine_refuses_parameters_on_another_device():
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models import model as M
+    from repro_torch.serve.engine import Engine
+
+    cfg = get_smoke_config("tinyllama-1.1b")
+    params = M.init_params(0, cfg, device="cpu")
+    with pytest.raises(ValueError, match="parameters lie on"):
+        Engine(cfg, params, batch_slots=1, max_seq=8, device="meta")

@@ -13,6 +13,7 @@ where the derivation (``test_torch_core.py``) agrees.
 import numpy as np
 import pytest
 import torch
+import jax
 import jax.numpy as jnp
 
 from repro.dist import collectives as j_dc
@@ -251,3 +252,55 @@ def test_batched_matmul_plain_matches_vmapped_pallas():
     b = rng.integers(-3, 4, (5, 4, 4)).astype(np.float32)
     got = t_ops.batched_matmul(torch.from_numpy(a), torch.from_numpy(b))
     assert_bits(got.numpy(), j_batched_matmul(a, b, interpret=True))
+
+
+# ------------------------------------------------- bf16 through K1 and K2
+def _bf16_special(seed, shape):
+    """Random-normal bf16 with NaN, ±inf and ±0 sprinkled in, as numpy
+    float32 holding bf16 values (both sides read them exactly)."""
+    x = np.random.default_rng(seed).standard_normal(shape).astype(np.float32)
+    flat = x.reshape(-1)
+    flat[:6] = [np.nan, np.inf, -np.inf, -0.0, 0.0, 1e30]
+    return torch.from_numpy(x).bfloat16().float().numpy()
+
+
+def _bf16_bits(got: torch.Tensor, want) -> None:
+    want = torch.from_numpy(np.asarray(want, np.float32)).bfloat16()
+    assert got.dtype == torch.bfloat16 and got.shape == want.shape
+    assert torch.equal(got.view(torch.int16), want.view(torch.int16))
+
+
+@pytest.mark.parametrize("km", LAYOUTS + [(4, 4)], ids=str)
+def test_allreduce_bf16_plain_path_is_bit_exact_with_pallas(km):
+    """The plain version of K1 in bf16 (each add rounded at once) against
+    ``pallas_fused``'s reduce-rounds kernel in interpret mode: bit for bit,
+    since XLA's CPU adds round each bf16 sum as torch's do."""
+    jo = j_dc.allreduce_program(JLayout(JD3(*km)), optimized=True)
+    to = t_dc.allreduce_program(TLayout(TD3(*km)), optimized=True)
+    x = _bf16_special(13, (jo.n, 37))
+    got = CPU.run_allreduce(torch.from_numpy(x).bfloat16(), to)
+    _bf16_bits(got, PAL.run_allreduce(jnp.asarray(x, jnp.bfloat16), jo))
+
+
+@pytest.mark.parametrize("grid", [(1, 2), (2, 2)], ids=str)
+def test_combine_rows_bf16_plain_path_is_bit_exact_with_pallas(grid):
+    """K2's plain version in bf16 against ``_combine_group_kernel`` run by
+    ``pallas_call`` in interpret mode, group by group."""
+    from jax.experimental import pallas as pl
+    from repro.runtime.backends.pallas_fused import _combine_group_kernel
+    from repro_torch.runtime.backends import cuda_fused as cf
+
+    jo = j_dc.matmul_program(*grid, optimized=True)
+    groups = [op for op in jo.ops if type(op).__name__ == "FusedCombine"]
+    assert groups
+    for i, op in enumerate(groups):
+        val = _bf16_special(14 + i, (op.gather.shape[1], 9))
+        want = pl.pallas_call(
+            _combine_group_kernel,
+            out_shape=jax.ShapeDtypeStruct(val.shape, jnp.bfloat16),
+            interpret=True,
+        )(jnp.asarray(op.gather, jnp.int32), jnp.asarray(op.mask, jnp.int32),
+          jnp.asarray(val, jnp.bfloat16))
+        got = cf.combine_rows(torch.from_numpy(val).bfloat16(), torch.from_numpy(op.gather),
+                              torch.from_numpy(op.mask))
+        _bf16_bits(got, want)
