@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the port's collective runtime and dense model path on one NVIDIA
-card, end to end.
+"""Drive the port's collective runtime, dense model path and per-shard
+path on one NVIDIA card, end to end.
 
     python3 chip_smoke.py
 
@@ -55,7 +55,21 @@ card, end to end.
    throughput;
 10. profiles one prefill forward and one engine step with torch.profiler:
    device time by kernel group (flash attention, matrix products, the
-   rest), kernels per call, and the idle share of the wall time.
+   rest), kernels per call, and the idle share of the wall time;
+11. runs the per-shard §4 all-reduce: 8 processes share the card in one
+   gloo group (``launch.mesh.spawn``, D3(2,2)), each with a 25 MiB bucket
+   from the seed plus its rank, and call
+   ``CudaFusedBackend().allreduce_shard`` 5 times back to back with fresh
+   data (in call 2 rank 3 sleeps 50 ms before its first put), 3 rounds of
+   K5 each: 3 puts, 3 signals and 3 waits per call per rank, counted.
+   Every call is held bit for bit against the plain exchange on host
+   copies, and the first against the NumPy ``np_allreduce`` and K1
+   ``run_allreduce`` on the stacked (8, 6553600) array. Prints each rank's
+   median ms of one call, of one put, of one wait (add included), of one
+   plain call and of one local 25 MiB ``copy_`` (the yardstick), the
+   bound of one call of all 8 ranks (per round and rank: read x, read the
+   partner's x, write the sum; the staging copy through the window is the
+   design's cost, not the function's) and the bound of one put.
 
 Float32 matrix products run in full float32: TF32 is switched off for
 cuBLAS and cuDNN. Every failure raises and exits non-zero before the last
@@ -70,7 +84,9 @@ The cells (layout D3(K, M) has n = K·M² routers):
               DDP's default gradient bucket;
   broadcast   D3(4,4) from root 0, the same 25 MiB per router;
   matmul      grid (4,4) = D3(16,4), n = 256, X = 512: B, A 8192 × 8192 f32
-              with integer entries in [-4, 4], so B @ A is exact.
+              with integer entries in [-4, 4], so B @ A is exact;
+  per-shard   D3(2,2), 8 ranks (one 8-GPU node's shape) sharing the card,
+  all-reduce  x (6553600,) f32 per rank: the DDP bucket again.
 """
 
 from __future__ import annotations
@@ -92,6 +108,9 @@ BLOCK = 512  # matmul: X, the side of each router's block
 PREFILL = (8, 2048)  # TinyLlama-1.1B prefill: batch, tokens (its published context)
 FLASH_TOL = {"torch.bfloat16": 1e-2, "torch.float32": 2e-4}  # K4: rtol = atol = relative rms
 LOGIT_MAX_ABS, LOGIT_REL_RMS, LOSS_REL = 0.5, 0.05, 1e-3  # bf16 model-path tolerances
+RANKS = 8  # per-shard phase: D3(2,2), the shape of one 8-GPU node, all on one card here
+CALLS = 5  # back-to-back allreduce_shard calls with fresh data
+SKEW = (2, 3, 0.05)  # in call 2, rank 3 sleeps 50 ms before its first put
 
 
 def require(cond: bool, what: str) -> None:
@@ -101,6 +120,169 @@ def require(cond: bool, what: str) -> None:
 
 def emit(record: dict) -> None:
     print(json.dumps(record), flush=True)
+
+
+def per_shard_rank(rank, group, layout, seed):
+    """One rank of the per-shard phase: CALLS back-to-back calls of
+    ``CudaFusedBackend().allreduce_shard`` on a fresh 25 MiB buffer each
+    (one rank late by SKEW), with K5's launch counts set to 0 just before
+    and read just after; then each call held bit for bit against the plain
+    version on host copies, and this rank's times. Returns host data."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.dist import collectives as dc
+    from repro_torch.launch.mesh import rank_device
+    from repro_torch.runtime.backends import cuda_fused as cf
+
+    dev = rank_device(rank)
+    prog = dc.allreduce_program(layout)
+    be = cf.CudaFusedBackend()
+    gen = torch.Generator(device=dev).manual_seed(seed + rank)
+    xs = [torch.randn(BUCKET, generator=gen, device=dev) for _ in range(CALLS)]
+    k5 = (cf.ring_put, cf.ring_signal, cf.ring_wait_add)
+    torch.cuda.synchronize()
+    dist.barrier()
+    for kernel in k5:
+        kernel.launches = 0
+    outs = []
+    for call, x in enumerate(xs):
+        if (call, rank) == SKEW[:2]:
+            time.sleep(SKEW[2])
+        outs.append(be.allreduce_shard(x, group, prog))
+    counts = {kernel.__name__: kernel.launches for kernel in k5}
+
+    err = 0.0
+    for call, (x, got) in enumerate(zip(xs, outs)):
+        want, got = cf.allreduce_shard_plain(x.cpu(), group, prog), got.cpu()
+        require(torch.equal(got.view(torch.int32), want.view(torch.int32)),
+                f"rank {rank}, call {call}: K5 differs from the plain exchange")
+        err = max(err, float((got - want).abs().max()))
+
+    def host_ms(fn, reps):
+        times = []
+        for _ in range(reps):
+            dist.barrier()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+        return statistics.median(times)
+
+    def event_ms(fn, reps):
+        times = []
+        for _ in range(reps):
+            dist.barrier()
+            start, stop = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+            start.record()
+            fn()
+            stop.record()
+            stop.synchronize()
+            times.append(start.elapsed_time(stop))
+        return statistics.median(times)
+
+    x, xh = xs[0], xs[0].cpu()
+    window, partners = cf.ring_window(group, x, prog), cf.ring_partners(prog)
+    call_ms = host_ms(lambda: be.allreduce_shard(x, group, prog), 10)
+    plain_ms = host_ms(lambda: cf.allreduce_shard_plain(xh, group, prog), 3)
+    dst = torch.empty_like(x)
+    copy_ms = event_ms(lambda: dst.copy_(x), 10)
+    put_ms, wait_ms = [], []
+    for _ in range(10):  # allreduce_shard's rounds, with events around put and wait
+        dist.barrier()
+        window.epoch += 1
+        val, events = x, []
+        for r, table in enumerate(partners):
+            e = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+            e[0].record()
+            cf.ring_put(val, window, r, int(table[rank]))
+            e[1].record()
+            cf.ring_signal(window, r, int(table[rank]))
+            if window.shared:  # as ring_exchange
+                torch.cuda.current_stream().synchronize()
+                dist.barrier()
+            e[2].record()
+            val = cf.ring_wait_add(val, window, r, int(table[rank]))
+            e[3].record()
+            events.append(e)
+        window.check()
+        put_ms += [e[0].elapsed_time(e[1]) for e in events]
+        wait_ms += [e[2].elapsed_time(e[3]) for e in events]
+    orchestration = "barrier" if window.shared else "spin"
+    cf.close_ring_windows(group)
+    return {"counts": counts, "rounds": len(partners), "max_abs_err": err,
+            "orchestration": orchestration,
+            "out0": outs[0].cpu().numpy(), "call_ms": call_ms, "plain_ms": plain_ms,
+            "copy_ms": copy_ms, "put_ms": statistics.median(put_ms),
+            "wait_ms": statistics.median(wait_ms)}
+
+
+def per_shard_phase(dev, seed):
+    """The per-shard §4 all-reduce: RANKS processes share the card in one
+    gloo group (D3(2,2)), each with a 25 MiB bucket, CALLS calls of
+    allreduce_shard (K5) back to back. Holds every call against the plain
+    exchange (in the ranks) and the first against the port's NumPy
+    np_allreduce and K1 run_allreduce on the stacked (RANKS, BUCKET) array
+    (the data holds no -0.0, checked, so the per-shard x + x_partner and
+    the whole-array fold from +0.0 agree bit for bit). Returns K5's record for
+    the kernels line."""
+    import numpy as np
+    import torch
+
+    from repro_torch.dist import collectives as dc
+    from repro_torch.dist.mesh import dragonfly_layout
+    from repro_torch.kernels import build
+    from repro_torch.launch.mesh import spawn
+    from repro_torch.runtime import optimize as opt
+    from repro_torch.runtime.backends import get_backend
+
+    layout = dragonfly_layout(RANKS)
+    require((layout.topo.K, layout.topo.M) == (2, 2), f"dragonfly_layout({RANKS}) is {layout.topo}")
+    build.build_all()  # the ranks only load the libraries
+    t0 = time.perf_counter()
+    ranks = spawn(per_shard_rank, RANKS, device="cuda", args=(seed,))
+    phase_s = time.perf_counter() - t0
+    rounds = ranks[0]["rounds"]
+    per_call = {"ring_put": rounds, "ring_signal": rounds, "ring_wait_add": rounds}
+    for r, res in enumerate(ranks):
+        require(res["counts"] == {k: CALLS * v for k, v in per_call.items()},
+                f"rank {r} launched {res['counts']} in {CALLS} calls of {rounds} rounds")
+
+    gens = [torch.Generator(device=dev).manual_seed(seed + r) for r in range(RANKS)]
+    x = torch.stack([torch.randn(BUCKET, generator=g, device=dev) for g in gens])
+    require(not bool(((x == 0) & torch.signbit(x)).any()), "the per-shard input holds -0.0")
+    prog = dc.allreduce_program(layout, optimized=True)
+    k1 = get_backend("cuda_fused").run_allreduce(x, prog).cpu().numpy()
+    ref = opt.np_allreduce(x.cpu().numpy(), prog)
+    for r, res in enumerate(ranks):
+        for what, want in (("np_allreduce", ref[r]), ("K1 run_allreduce", k1[r])):
+            require(np.array_equal(res["out0"].view(np.int32), want.view(np.int32)),
+                    f"rank {r}: allreduce_shard differs from {what}")
+    del x, k1, ref
+
+    # A round of a rank reads x and the partner's x and writes the sum, once
+    # each; the put's write into the window and the wait's read of it are
+    # the design's staging copy, not the function's work. All ranks share
+    # the card. A put alone moves its buffer twice.
+    nbytes = RANKS * rounds * 3 * BUCKET * 4
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, RANKS * rounds * BUCKET / FP32_FLOP_PER_S
+    put_bound_ms = 2 * BUCKET * 4 / HBM_BYTES_PER_S * 1e3
+    keys = ("call_ms", "put_ms", "wait_ms", "plain_ms", "copy_ms")
+    med = {key: statistics.median(res[key] for res in ranks) for key in keys}
+    emit({"run": "allreduce_shard", "ranks": RANKS, "layout": "D3(2,2)", "bucket_floats": BUCKET,
+          "calls": CALLS, "skew": {"call": SKEW[0], "rank": SKEW[1], "s": SKEW[2]},
+          "rounds": rounds, "launches_per_rank": ranks[0]["counts"], "phase_s": phase_s,
+          "orchestration": ranks[0]["orchestration"],
+          "bit_exact": ["plain exchange", "np_allreduce", "K1 run_allreduce"],
+          "per_rank_ms": {key: [res[key] for res in ranks] for key in keys},
+          "median_ms": med, "bound_ms": max(t_bytes, t_ops) * 1e3, "put_bound_ms": put_bound_ms})
+    return dict(
+        name="ring_exchange", route="cuda", source="src/repro_torch/csrc/ring_exchange.cu",
+        replaces="src/repro/runtime/backends/pallas_fused.py:111",
+        launches=sum(ranks[0]["counts"].values()),
+        max_abs_err=max(res["max_abs_err"] for res in ranks), ms=med["call_ms"],
+        plain_ms=med["plain_ms"], bound_ms=max(t_bytes, t_ops) * 1e3,
+        bound_by="bytes" if t_bytes >= t_ops else "operations", library_ms=med["copy_ms"])
 
 
 def main() -> None:
@@ -614,9 +796,12 @@ def main() -> None:
     del params, eng, batch
     release()
 
-    # --------------------------------------------------------------- report
+    # ------------------------ 11. the per-shard all-reduce, 8 ranks on the card
     for name, rec in kernels.items():
         rec["launches"] = launches[name]
+    kernels["ring_exchange"] = per_shard_phase(dev, SEED)
+
+    # --------------------------------------------------------------- report
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms")
     print(card, flush=True)

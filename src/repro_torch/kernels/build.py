@@ -23,12 +23,13 @@ import threading
 
 CSRC = pathlib.Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = pathlib.Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
-SOURCES = ("reduce_rounds", "block_matmul", "flash_attention")
+SOURCES = ("reduce_rounds", "block_matmul", "flash_attention", "ring_exchange")
 # No fast-math: the reduce kernels must be bit-exact with the plain replay.
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _P, _I, _LL, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
+_PP, _PI = ctypes.POINTER(ctypes.c_void_p), ctypes.POINTER(ctypes.c_int)
 #: C signatures of every exported function: name -> argument types (all return int).
 SIGNATURES = {
     "reduce_rounds": {
@@ -41,6 +42,16 @@ SIGNATURES = {
     "flash_attention": {
         "flash_attention_launch": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, *[_LL] * 12,
                                    _I, _I, _F, _I, _P],
+    },
+    "ring_exchange": {
+        "ring_handle_bytes": [],
+        "ring_window_create": [_LL, _I, _PP, _P],
+        "ring_window_open": [_P, _I, _I, _P],
+        "ring_window_close": [_P],
+        "ring_put": [_P, _I, _I, _P, _LL, _LL, _LL, _P],
+        "ring_signal": [_P, _I, _I, _LL, _P],
+        "ring_wait_add": [_P, _I, _I, _P, _P, _LL, _I, _LL, _LL, _P],
+        "ring_error": [_P, _P, _PI],
     },
 }
 

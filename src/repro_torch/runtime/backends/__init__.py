@@ -22,7 +22,17 @@ Registered backends:
     CUDA kernels on the hot spots: the all-reduce rounds and the §2
     combine groups on the table-driven reduce kernel, the §2 ``mul_a``
     contraction on the batched block-product kernel. Runs on the card by
-    default; ``device="cpu"`` runs the kernels' plain torch versions.
+    default; ``device="cpu"`` runs the kernels' plain torch versions. Its
+    ``allreduce_shard`` is the per-shard §4 all-reduce on K5.
+  * ``torch_dist`` — the per-shard replay over ``torch.distributed``: one
+    ``batch_isend_irecv`` per communication stage on a process group of
+    ``program.n`` ranks (``overlap``/``overlap_fused`` orders, the
+    wave-pipelined ``alltoall_compute``), plus the whole-array ``run_*``
+    wrappers every rank calls with the same global array.
+
+Emulated (``runtime.rewrite.emulate``) and combined (``runtime.combine``)
+programs are ordinary programs with ``active_devices`` set: every backend
+replays them with idle ranks passing through.
 """
 
 from __future__ import annotations
@@ -40,10 +50,17 @@ def _load_cuda_fused():
     return CudaFusedBackend
 
 
+def _load_torch_dist():
+    from repro_torch.runtime.backends.torch_dist import TorchDistBackend
+
+    return TorchDistBackend
+
+
 #: name -> lazy class loader (lazy so importing the registry loads no backend).
 _REGISTRY = {
     "reference": _load_reference,
     "cuda_fused": _load_cuda_fused,
+    "torch_dist": _load_torch_dist,
 }
 
 

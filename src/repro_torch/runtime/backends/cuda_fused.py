@@ -16,6 +16,15 @@ tensors and pushes the compute into kernels of ``repro_torch/csrc``:
 compute to fuse: they are the optimizer's torch table replays (one batched
 scatter; one masked gather per group).
 
+``allreduce_shard`` is the per-shard §4 all-reduce: called on every rank of
+a process group with that rank's buffer, it runs each round's exchange as
+K5 (``csrc/ring_exchange.cu``): a put into the partner's window mapped
+through CUDA IPC and a signal, then the wait, which spins for the flag
+and adds; where ranks share a card, a stream sync and a group barrier
+come before the wait. Its plain version,
+``allreduce_shard_plain``, exchanges through the group's transport
+(``ring_exchange_plain``, one ``batch_isend_irecv`` pair per round).
+
 ``CudaFusedBackend()`` runs on the card and raises where there is none;
 ``CudaFusedBackend(device="cpu")`` runs the same replay with every kernel's
 plain torch version, which is how the tests reach it. Inputs may be numpy
@@ -25,14 +34,18 @@ input's dtype.
 
 from __future__ import annotations
 
+import ctypes
 import dataclasses
 import functools
 
+import numpy as np
 import torch
+import torch.distributed as dist
 
 from repro_torch.kernels import build
 from repro_torch.kernels.block_matmul.ops import batched_matmul
 from repro_torch.runtime import optimize as _opt
+from repro_torch.runtime.backends.torch_dist import check_transport, global_rank
 from repro_torch.runtime.program import check_kind as _check_kind
 
 
@@ -153,6 +166,222 @@ def _allreduce_tables(opt: _opt.OptimizedProgram, device: torch.device):
 
 
 # ---------------------------------------------------------------------------
+# K5: the per-shard exchange (csrc/ring_exchange.cu) and its plain version.
+# ---------------------------------------------------------------------------
+
+#: Seconds a K5 kernel spins for its partner's flag before the call raises.
+RING_TIMEOUT_S = 60.0
+
+
+@functools.lru_cache(maxsize=None)
+def ring_partners(program) -> tuple[np.ndarray, ...]:
+    """Each §4 round's partner table (``inverse_np``), cached per program.
+    K5 takes native rounds only: full permutations that are involutions,
+    so the partner a rank puts to is the one that puts to it."""
+    out = []
+    for st in program.comm_stages:
+        if not (st.is_full_permutation
+                and np.array_equal(st.inverse_np[st.inverse_np], np.arange(program.n))):
+            raise ValueError(
+                "the K5 ring path handles native (full-involution) programs; "
+                "replay emulated programs via run_allreduce or torch_dist")
+        out.append(st.inverse_np)
+    return tuple(out)
+
+
+def ring_exchange_plain(x: torch.Tensor, partner: int, group) -> torch.Tensor:
+    """K5's plain version: send ``x`` to rank ``partner`` of ``group`` and
+    receive the partner's buffer, one ``batch_isend_irecv`` pair through
+    the group's transport (which must carry ``x``: gloo carries CPU
+    tensors). Returns the arrival."""
+    check_transport(x, group)
+    recv = torch.empty_like(x)
+    peer = global_rank(group, partner)
+    for work in dist.batch_isend_irecv([dist.P2POp(dist.isend, x.contiguous(), peer, group),
+                                        dist.P2POp(dist.irecv, recv, peer, group)]):
+        work.wait()
+    return recv
+
+
+class RingWindow:
+    """K5's receive window on this rank for one (group, card, program): the
+    library's cudaMalloc'd control area and one slot of ``slot_bytes`` per
+    round, its IPC handle all-gathered over the group and every peer's
+    window opened. A collective: every rank of the group creates its window
+    together. ``epoch`` counts the calls made through it; ``shared`` says
+    whether two ranks of the group share a card (the same on every rank)."""
+
+    def __init__(self, group, slot_bytes: int, rounds: int, device: torch.device):
+        lib = build.load("ring_exchange")
+        self.group, self.device = group, device
+        self.rank, self.n = dist.get_rank(group), dist.get_world_size(group)
+        self.slot_bytes, self.rounds = slot_bytes, rounds
+        self.epoch = 0
+        handle = ctypes.create_string_buffer(lib.ring_handle_bytes())
+        ptr = ctypes.c_void_p()
+        with torch.cuda.device(device):
+            build.check(lib.ring_window_create(slot_bytes, rounds, ctypes.byref(ptr), handle),
+                        "ring_exchange window")
+        self.ptr = ptr
+        peers = [None] * self.n
+        dist.all_gather_object(peers, (handle.raw, str(torch.cuda.get_device_properties(
+            device).uuid)), group=group)
+        self.shared = len({card for _, card in peers}) < self.n
+        with torch.cuda.device(device):
+            build.check(lib.ring_window_open(ptr, self.rank, self.n,
+                                             b"".join(h for h, _ in peers)),
+                        "ring_exchange window open")
+
+    def check(self) -> None:
+        """Wait for this rank's stream and raise if a kernel found no flag
+        of this call in time."""
+        code = ctypes.c_int(0)
+        with torch.cuda.device(self.device):
+            build.check(build.load("ring_exchange").ring_error(
+                self.ptr, torch.cuda.current_stream().cuda_stream, ctypes.byref(code)),
+                "ring_exchange")
+        if code.value:
+            kind, round_ = code.value >> 8, code.value & 0xFF
+            what = {1: "the put's partner never consumed the previous call's slot",
+                    2: "the wait found no flag of this call from its partner",
+                    3: "the wait read a flag from a later call"}.get(kind, f"error {kind}")
+            raise RuntimeError(f"K5 on rank {self.rank}, round {round_} of call {self.epoch}: "
+                               f"{what}")
+
+    def close(self) -> None:
+        with torch.cuda.device(self.device):
+            build.check(build.load("ring_exchange").ring_window_close(self.ptr),
+                        "ring_exchange window close")
+
+
+_ring_windows: dict = {}
+
+
+def _close_windows(group, keys) -> None:
+    """Free the windows under ``keys`` on every rank of ``group``: a
+    collective. Each rank drains its stream first and a barrier on each
+    side keeps a window mapped until no peer can still touch it."""
+    torch.cuda.synchronize()
+    dist.barrier(group=group)
+    for key in keys:
+        _ring_windows.pop(key).close()
+    dist.barrier(group=group)
+
+
+def ring_window(group, x: torch.Tensor, program) -> RingWindow:
+    """The K5 window of ``program`` on ``group`` and ``x``'s card, created
+    on first use (a collective) and kept until ``close_ring_windows``. Its
+    slots fit the largest buffer seen: a smaller buffer reuses them, a
+    larger one replaces the window (a collective too)."""
+    key = (group, x.device, program)
+    nbytes = x.numel() * x.element_size()
+    window = _ring_windows.get(key)
+    if window is not None and window.slot_bytes < nbytes:
+        _close_windows(group, [key])
+        window = None
+    if window is None:
+        window = _ring_windows[key] = RingWindow(group, nbytes, len(program.comm_stages),
+                                                 x.device)
+    return window
+
+
+def close_ring_windows(group) -> None:
+    """Free every K5 window of ``group`` on every rank: a collective."""
+    _close_windows(group, [key for key in _ring_windows if key[0] is group])
+
+
+def _ring_args(x: torch.Tensor, window: RingWindow, round_: int, partner: int):
+    nbytes = x.numel() * x.element_size()
+    if x.device != window.device or nbytes > window.slot_bytes:
+        raise ValueError(f"ring_exchange: the window holds {window.slot_bytes} bytes a slot on "
+                         f"{window.device}, got {nbytes} on {x.device}")
+    if not 0 <= round_ < window.rounds or not 0 <= partner < window.n:
+        raise ValueError(f"ring_exchange: round {round_} of {window.rounds}, "
+                         f"partner {partner} of {window.n}")
+    x = x.contiguous()
+    if x.data_ptr() % 16:
+        x = x.clone()  # the kernels move 16 bytes per access
+    return x, torch.cuda.current_stream(x.device).cuda_stream
+
+
+def ring_put(x: torch.Tensor, window: RingWindow, round_: int, partner: int) -> None:
+    """K5's put: copy ``x`` into slot ``round_`` of rank ``partner``'s
+    window once the partner has consumed the previous call's (spinning up
+    to ``RING_TIMEOUT_S``). Every launch adds one to ``ring_put.launches``."""
+    x, stream = _ring_args(x, window, round_, partner)
+    with torch.cuda.device(x.device):
+        err = build.load("ring_exchange").ring_put(
+            window.ptr, round_, partner, x.data_ptr(), x.numel() * x.element_size(),
+            window.epoch, int(RING_TIMEOUT_S * 1e9), stream)
+    build.check(err, "ring_put launch")
+    ring_put.launches += 1
+
+
+def ring_signal(window: RingWindow, round_: int, partner: int) -> None:
+    """K5's signal: release this call's flag of round ``round_`` into rank
+    ``partner``'s window, after the put. Adds one to ``ring_signal.launches``."""
+    with torch.cuda.device(window.device):
+        err = build.load("ring_exchange").ring_signal(
+            window.ptr, round_, partner, window.epoch,
+            torch.cuda.current_stream(window.device).cuda_stream)
+    build.check(err, "ring_signal launch")
+    ring_signal.launches += 1
+
+
+def ring_wait_add(x: torch.Tensor, window: RingWindow, round_: int, partner: int
+                  ) -> torch.Tensor:
+    """K5's wait: spin (up to ``RING_TIMEOUT_S``) until this call's put of
+    round ``round_`` has arrived, then return ``x + recv`` and acknowledge
+    the slot to ``partner``. After ``ring_exchange``'s barrier (ranks that
+    share a card) the flag is already set and the first read ends the
+    spin. Adds one to
+    ``ring_wait_add.launches``."""
+    if x.dtype not in _DTYPES:
+        raise TypeError(f"ring_wait_add takes float32 or bfloat16, got {x.dtype}")
+    x, stream = _ring_args(x, window, round_, partner)
+    out = torch.empty_like(x)
+    with torch.cuda.device(x.device):
+        err = build.load("ring_exchange").ring_wait_add(
+            window.ptr, round_, partner, x.data_ptr(), out.data_ptr(), x.numel(),
+            _DTYPES[x.dtype], window.epoch, int(RING_TIMEOUT_S * 1e9), stream)
+    build.check(err, "ring_wait_add launch")
+    ring_wait_add.launches += 1
+    return out
+
+
+ring_put.launches = ring_signal.launches = ring_wait_add.launches = 0
+
+
+def ring_exchange(x: torch.Tensor, window: RingWindow, round_: int, partner: int
+                  ) -> torch.Tensor:
+    """K5, one §4 round on the card: put, signal, then the wait; returns
+    ``x + recv`` with recv the partner's ``x``, the bits of
+    ``x + ring_exchange_plain(x)``. Where ranks of the group share a card
+    (``window.shared``) this rank's stream sync and a barrier of the group
+    come between signal and wait, which then finds its flag set: their
+    contexts are time-sliced without MPS, and a wait that spins holds the
+    card its partner needs to put. Where every rank has a card of its own,
+    the wait spins for its flag."""
+    ring_put(x, window, round_, partner)
+    ring_signal(window, round_, partner)
+    if window.shared:
+        torch.cuda.current_stream(x.device).synchronize()
+        dist.barrier(group=window.group)
+    return ring_wait_add(x, window, round_, partner)
+
+
+def allreduce_shard_plain(x: torch.Tensor, group, program) -> torch.Tensor:
+    """The per-shard §4 all-reduce with K5's plain version in the round
+    loop: ``x = x + ring_exchange_plain(x, partner)`` per round."""
+    prog = _opt.as_program(program)
+    _check_kind(prog, "allreduce")
+    rank = dist.get_rank(group)
+    for partners in ring_partners(prog):
+        x = x + ring_exchange_plain(x, int(partners[rank]), group)
+    return x
+
+
+# ---------------------------------------------------------------------------
 # The backend.
 # ---------------------------------------------------------------------------
 
@@ -218,3 +447,37 @@ class CudaFusedBackend:
             _opt.torch_scatter_blocks(torch.as_tensor(A, device=self.device), prog.grid), prog)
         return _opt.torch_gather_blocks(_opt.torch_gather_guest(replay(b, a), prog),
                                         prog.grid)
+
+    # ------------------------------------------------- per-shard (K5 ring)
+    def allreduce_shard(self, x: torch.Tensor, group, program) -> torch.Tensor:
+        """Per-shard §4 all-reduce, called on every rank of ``group`` (of
+        ``program.n`` ranks) with its own ``x``: one K5 exchange per round,
+        ``x = x + recv``. Native programs only, and only on the card: an
+        emulated program raises ValueError and a tensor off the card
+        RuntimeError (``allreduce_shard_plain`` is the plain version).
+        Where ranks share a card, synchronises with the card and the group
+        in every round (``ring_exchange``); reads K5's error word at the
+        end.
+
+        The first call on a (group, card, program) creates K5's window on
+        every rank (``ring_window``): ``program``'s rounds times ``x``'s
+        bytes, cudaMalloc'd outside PyTorch's caching allocator, so
+        ``torch.cuda.memory_allocated`` does not count it. Later calls
+        with a buffer no larger reuse it; ``close_ring_windows(group)``
+        frees it."""
+        prog = _opt.as_program(program)
+        _check_kind(prog, "allreduce")
+        partners = ring_partners(prog)
+        if x.device.type != "cuda":
+            raise RuntimeError(f"allreduce_shard runs K5 on the card and takes CUDA tensors; "
+                               f"x lies on {x.device}")
+        if dist.get_world_size(group) != prog.n:
+            raise ValueError(f"the group has {dist.get_world_size(group)} ranks, "
+                             f"the program acts on {prog.n}")
+        rank = dist.get_rank(group)
+        window = ring_window(group, x, prog)
+        window.epoch += 1
+        for r, table in enumerate(partners):
+            x = ring_exchange(x, window, r, int(table[rank]))
+        window.check()
+        return x

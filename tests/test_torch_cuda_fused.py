@@ -329,3 +329,49 @@ def test_flash_attention_kernel_refuses_what_it_does_not_take(cuda):
     x = torch.zeros((1, 64, 2, 72), device=cuda)[..., 2:66]  # rows 8 bytes off 16
     with pytest.raises(ValueError, match="aligned"):
         flash_attention(x, x, x)
+
+
+# ------------------------------------------------- card: K5, the ring exchange
+def _k5_rank(rank, group, layout):
+    """One rank of the K5 check: per dtype and shape, three calls with fresh
+    data through ``allreduce_shard`` (K5) against ``allreduce_shard_plain``
+    on host copies (the plain exchange through gloo). Random-normal values
+    with ±0.0 sprinkled in, no NaN or inf: a NaN's payload bits after an
+    add differ between the host and the card."""
+    from repro_torch.launch.mesh import rank_device
+
+    dev = rank_device(rank)
+    prog = dc.allreduce_program(layout)
+    be = cf.CudaFusedBackend()
+    rng = np.random.default_rng(rank)
+    same, launches = [], []
+    for dtype in (torch.float32, torch.bfloat16):
+        for shape in ((37, 29), (4101,), (64, 1024)):
+            for _ in range(3):
+                x = rng.standard_normal(shape).astype(np.float32)
+                x.reshape(-1)[rng.choice(x.size, 6, replace=False)] = [0.0, -0.0] * 3
+                x = torch.from_numpy(x).to(dtype)
+                before = (cf.ring_put.launches, cf.ring_signal.launches,
+                          cf.ring_wait_add.launches)
+                got = be.allreduce_shard(x.to(dev), group, prog).cpu()
+                launches.append((cf.ring_put.launches - before[0],
+                                 cf.ring_signal.launches - before[1],
+                                 cf.ring_wait_add.launches - before[2]))
+                want = cf.allreduce_shard_plain(x, group, prog)
+                same.append(bool(torch.equal(got.view(torch.uint8), want.view(torch.uint8))))
+    cf.close_ring_windows(group)
+    return same, launches, len(prog.comm_stages)
+
+
+@pytest.mark.gpu
+def test_ring_exchange_kernel_bit_exact_with_its_plain_version(cuda):
+    """K5 on 4 ranks that share card 0 (a gloo group; the library is built
+    once here, before the ranks start), bit for bit against its plain
+    version, float32 and bf16, one launch of each K5 kernel per round."""
+    from repro_torch.kernels import build
+    from repro_torch.launch.mesh import spawn
+
+    build.build_all(("ring_exchange",))
+    for same, launches, rounds in spawn(_k5_rank, 4, device="cuda"):
+        assert all(same)
+        assert set(launches) == {(rounds, rounds, rounds)}

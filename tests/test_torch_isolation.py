@@ -101,3 +101,41 @@ def test_engine_refuses_parameters_on_another_device():
     params = M.init_params(0, cfg, device="cpu")
     with pytest.raises(ValueError, match="parameters lie on"):
         Engine(cfg, params, batch_slots=1, max_seq=8, device="meta")
+
+
+def _refuses_to_move(entry: str, tmp: pathlib.Path) -> None:
+    """Each per-shard entry point, given what it cannot run on, raises: none
+    of them moves the work to the CPU on its own."""
+    from repro_torch.dist import collectives as dc
+    from repro_torch.dist.mesh import DeviceLayout
+    from repro_torch.core.topology import D3
+    from repro_torch.launch.mesh import make_dragonfly_group
+
+    if entry == "make_dragonfly_group":
+        with pytest.raises(RuntimeError, match="CUDA card"):
+            make_dragonfly_group(0, 8, init_method="file:///nonexistent")
+    elif entry == "allreduce_shard":
+        with pytest.raises(RuntimeError, match="CUDA card"):
+            CudaFusedBackend()
+        prog = dc.allreduce_program(DeviceLayout(D3(2, 2)))
+        with pytest.raises(RuntimeError, match="CUDA tensors"):
+            CudaFusedBackend(device="cpu").allreduce_shard(torch.zeros(8), None, prog)
+    else:  # torch_dist on a one-rank gloo group, in a process of its own
+        _run(
+            "import pytest, torch, torch.distributed as dist\n"
+            "from repro_torch.core.topology import D3\n"
+            "from repro_torch.dist import collectives as dc\n"
+            "from repro_torch.dist.mesh import DeviceLayout\n"
+            "from repro_torch.runtime.backends import get_backend\n"
+            f"dist.init_process_group('gloo', init_method='file://{tmp}/store',\n"
+            "                        rank=0, world_size=1)\n"
+            "prog = dc.alltoall_program(DeviceLayout(D3(1, 1)))\n"
+            "with pytest.raises(ValueError, match='cannot carry this meta tensor'):\n"
+            "    get_backend('torch_dist').alltoall(torch.ones(1, 3, device='meta'), None, prog)\n"
+            "dist.destroy_process_group()\n")
+
+
+@pytest.mark.parametrize("entry", ["make_dragonfly_group", "allreduce_shard", "torch_dist"])
+def test_per_shard_entry_points_never_move_to_the_cpu(monkeypatch, tmp_path, entry):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    _refuses_to_move(entry, tmp_path)

@@ -88,10 +88,10 @@ def jax_matmul_recipe(jo):
 
 # ------------------------------------------------------------- registry
 def test_registry_holds_reference_and_cuda_fused():
-    assert available_backends() == ("reference", "cuda_fused")
+    assert available_backends() == ("reference", "cuda_fused", "torch_dist")
     assert isinstance(get_backend("cuda_fused", device="cpu"), CudaFusedBackend)
     assert isinstance(get_backend("reference"), TRef)
-    with pytest.raises(ValueError, match="reference, cuda_fused"):
+    with pytest.raises(ValueError, match="reference, cuda_fused, torch_dist"):
         get_backend("pallas_fused")
 
 
