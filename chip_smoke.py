@@ -10,7 +10,10 @@ path on one NVIDIA card, end to end.
 3. holds each kernel against its plain torch version on the card, at the
    shapes the main path gives it: reduce_rounds and combine_rows
    bit-exact, in float32 and in bf16, block_matmul exact on integer-valued inputs and within
-   rtol = atol = 2e-4 on random-normal ones (the summation order differs);
+   rtol = atol = 2e-4 on random-normal ones (its tf32x3 body splits each
+   operand into TF32 hi and lo parts and sums in another order); prints
+   how far block_matmul and cuBLAS's float32 product each are from the
+   float64 product;
 4. drives the four collectives at full width through the user's entry
    points (``dist.collectives.*_program``, then
    ``runtime.backends.get_backend("cuda_fused").run_*``) and holds each,
@@ -21,8 +24,12 @@ path on one NVIDIA card, end to end.
 6. times every kernel and collective with CUDA events (median of several
    runs after a warm-up) beside its bound, the least time the card could
    take: the larger of bytes moved over 3.35 TB/s and operations over the
-   float32 (non-tensor-core) rate of 67 TFLOP/s, the H100 SXM data-sheet
-   peaks at 700 W;
+   card's peak rate for the work the function needs, the H100 SXM
+   data-sheet peaks at 700 W: 67 TFLOP/s float32 outside the tensor cores,
+   495 TFLOP/s TF32 for block_matmul's 2·X³ a block (beside it
+   ``ffma_bound_ms``, the same work at the FFMA rate, and
+   ``tf32x3_route_bound_ms``, the three TF32 products its design takes),
+   989 TFLOP/s bf16 for flash attention;
 7. holds flash attention (K4) against its plain version on the card: at
    TinyLlama-1.1B's prefill shape (q (8, 2048, 32, 64) bf16, k/v
    (8, 2048, 4, 64), causal), at small shapes with head_dim 64, 96
@@ -37,7 +44,9 @@ path on one NVIDIA card, end to end.
    attention with the right mask passes. Times the kernel beside the
    plain version and ``F.scaled_dot_product_attention`` (timed only,
    never called by the port) and its bound at the 989 TFLOP/s of the bf16
-   tensor cores;
+   tensor cores, and the host time of one call of the wrapper at the
+   prefill shape, bf16 (the wgmma body, three TMA tensor maps encoded per
+   call) beside float32 (the mma_sync body, no maps);
 8. runs TinyLlama-1.1B's prefill forward at full width (22 layers,
    random weights from a seed, tokens (8, 2048), its published context)
    through ``models.model.forward_train`` and ``loss_fn``: exactly 22 K4
@@ -71,8 +80,10 @@ path on one NVIDIA card, end to end.
    partner's x, write the sum; the staging copy through the window is the
    design's cost, not the function's) and the bound of one put.
 
-Float32 matrix products run in full float32: TF32 is switched off for
-cuBLAS and cuDNN. Every failure raises and exits non-zero before the last
+The float32 products of the plain versions, the references and the
+library calls run in full float32: TF32 is switched off for cuBLAS and
+cuDNN (block_matmul's tf32x3 body takes TF32 on purpose, three products
+of split operands). Every failure raises and exits non-zero before the last
 line, which is ``{"ok": true, "device": {...}}``. Without a card the
 script exits non-zero at once: it has no CPU path.
 
@@ -101,6 +112,7 @@ import time
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOP_PER_S = 67e12
 BF16_FLOP_PER_S = 989e12  # dense bf16 tensor-core rate; only for bf16 tensor-core work
+TF32_FLOP_PER_S = 495e12  # dense TF32 tensor-core rate; block_matmul's tf32x3 body
 SEED = 0
 CHUNK = 262144  # all-to-all: floats per (src, dst) chunk, 1 MiB
 BUCKET = 6553600  # all-reduce and broadcast: floats per router, 25 MiB
@@ -120,6 +132,14 @@ def require(cond: bool, what: str) -> None:
 
 def emit(record: dict) -> None:
     print(json.dumps(record), flush=True)
+
+
+def zero_counts(wrappers) -> None:
+    """Set every launch count of these kernel wrappers to 0, each body's too."""
+    for fn in wrappers:
+        fn.launches = 0
+        if hasattr(fn, "body_launches"):
+            fn.body_launches = dict.fromkeys(fn.body_launches, 0)
 
 
 def per_shard_rank(rank, group, layout, seed):
@@ -456,24 +476,36 @@ def main() -> None:
     release()
 
     a, b = randint(n_mm, X, X), randint(n_mm, X, X)
+    zero_counts((block_matmul,))
     require(same_bits(block_matmul(a, b), block_matmul_ref(a, b)),
             "block_matmul is not exact on integer-valued inputs")
     a, b = randn(n_mm, X, X), randn(n_mm, X, X)
     got, want = block_matmul(a, b), block_matmul_ref(a, b)
     require(torch.allclose(got, want, rtol=2e-4, atol=2e-4),
             f"block_matmul off by {max_abs_err(got, want)} on random-normal inputs")
-    b_ms, b_by = bound(3 * n_mm * X * X * 4, 2 * n_mm * X ** 3)
+    require(block_matmul.body_launches == {"simt": 0, "tf32x3": 2},
+            f"block_matmul's checks launched {block_matmul.body_launches}")
+    exact = torch.bmm(a.double(), b.double())  # how far each float32 product is from exact
+    err_f64 = {"tf32x3": max_abs_err(got, exact), "cublas_f32": max_abs_err(want, exact)}
+    del exact
+    # the function's 2·X³ a block at the TF32 tensor cores' rate; beside it
+    # the same work at the FFMA rate and the tf32x3 design's three products
+    mm_bytes = 3 * n_mm * X * X * 4
+    b_ms, b_by = bound(mm_bytes, 2 * n_mm * X ** 3, TF32_FLOP_PER_S)
     kernels["block_matmul"] = dict(
         name="block_matmul", route="cuda", source="src/repro_torch/csrc/block_matmul.cu",
         replaces="src/repro/kernels/block_matmul/block_matmul.py:46",
         max_abs_err=max_abs_err(got, want), bound_ms=b_ms, bound_by=b_by,
+        ffma_bound_ms=bound(mm_bytes, 2 * n_mm * X ** 3)[0],
+        tf32x3_route_bound_ms=bound(mm_bytes, 3 * 2 * n_mm * X ** 3, TF32_FLOP_PER_S)[0],
         ms=time_ms(lambda: block_matmul(a, b)),
         plain_ms=time_ms(lambda: block_matmul_ref(a, b)),
         library_ms=time_ms(lambda: torch.bmm(a, b)))
-    emit({"check": "block_matmul", "shape": [n_mm, X, X], "exact_on_integers": True,
-          "rtol": 2e-4, "atol": 2e-4,
-          **{key: kernels["block_matmul"][key] for key in ("max_abs_err", "ms", "plain_ms",
-                                                           "library_ms", "bound_ms")}})
+    emit({"check": "block_matmul", "shape": [n_mm, X, X], "body": "tf32x3",
+          "exact_on_integers": True, "rtol": 2e-4, "atol": 2e-4, "max_abs_err_vs_f64": err_f64,
+          **{key: kernels["block_matmul"][key] for key in (
+              "max_abs_err", "ms", "plain_ms", "library_ms", "bound_ms",
+              "ffma_bound_ms", "tf32x3_route_bound_ms")}})
     del a, b, got, want
     release()
 
@@ -511,13 +543,17 @@ def main() -> None:
     for coll in ("alltoall", "allreduce", "broadcast", "matmul"):
         args = inputs[coll]()
         torch.cuda.reset_peak_memory_stats()
-        for fn in counters:
-            fn.launches = 0
+        zero_counts(counters)
         got = run[coll](*args)
         torch.cuda.synchronize()
         counts = {fn.__name__: fn.launches for fn in counters}
+        bodies = dict(block_matmul.body_launches)
         require(counts == {name: expected[coll].get(name, 0) for name in counts},
                 f"run_{coll} launched {counts}, expected {expected[coll]}")
+        if coll == "matmul":  # the main-path shape takes the tf32x3 body
+            require(bodies == {"simt": 0, "tf32x3": counts["block_matmul"]},
+                    f"run_matmul launched block_matmul's bodies {bodies}")
+            kernels["block_matmul"].update(body="tf32x3", body_launches=bodies)
         for name, count in counts.items():
             launches[name] += count
         want = plain[coll](*args)
@@ -540,6 +576,7 @@ def main() -> None:
         b_ms, b_by = bound(io_bytes, flops.get(coll, 0))
         rec = {"run": coll, "shape": [list(t.shape) for t in args], "bit_exact_vs_plain": True,
                "launches": counts, "peak_gib": peak,
+               **({"block_matmul_bodies": bodies} if coll == "matmul" else {}),
                "ms": time_ms(lambda: run[coll](*args), reps=3, warmup=1),
                "plain_ms": time_ms(lambda: plain[coll](*args), reps=3, warmup=1),
                "bound_ms": b_ms, "bound_by": b_by}
@@ -604,7 +641,9 @@ def main() -> None:
         tol = FLASH_TOL[str(dtype)]
         q, k, v = randn(b_, sq, hq, d).to(dtype), randn(b_, sk, hkv, d).to(dtype), \
             randn(b_, sk, hkv, d).to(dtype)
+        zero_counts((flash_attention,))
         got = flash_attention(q, k, v, causal=causal, window=window)
+        bodies = dict(flash_attention.body_launches)
         want = flash_attention_plain(q, k, v, causal=causal, window=window)
         require(got.dtype == dtype and bool(torch.isfinite(got).all()), "flash_attention output")
         ok, err, rel = attention_close(got, want, tol)
@@ -612,7 +651,7 @@ def main() -> None:
                     f"{(b_, sq, sk, hq, hkv, d, causal, window, dtype)}")
         emit({"check": "flash_attention", "q": [b_, sq, hq, d], "kv": [b_, sk, hkv, d],
               "causal": causal, "window": window, "dtype": str(dtype), "rtol": tol, "atol": tol,
-              "rel_rms_tol": tol, "max_abs_err": err, "rel_rms": rel})
+              "rel_rms_tol": tol, "max_abs_err": err, "rel_rms": rel, "bodies": bodies})
         if i == 0:
             prefill_err, prefill_qkv, prefill_want0 = err, (q, k, v), want[0]
     q, k, v = prefill_qkv
@@ -649,6 +688,26 @@ def main() -> None:
     nbytes = 2 * q.numel() * 2 + 2 * k.numel() * 2  # q and o, k and v, bf16
     b_ms, b_by = bound(nbytes, 4 * B * Hq * S * S * D / 2, BF16_FLOP_PER_S)
     qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+
+    def host_us(fn, rounds=5, calls=20) -> float:
+        """Host time of one call in µs, least over rounds of back-to-back
+        calls: the card is still busy with the calls before, so this is
+        the wrapper's and the launch's own cost."""
+        best = float("inf")
+        for _ in range(rounds):
+            fn()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(calls):
+                fn()
+            best = min(best, (time.perf_counter() - t0) / calls * 1e6)
+            torch.cuda.synchronize()
+        return best
+
+    q32, k32, v32 = q.float(), k.float(), v.float()
+    host = {"wgmma": host_us(lambda: flash_attention(q, k, v, causal=True)),
+            "mma_sync": host_us(lambda: flash_attention(q32, k32, v32, causal=True))}
+    del q32, k32, v32
     kernels["flash_attention"] = dict(
         name="flash_attention", route="cuda", source="src/repro_torch/csrc/flash_attention.cu",
         replaces="src/repro/kernels/flash_attention/flash_attention.py:84",
@@ -658,8 +717,9 @@ def main() -> None:
         library_ms=time_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
             qt, kt, vt, is_causal=True, enable_gqa=True), reps=10))
     emit({"check": "flash_attention timing", "q": list(q.shape), "kv": list(k.shape),
-          **{key: kernels["flash_attention"][key] for key in ("ms", "plain_ms", "library_ms",
-                                                             "bound_ms", "bound_by")}})
+          **{key: kernels["flash_attention"][key] for key in (
+              "ms", "plain_ms", "library_ms", "bound_ms", "bound_by")},
+          "host_us": host, "tensor_map_host_us": host["wgmma"] - host["mma_sync"]})
     del q, k, v, qt, kt, vt, prefill_qkv, got, want
     release()
 
@@ -671,8 +731,7 @@ def main() -> None:
 
     def model_run(fn, *args):
         """Run fn with every launch count at 0; return its result and the counts."""
-        for c in all_counters:
-            c.launches = 0
+        zero_counts(all_counters)
         out = fn(*args)
         torch.cuda.synchronize()
         return out, {c.__name__: c.launches for c in all_counters}
@@ -691,7 +750,11 @@ def main() -> None:
     (logits, _, _), counts = model_run(M.forward_train, params, batch, cfg, True)
     prefill_peak = torch.cuda.max_memory_allocated() / 2**30
     require(counts == only_k4, f"forward_train launched {counts}, expected {only_k4}")
+    bodies = dict(flash_attention.body_launches)  # the prefill shape takes the wgmma body
+    require(bodies == {"mma_sync": 0, "wgmma": cfg.n_layers},
+            f"forward_train launched flash_attention's bodies {bodies}")
     launches["flash_attention"] = counts["flash_attention"]
+    kernels["flash_attention"].update(body="wgmma", body_launches=bodies)
     last = logits[:, -1].float()
     del logits
     (loss, metrics), counts = model_run(M.loss_fn, params, batch, cfg, True)
@@ -708,7 +771,8 @@ def main() -> None:
     require(loss_rel <= LOSS_REL, f"loss {float(loss)} vs naive {float(naive_loss)}")
     fwd_ms = time_ms(lambda: M.forward_train(params, batch, cfg, True), reps=3, warmup=1)
     runs.append({"run": "prefill", "model": cfg.name, "tokens": list(PREFILL),
-                 "launches": {"flash_attention": cfg.n_layers}, "ms": fwd_ms,
+                 "launches": {"flash_attention": cfg.n_layers}, "flash_attention_bodies": bodies,
+                 "ms": fwd_ms,
                  "tokens_per_s": B * S / fwd_ms * 1e3, "peak_gib": prefill_peak,
                  "loss": float(loss), "naive_loss": float(naive_loss),
                  "last_logits_vs_naive": {"max_abs_err": err, "rel_rms": rel}})
@@ -731,8 +795,7 @@ def main() -> None:
     torch.cuda.reset_peak_memory_stats()
     eng = Recording(cfg, params, batch_slots=4, max_seq=2048, device=dev)
     eng.trace = []
-    for c in all_counters:
-        c.launches = 0
+    zero_counts(all_counters)
     pending = list(reqs)
     t0 = time.perf_counter()
     while pending or eng.slot_req:
@@ -804,8 +867,10 @@ def main() -> None:
     # --------------------------------------------------------------- report
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms")
+    extra = ("body", "body_launches", "ffma_bound_ms", "tf32x3_route_bound_ms")  # K3's, K4's
     print(card, flush=True)
-    emit({"kernels": [{key: rec[key] for key in keys} for rec in kernels.values()]})
+    emit({"kernels": [{key: rec[key] for key in keys + extra if key in rec or key in keys}
+                      for rec in kernels.values()]})
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                  "count": torch.cuda.device_count()}})
 

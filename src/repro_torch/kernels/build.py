@@ -1,10 +1,12 @@
 """Build the port's CUDA sources with ``nvcc`` and load them with ``ctypes``.
 
-Each ``csrc/<name>.cu`` is one kernel family with a plain C interface. It
-is compiled for ``sm_90a`` into ``build/repro_torch_kernels/`` at the root
-of the checkout (listed in ``.gitignore``) the first time a wrapper needs
-it, under a name that carries a hash of the source and the flags, so an
-edited source is rebuilt and an unchanged one is loaded as it is.
+Each ``csrc/<name>.cu`` is one kernel family with a plain C interface
+(the wgmma kernels share ``csrc/hopper.cuh``). It is compiled for
+``sm_90a`` into ``build/repro_torch_kernels/`` at the root of the
+checkout (listed in ``.gitignore``) the first time a wrapper needs it,
+under a name that carries a hash of the source, the shared headers and
+the flags, so an edited source is rebuilt and an unchanged one is loaded
+as it is.
 ``build_all()`` starts one ``nvcc`` per source at once and waits for all.
 Nothing is built at import time, and a failed build raises.
 """
@@ -37,11 +39,11 @@ SIGNATURES = {
         "reduce_rounds_launch": [_P, _P, _P, _P, _I, _I, _I, _LL, _I, _I, _I, _P],
     },
     "block_matmul": {
-        "block_matmul_launch": [_P, _P, _P, _I, _I, _I, _I, _I, _P],
+        "block_matmul_launch": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     },
     "flash_attention": {
         "flash_attention_launch": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, *[_LL] * 12,
-                                   _I, _I, _F, _I, _P],
+                                   _I, _I, _F, _I, _I, _P],
     },
     "ring_exchange": {
         "ring_handle_bytes": [],
@@ -68,8 +70,11 @@ def nvcc() -> str:
 
 
 def library_path(name: str) -> pathlib.Path:
-    digest = hashlib.sha256((CSRC / f"{name}.cu").read_bytes()
-                            + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    """The library's path, named by a hash of its source, the shared
+    headers (``csrc/*.cuh``) and the flags."""
+    parts = [(CSRC / f"{name}.cu").read_bytes()]
+    parts += [h.read_bytes() for h in sorted(CSRC.glob("*.cuh"))]
+    digest = hashlib.sha256(b"".join(parts) + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
     return BUILD_DIR / f"lib{name}-{digest}.so"
 
 

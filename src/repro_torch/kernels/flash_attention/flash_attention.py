@@ -7,10 +7,20 @@ head h // (Hq // Hkv) in place: the GQA ``repeat`` of the JAX wrapper is
 never materialised. (The JAX kernel's own (BH, S, D) layout is this one
 with a single head.)
 
-Kernel: ``csrc/flash_attention.cu`` (one block per (batch·head, 64-row q
-tile), a loop over 64-key tiles inside it; it says what bounds it on the
-H100). ``flash_attention`` takes the plain version for CPU tensors only;
-on a CUDA tensor it launches the kernel or raises.
+Kernel: ``csrc/flash_attention.cu`` (a block per (batch·head, q tile) at a
+time, a loop over key tiles inside it; it says what bounds it on the H100).
+``flash_attention`` takes the plain version for CPU tensors only; on a
+CUDA tensor it launches the kernel or raises. Which of the kernel's two
+bodies runs is a rule on dtype (``body_for``), never the outcome of a
+build or a launch:
+
+* ``"wgmma"`` for bf16 (the prefill's): 128-row q tiles on two
+  warpgroups, 128-key K/V tiles through TMA and an mbarrier ring, both
+  products on wgmma;
+* ``"mma_sync"`` for float32: 64-row q tiles on mma.sync, float32 split
+  into bf16 hi and lo parts.
+
+With no key at all (Sk = 0) the output is 0 and nothing is launched.
 
 The plain version, ``flash_attention_plain``, repeats the recurrence of
 the JAX package's ``_flash_kernel`` tile by tile in torch: scores in
@@ -41,6 +51,7 @@ from repro_torch.kernels import build
 
 NEG_INF = -1e30
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+BODIES = {"mma_sync": 0, "wgmma": 1}
 # the GQA configs' head_dim: 64 TinyLlama-1.1B, MusicGen; 96 Phi-3-mini;
 # 128 OLMo-1B, Llama 3, Mixtral, Qwen2-VL, Jamba
 HEAD_DIMS = (64, 96, 128)
@@ -124,12 +135,19 @@ def flash_attention_plain(q, k, v, *, causal: bool = True, window: int | None = 
     return o.reshape(B, Hq, Sq, D).transpose(1, 2)
 
 
+def body_for(dtype: torch.dtype) -> str:
+    """The body the kernel runs for operands of this dtype (module docstring)."""
+    return "wgmma" if dtype == torch.bfloat16 else "mma_sync"
+
+
 def flash_attention(q, k, v, *, causal: bool = True, window: int | None = None,
                     scale: float | None = None) -> torch.Tensor:
     """Attention in the (B, S, H, D) layout (module docstring), bf16 or
     float32 in and out, head_dim in ``HEAD_DIMS``; scale defaults to
     1/sqrt(D). Each operand's rows must be contiguous and 16-byte aligned.
-    Every launch adds one to ``flash_attention.launches``."""
+    The body follows ``body_for``. Every launch adds one to
+    ``flash_attention.launches`` and to its body's entry of
+    ``flash_attention.body_launches``."""
     if q.device.type == "cpu" and k.device.type == "cpu" and v.device.type == "cpu":
         return flash_attention_plain(q, k, v, causal=causal, window=window, scale=scale)
     if q.device.type != "cuda" or k.device != q.device or v.device != q.device:
@@ -151,8 +169,11 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int | None = None,
     out = torch.empty((B, Sq, Hq, D), dtype=q.dtype, device=q.device)
     if out.numel() == 0:
         return out
+    if Sk == 0:
+        return out.zero_()
     if scale is None:
         scale = 1.0 / (D ** 0.5)
+    body = body_for(q.dtype)
     lib = build.load("flash_attention")
     with torch.cuda.device(q.device):
         err = lib.flash_attention_launch(
@@ -160,10 +181,12 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int | None = None,
             B, Sq, Sk, Hq, Hkv, D,
             *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *out.stride()[:3],
             int(causal), 0 if window is None else int(window), ctypes.c_float(scale),
-            _DTYPES[q.dtype], torch.cuda.current_stream().cuda_stream)
+            _DTYPES[q.dtype], BODIES[body], torch.cuda.current_stream().cuda_stream)
     build.check(err, "flash_attention launch")
     flash_attention.launches += 1
+    flash_attention.body_launches[body] += 1
     return out
 
 
 flash_attention.launches = 0
+flash_attention.body_launches = dict.fromkeys(BODIES, 0)

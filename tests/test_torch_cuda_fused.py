@@ -20,6 +20,7 @@ from repro_torch.core.topology import D3
 from repro_torch.dist import collectives as dc
 from repro_torch.dist.mesh import DeviceLayout
 from repro_torch.kernels.block_matmul.block_matmul import block_matmul
+from repro_torch.kernels.block_matmul.block_matmul import body_for as matmul_body
 from repro_torch.kernels.flash_attention.flash_attention import (
     flash_attention, flash_attention_plain)
 from repro_torch.kernels.block_matmul.ref import block_matmul_ref
@@ -257,6 +258,35 @@ def test_block_matmul_kernel_tolerance(cuda, m, n, k, dtype):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("shape,body", [
+    ((3, 2, 2, 2), "simt"), ((3, 3, 3, 3), "simt"), ((3, 4, 4, 4), "tf32x3"),
+    ((2, 512, 512, 512), "tf32x3"), ((2, 130, 68, 132), "tf32x3"), ((2, 200, 36, 260), "tf32x3"),
+    ((2, 130, 67, 129), "simt"), ((1, 64, 100, 1000), "tf32x3"), ((2, 5, 0, 8), None),
+], ids=str)
+def test_block_matmul_each_body_on_card(cuda, shape, body):
+    """Shapes that take each body (X = 2, 3 and a K or N off a multiple of 4
+    the FFMA body; X = 4, 512 and M, N, K off the 128 x 128 x 32 tile the
+    tf32x3 body), counted where the wrapper launches: exact on integers in
+    [-4, 4], within rtol = atol = 2e-4 of the float32 product on normals.
+    With no depth (K = 0) the product is zeros and nothing is launched."""
+    batch, m, k, n = shape
+    if body is not None:
+        assert matmul_body(torch.float32, m, n, k) == body
+    block_matmul.body_launches = dict.fromkeys(block_matmul.body_launches, 0)
+    rng = np.random.default_rng(8)
+    ints = [torch.from_numpy(rng.integers(-4, 5, s).astype(np.float32)).to(cuda)
+            for s in [(batch, m, k), (batch, k, n)]]
+    np.testing.assert_array_equal(block_matmul(*ints).cpu().numpy(),
+                                  block_matmul_ref(*ints).cpu().numpy())
+    normals = [torch.from_numpy(rng.standard_normal(s).astype(np.float32)).to(cuda)
+               for s in [(batch, m, k), (batch, k, n)]]
+    np.testing.assert_allclose(block_matmul(*normals).cpu().numpy(),
+                               block_matmul_ref(*normals).cpu().numpy(), rtol=2e-4, atol=2e-4)
+    assert block_matmul.body_launches == {name: 2 if name == body else 0
+                                          for name in block_matmul.body_launches}
+
+
+@pytest.mark.gpu
 @pytest.mark.parametrize("km", [(2, 2), (4, 2)], ids=str)
 def test_backend_on_card_matches_reference(cuda, km):
     layout = DeviceLayout(D3(*km))
@@ -316,6 +346,33 @@ def test_flash_attention_kernel_matches_plain(cuda, dtype, b, sq, sk, hq, hkv, d
     # head 0 alone, through strided views, is head 0 of the group bit for bit
     head0 = flash_attention(q[:, :, :1], k[:, :, :1], v[:, :, :1], causal=causal, window=window)
     np.testing.assert_array_equal(head0.float().cpu().numpy(), got[:, :, :1].float().cpu().numpy())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b,sq,sk,hq,hkv,d,causal,window", [
+    (1, 300, 300, 4, 2, 128, True, None),    # Sq, Sk off the 128-row tile, D = 128
+    (2, 257, 390, 2, 2, 96, False, None),    # D = 96: the second column block zero-filled
+    (1, 700, 700, 2, 1, 128, True, 200),
+    (1, 1, 300, 4, 4, 96, True, None),       # one query row
+    (1, 1100, 1100, 2, 1, 64, True, 300),    # a band: whole tiles inside, edges masked
+    (1, 1100, 1100, 2, 1, 64, False, 300),   # the window alone
+], ids=str)
+def test_flash_attention_wgmma_body_edges(cuda, b, sq, sk, hq, hkv, d, causal, window):
+    """The bf16 wgmma body at the edges of its 128-row and 128-key tiles,
+    head_dim 96 and 128, and windows whose band leaves whole key tiles
+    unmasked (the mask is skipped there) and others partly masked; within
+    the bf16 bound of the other K4 tests. No key at all gives zeros."""
+    rng = np.random.default_rng(11)
+    q, k, v = (torch.from_numpy(rng.standard_normal(s).astype(np.float32)).to(cuda, torch.bfloat16)
+               for s in [(b, sq, hq, d), (b, sk, hkv, d), (b, sk, hkv, d)])
+    want = flash_attention_plain(q, k, v, causal=causal, window=window).float()
+    flash_attention.body_launches = dict.fromkeys(flash_attention.body_launches, 0)
+    got = flash_attention(q, k, v, causal=causal, window=window).float()
+    np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(), rtol=1e-2, atol=1e-2)
+    assert float((got - want).norm() / want.norm()) <= 1e-2
+    none = flash_attention(q, k[:, :0], v[:, :0], causal=causal, window=window)
+    assert none.shape == q.shape and not bool(none.any())
+    assert flash_attention.body_launches == {"mma_sync": 0, "wgmma": 1}
 
 
 @pytest.mark.gpu
