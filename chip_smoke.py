@@ -8,8 +8,12 @@ path on one NVIDIA card, end to end.
 2. builds the CUDA kernels from ``src/repro_torch/csrc`` and prints the
    build time and the compiler's register and spill report;
 3. holds each kernel against its plain torch version on the card, at the
-   shapes the main path gives it: reduce_rounds and combine_rows
-   bit-exact, in float32 and in bf16, block_matmul exact on integer-valued inputs and within
+   shapes the main path gives it: reduce_rounds and combine_rows (with
+   and without its fused acc) bit-exact, each of their two bodies (staged,
+   slab) in float32 and in bf16 with NaN, ±inf and -0.0 planted, timed per
+   body beside combine_rows' library yardstick, ``torch.sparse.mm`` of the
+   group's CSR selection matrix (timed only, never called by the port);
+   block_matmul exact on integer-valued inputs and within
    rtol = atol = 2e-4 on random-normal ones (its tf32x3 body splits each
    operand into TF32 hi and lo parts and sums in another order); prints
    how far block_matmul and cuBLAS's float32 product each are from the
@@ -18,7 +22,9 @@ path on one NVIDIA card, end to end.
    points (``dist.collectives.*_program``, then
    ``runtime.backends.get_backend("cuda_fused").run_*``) and holds each,
    bit for bit, against the port's plain torch path on the card, counting
-   every kernel launch;
+   every kernel launch and body: run_allreduce one staged reduce_rounds,
+   run_matmul 32 staged combine_rows, each with its acc, and 16 tf32x3
+   block products;
 5. holds all four, at a reduced width, against the port's NumPy
    ``reference`` backend, bit for bit;
 6. times every kernel and collective with CUDA events (median of several
@@ -29,7 +35,9 @@ path on one NVIDIA card, end to end.
    495 TFLOP/s TF32 for block_matmul's 2·X³ a block (beside it
    ``ffma_bound_ms``, the same work at the FFMA rate, and
    ``tf32x3_route_bound_ms``, the three TF32 products its design takes),
-   989 TFLOP/s bf16 for flash attention;
+   989 TFLOP/s bf16 for flash attention; combine_rows' hook (with acc)
+   beside its own bound, three passes of the buffer
+   (``combine_hook_ms``, ``combine_hook_bound_ms``);
 7. holds flash attention (K4) against its plain version on the card: at
    TinyLlama-1.1B's prefill shape (q (8, 2048, 32, 64) bf16, k/v
    (8, 2048, 4, 64), causal), at small shapes with head_dim 64, 96
@@ -140,6 +148,8 @@ def zero_counts(wrappers) -> None:
         fn.launches = 0
         if hasattr(fn, "body_launches"):
             fn.body_launches = dict.fromkeys(fn.body_launches, 0)
+        if hasattr(fn, "acc_launches"):
+            fn.acc_launches = 0
 
 
 def per_shard_rank(rank, group, layout, seed):
@@ -350,7 +360,10 @@ def main() -> None:
     def max_abs_err(a, b) -> float:
         return float((a.float() - b.float()).abs().max())
 
-    def time_ms(fn, reps=5, warmup=2) -> float:
+    def time_ms(fn, reps=5, warmup=2, calls=1) -> float:
+        """Median ms of one call over ``reps`` timings of ``calls`` calls
+        back to back (more than one keeps the card busy past the host's
+        cost of a call, so a short kernel's time is the card's)."""
         for _ in range(warmup):
             fn()
         torch.cuda.synchronize()
@@ -359,10 +372,11 @@ def main() -> None:
             start = torch.cuda.Event(enable_timing=True)
             stop = torch.cuda.Event(enable_timing=True)
             start.record()
-            fn()
+            for _ in range(calls):
+                fn()
             stop.record()
             stop.synchronize()
-            times.append(start.elapsed_time(stop))
+            times.append(start.elapsed_time(stop) / calls)
         return statistics.median(times)
 
     def bound(nbytes: float, flops: float, rate: float = FP32_FLOP_PER_S) -> tuple[float, str]:
@@ -410,69 +424,109 @@ def main() -> None:
     # ------------------------------------- 3. each kernel against its plain version
     kernels = {}
 
+    def planted(*shape, dtype=torch.float32):
+        """Random normals with NaN, ±inf and -0.0 at a few random places."""
+        x = randn(*shape)
+        flat = x.view(-1)
+        picks = torch.randint(0, flat.numel(), (6,), generator=gen, device=dev)
+        flat[picks] = torch.tensor([float("nan"), float("inf"), -float("inf"), -0.0, -0.0,
+                                    float("nan")], device=dev)
+        return x.to(dtype)
+
+    # K1 and K2: each body against the plain version, float32 and bf16, with
+    # special values planted; times of each body. bf16 adds round at once.
     t = opt.to_device_tables(opt.allreduce_tables(progs["allreduce"]), dev)
-    x = randn(n, F)
-    got, want = cf.reduce_rounds(x, t["gather"], t["mask"]), cf._reduce_rounds_plain(x, t["gather"], t["mask"])
-    require(same_bits(got, want), "reduce_rounds differs from its plain version")
+    t["packed"] = cf.pack_tables(t["gather"], t["mask"])
     R, k = t["gather"].shape[:2]
     allreduce_ops = R * (k + 1) * n * F  # k selected adds and the self-add per round
-    b_ms, b_by = bound(2 * n * F * 4 + R * k * n * 5, allreduce_ops)
+    k1 = {"ms": {}, "bound_ms": {}}
+    for dtype in (torch.float32, torch.bfloat16):
+        x = planted(n, F, dtype=dtype)
+        want = cf._reduce_rounds_plain(x, t["gather"], t["mask"])
+        esize = x.element_size()
+        k1["bound_ms"][str(dtype)] = bound(2 * n * F * esize + R * k * n * 5, allreduce_ops)
+        for body in cf.BODIES:
+            got = cf.reduce_rounds(x, t["gather"], t["mask"], packed=t["packed"], body=body)
+            require(same_bits(got, want), f"reduce_rounds ({body}, {dtype}) differs from its "
+                                          "plain version")
+            k1["ms"][f"{body} {dtype}"] = time_ms(
+                lambda: cf.reduce_rounds(x, t["gather"], t["mask"], packed=t["packed"],
+                                         body=body), reps=10)
+        k1["ms"][f"plain {dtype}"] = time_ms(
+            lambda: cf._reduce_rounds_plain(x, t["gather"], t["mask"]), reps=3, warmup=1)
+        if dtype == torch.float32:
+            err = max_abs_err(got.nan_to_num(), want.nan_to_num())
+        del x, got, want
+        release()
+    b_ms, b_by = k1["bound_ms"]["torch.float32"]
     kernels["reduce_rounds"] = dict(
         name="reduce_rounds", route="cuda", source="src/repro_torch/csrc/reduce_rounds.cu",
         replaces="src/repro/runtime/backends/pallas_fused.py:133",
-        max_abs_err=max_abs_err(got, want), bound_ms=b_ms, bound_by=b_by,
-        ms=time_ms(lambda: cf.reduce_rounds(x, t["gather"], t["mask"])),
-        plain_ms=time_ms(lambda: cf._reduce_rounds_plain(x, t["gather"], t["mask"])),
-        library_ms=None)
+        max_abs_err=err, bound_ms=b_ms, bound_by=b_by,
+        ms=k1["ms"]["staged torch.float32"], plain_ms=k1["ms"]["plain torch.float32"],
+        library_ms=None, body_ms=k1["ms"])
     emit({"check": "reduce_rounds", "shape": [n, F], "tables": [R, k, n], "bit_exact": True,
-          **{key: kernels["reduce_rounds"][key] for key in ("ms", "plain_ms", "bound_ms")}})
-    del x, got, want
-    release()
+          "special_values": True, **k1})
 
     groups = [tabs for kind_, _, tabs in opt.matmul_tables(progs["matmul"]) if kind_ == "combine"]
     require(len(groups) == 32, f"expected 32 combine groups at grid (4,4), got {len(groups)}")
-    val = randn(n_mm, X * X)
-    err, widths = 0.0, set()
-    for tabs in groups[:2]:  # one round's two groups (k = 5 and k = 4)
-        t = opt.to_device_tables(tabs, dev)
-        got, want = cf.combine_rows(val, t["gather"], t["mask"]), cf._combine_rows_plain(val, t["gather"], t["mask"])
-        require(same_bits(got, want), "combine_rows differs from its plain version")
-        err, widths = max(err, max_abs_err(got, want)), widths | {t["gather"].shape[0]}
-    k = t["gather"].shape[0]
-    b_ms, b_by = bound(2 * n_mm * X * X * 4 + k * n_mm * 5, k * n_mm * X * X)
+    k2 = {"k": [], "ms": {}, "hook_ms": {}, "bound_ms": {}, "hook_bound_ms": {}}
+    for dtype in (torch.float32, torch.bfloat16):
+        val, acc = planted(n_mm, X * X, dtype=dtype), randn(n_mm, X * X).to(dtype)
+        widths = set()
+        for tabs in groups[:2]:  # one round's two groups (k = 5 and k = 4)
+            tc = opt.to_device_tables(tabs, dev)
+            tc["packed"] = cf.pack_tables(tc["gather"], tc["mask"])
+            want = cf._combine_rows_plain(val, tc["gather"], tc["mask"])
+            for body in cf.BODIES:
+                for with_acc in (False, True):
+                    got = cf.combine_rows(val, tc["gather"], tc["mask"], packed=tc["packed"],
+                                          acc=acc if with_acc else None, body=body)
+                    require(same_bits(got, acc + want if with_acc else want),
+                            f"combine_rows ({body}, {dtype}, acc={with_acc}) differs from its "
+                            "plain version")
+            widths.add(tc["gather"].shape[0])
+        k2["k"] = sorted(widths)
+        kk = tc["gather"].shape[0]
+        esize = val.element_size()
+        k2["bound_ms"][str(dtype)] = bound(2 * n_mm * X * X * esize + kk * n_mm * 5,
+                                           kk * n_mm * X * X)
+        k2["hook_bound_ms"][str(dtype)] = bound(3 * n_mm * X * X * esize + kk * n_mm * 5,
+                                                (kk + 1) * n_mm * X * X)
+        for body in cf.BODIES:
+            k2["ms"][f"{body} {dtype}"] = time_ms(lambda: cf.combine_rows(
+                val, tc["gather"], tc["mask"], packed=tc["packed"], body=body), calls=10)
+            k2["hook_ms"][f"{body} {dtype}"] = time_ms(lambda: cf.combine_rows(
+                val, tc["gather"], tc["mask"], packed=tc["packed"], acc=acc, body=body), calls=10)
+        k2["ms"][f"plain {dtype}"] = time_ms(
+            lambda: cf._combine_rows_plain(val, tc["gather"], tc["mask"]), calls=10)
+        k2["hook_ms"][f"plain {dtype}"] = time_ms(
+            lambda: acc + cf._combine_rows_plain(val, tc["gather"], tc["mask"]), calls=10)
+        if dtype == torch.float32:
+            err = max_abs_err(got.nan_to_num(), (acc + want).nan_to_num())
+            # the library's way to the same sums: the group's (n, n) selection
+            # matrix times val through cuSPARSE (another order of the adds)
+            rows = torch.arange(n_mm, device=dev).expand(kk, n_mm)
+            sel = torch.sparse_coo_tensor(
+                torch.stack([rows[tc["mask"]], tc["gather"][tc["mask"]].long()]),
+                torch.ones(int(tc["mask"].sum()), device=dev), (n_mm, n_mm)).coalesce()
+            csr = sel.to_sparse_csr()
+            library_ms = time_ms(lambda: torch.sparse.mm(csr, val), calls=10)
+            del csr, sel
+        del val, acc, got, want
+        release()
+    b_ms, b_by = k2["bound_ms"]["torch.float32"]
     kernels["combine_rows"] = dict(
         name="combine_rows", route="cuda", source="src/repro_torch/csrc/reduce_rounds.cu",
         replaces="src/repro/runtime/backends/pallas_fused.py:161",
         max_abs_err=err, bound_ms=b_ms, bound_by=b_by,
-        ms=time_ms(lambda: cf.combine_rows(val, t["gather"], t["mask"]), reps=20),
-        plain_ms=time_ms(lambda: cf._combine_rows_plain(val, t["gather"], t["mask"]), reps=20),
-        library_ms=None)
-    emit({"check": "combine_rows", "shape": [n_mm, X * X], "k": sorted(widths), "bit_exact": True,
-          **{key: kernels["combine_rows"][key] for key in ("ms", "plain_ms", "bound_ms")}})
-    del val, got, want
-    release()
-
-    # K1 and K2 in bf16: every add rounded at once, as the plain replay does
-    ta = opt.to_device_tables(opt.allreduce_tables(progs["allreduce"]), dev)
-    x = randn(n, F).bfloat16()
-    require(same_bits(cf.reduce_rounds(x, ta["gather"], ta["mask"]),
-                      cf._reduce_rounds_plain(x, ta["gather"], ta["mask"])),
-            "reduce_rounds differs from its plain version in bf16")
-    tc = opt.to_device_tables(groups[0], dev)
-    val = randn(n_mm, X * X).bfloat16()
-    require(same_bits(cf.combine_rows(val, tc["gather"], tc["mask"]),
-                      cf._combine_rows_plain(val, tc["gather"], tc["mask"])),
-            "combine_rows differs from its plain version in bf16")
-    emit({"check": "reduce_rounds and combine_rows in bf16", "shapes": [[n, F], [n_mm, X * X]],
-          "bit_exact": True,
-          "reduce_rounds_ms": time_ms(lambda: cf.reduce_rounds(x, ta["gather"], ta["mask"])),
-          "reduce_rounds_plain_ms": time_ms(
-              lambda: cf._reduce_rounds_plain(x, ta["gather"], ta["mask"])),
-          "combine_rows_ms": time_ms(lambda: cf.combine_rows(val, tc["gather"], tc["mask"]),
-                                     reps=20),
-          "combine_rows_plain_ms": time_ms(
-              lambda: cf._combine_rows_plain(val, tc["gather"], tc["mask"]), reps=20)})
-    del x, val
+        ms=k2["ms"]["staged torch.float32"], plain_ms=k2["ms"]["plain torch.float32"],
+        library_ms=library_ms, body_ms=k2["ms"],
+        combine_hook_ms=k2["hook_ms"]["staged torch.float32"],
+        combine_hook_bound_ms=k2["hook_bound_ms"]["torch.float32"][0])
+    emit({"check": "combine_rows", "shape": [n_mm, X * X], "bit_exact": True,
+          "special_values": True,
+          "library": "torch.sparse.mm (CSR selection matrix)", "library_ms": library_ms, **k2})
     release()
 
     a, b = randint(n_mm, X, X), randint(n_mm, X, X)
@@ -550,10 +604,21 @@ def main() -> None:
         bodies = dict(block_matmul.body_launches)
         require(counts == {name: expected[coll].get(name, 0) for name in counts},
                 f"run_{coll} launched {counts}, expected {expected[coll]}")
-        if coll == "matmul":  # the main-path shape takes the tf32x3 body
+        if coll == "allreduce":  # the main-path shape takes the staged body
+            k1_bodies = dict(cf.reduce_rounds.body_launches)
+            require(k1_bodies == {"slab": 0, "staged": 1},
+                    f"run_allreduce launched reduce_rounds' bodies {k1_bodies}")
+            kernels["reduce_rounds"].update(body="staged", body_launches=k1_bodies)
+        if coll == "matmul":  # tf32x3 products, staged combines each with its acc
             require(bodies == {"simt": 0, "tf32x3": counts["block_matmul"]},
                     f"run_matmul launched block_matmul's bodies {bodies}")
             kernels["block_matmul"].update(body="tf32x3", body_launches=bodies)
+            k2_bodies = dict(cf.combine_rows.body_launches)
+            require(k2_bodies == {"slab": 0, "staged": 32} and cf.combine_rows.acc_launches == 32,
+                    f"run_matmul launched combine_rows' bodies {k2_bodies}, "
+                    f"{cf.combine_rows.acc_launches} with acc")
+            kernels["combine_rows"].update(body="staged", body_launches=k2_bodies,
+                                           acc_launches=cf.combine_rows.acc_launches)
         for name, count in counts.items():
             launches[name] += count
         want = plain[coll](*args)
@@ -576,7 +641,10 @@ def main() -> None:
         b_ms, b_by = bound(io_bytes, flops.get(coll, 0))
         rec = {"run": coll, "shape": [list(t.shape) for t in args], "bit_exact_vs_plain": True,
                "launches": counts, "peak_gib": peak,
-               **({"block_matmul_bodies": bodies} if coll == "matmul" else {}),
+               **({"block_matmul_bodies": bodies, "combine_rows_bodies": k2_bodies,
+                   "combine_rows_acc_launches": cf.combine_rows.acc_launches}
+                  if coll == "matmul" else
+                  {"reduce_rounds_bodies": k1_bodies} if coll == "allreduce" else {}),
                "ms": time_ms(lambda: run[coll](*args), reps=3, warmup=1),
                "plain_ms": time_ms(lambda: plain[coll](*args), reps=3, warmup=1),
                "bound_ms": b_ms, "bound_by": b_by}
@@ -867,7 +935,8 @@ def main() -> None:
     # --------------------------------------------------------------- report
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms")
-    extra = ("body", "body_launches", "ffma_bound_ms", "tf32x3_route_bound_ms")  # K3's, K4's
+    extra = ("body", "body_launches", "acc_launches", "body_ms", "combine_hook_ms",
+             "combine_hook_bound_ms", "ffma_bound_ms", "tf32x3_route_bound_ms")
     print(card, flush=True)
     emit({"kernels": [{key: rec[key] for key in keys + extra if key in rec or key in keys}
                       for rec in kernels.values()]})

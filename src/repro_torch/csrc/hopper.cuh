@@ -1,18 +1,19 @@
-// Hopper building blocks shared by the port's wgmma kernels (K3, K4):
-// mbarriers, TMA tile loads, wgmma shared-memory descriptors and the wgmma
-// instructions the kernels issue, and the host-side tensor-map encoder.
+// Hopper building blocks shared by the port's Hopper kernels (K3's and K4's
+// wgmma bodies, K1/K2's staged body): mbarriers, TMA tile loads, wgmma
+// shared-memory descriptors and the wgmma instructions the kernels issue,
+// and the host-side tensor-map encoder.
 //
 // Tensor maps. cuTensorMapEncodeTiled lives in libcuda, not the runtime; it is
 // fetched once through cudaGetDriverEntryPoint, so nothing links against
 // libcuda. A map is encoded on the host for every call and passed to the
 // kernel by value as a __grid_constant__ parameter.
 //
-// Shared-memory tiles. Every tile a TMA load writes uses the 128-byte
-// swizzle: rows of 128 bytes, the 16-byte chunk c of row r stored at chunk
-// c ^ (r % 8), atoms of 8 rows (1024 bytes) that must start 1024-byte
-// aligned. A wgmma descriptor of such a tile names its start, the stride
-// between 8-row groups (SBO) and, for an MN-major operand wider than one
-// 128-byte row, the stride between 64-element column blocks (LBO).
+// Shared-memory tiles. Every tile a TMA load writes for wgmma uses the
+// 128-byte swizzle: rows of 128 bytes, the 16-byte chunk c of row r stored
+// at chunk c ^ (r % 8), atoms of 8 rows (1024 bytes) that must start
+// 1024-byte aligned. A wgmma descriptor of such a tile names its start,
+// the stride between 8-row groups (SBO) and, for an MN-major operand wider
+// than one 128-byte row, the stride between 64-element column blocks (LBO).
 
 #pragma once
 
@@ -45,9 +46,11 @@ inline EncodeTiledFn encode_tiled_fn() {
 
 // A tiled map over a `rank`-dimensional tensor: dims and box innermost
 // first, strides in bytes of dims 1..rank-1. Reads past a dim are zeros.
+// Tiles land with the 128-byte swizzle unless `swizzle` says otherwise.
 // Returns false where libcuda refuses the map.
 inline bool encode_map(CUtensorMap* map, CUtensorMapDataType type, int rank, const void* base,
-                       const uint64_t* dims, const uint64_t* strides, const uint32_t* box) {
+                       const uint64_t* dims, const uint64_t* strides, const uint32_t* box,
+                       CUtensorMapSwizzle swizzle = CU_TENSOR_MAP_SWIZZLE_128B) {
   const EncodeTiledFn fn = encode_tiled_fn();
   if (fn == nullptr) return false;
   cuuint64_t d[5], s[4];
@@ -59,7 +62,7 @@ inline bool encode_map(CUtensorMap* map, CUtensorMapDataType type, int rank, con
     if (i + 1 < rank) s[i] = strides[i];
   }
   return fn(map, type, static_cast<cuuint32_t>(rank), const_cast<void*>(base), d, s, b, e,
-            CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+            CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
             CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) ==
          CUDA_SUCCESS;
 }
@@ -137,6 +140,15 @@ __device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
     asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
     if (t - t0 > 10000000000ull) __trap();
   }
+}
+
+__device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map, uint64_t* bar,
+                                            int c0, int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%3, %4}], [%2];\n" ::"r"(smem_addr(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_addr(bar)), "r"(c0), "r"(c1)
+      : "memory");
 }
 
 __device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map, uint64_t* bar,

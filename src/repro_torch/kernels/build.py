@@ -1,7 +1,7 @@
 """Build the port's CUDA sources with ``nvcc`` and load them with ``ctypes``.
 
 Each ``csrc/<name>.cu`` is one kernel family with a plain C interface
-(the wgmma kernels share ``csrc/hopper.cuh``). It is compiled for
+(the Hopper bodies share ``csrc/hopper.cuh``). It is compiled for
 ``sm_90a`` into ``build/repro_torch_kernels/`` at the root of the
 checkout (listed in ``.gitignore``) the first time a wrapper needs it,
 under a name that carries a hash of the source, the shared headers and
@@ -36,7 +36,9 @@ _PP, _PI = ctypes.POINTER(ctypes.c_void_p), ctypes.POINTER(ctypes.c_int)
 SIGNATURES = {
     "reduce_rounds": {
         "reduce_rounds_slab_floats": [],
-        "reduce_rounds_launch": [_P, _P, _P, _P, _I, _I, _I, _LL, _I, _I, _I, _P],
+        "reduce_rounds_staged_limits": [_PI, _PI, _PI],
+        "reduce_rounds_launch": [_P, _P, _P, _P, _P, _I, _I, _I, _LL, _I, _I, _I, _P],
+        "reduce_rounds_staged_launch": [_P, _P, _P, _P, _I, _I, _I, _LL, _I, _I, _I, _I, _P],
     },
     "block_matmul": {
         "block_matmul_launch": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P],

@@ -5,12 +5,17 @@ Replays the OPTIMIZED form of a program (``runtime.optimize``) on torch
 tensors and pushes the compute into kernels of ``repro_torch/csrc``:
 
   * ``run_allreduce`` — every §4 round in ONE launch of the reduce-rounds
-    kernel (``reduce_rounds``): each block keeps an (n, block_f) column slab
-    of the buffer in shared memory across all rounds, driven by the stacked
-    (gather, mask) tables;
+    kernel (``reduce_rounds``): each block keeps (n, block_f) column tiles
+    of the buffer on chip across all rounds, driven by the stacked
+    (gather, mask) tables, packed once per program (``pack_tables``);
   * ``run_matmul`` — the §2 replay with its combine groups on the same
-    kernel at R = 1 (``combine_rows``) and its ``mul_a`` contraction on the
+    kernel at R = 1 with the add into the accumulator in its epilogue
+    (``combine_rows(..., acc=)``) and its ``mul_a`` contraction on the
     batched block-product kernel (``kernels/block_matmul``).
+
+The reduce kernel has two bodies, chosen by dtype and shape (``body_for``):
+``staged`` (a bulk-copy ring into shared memory, the tables held there)
+where rows are whole 16-byte vectors and the tiles fit, ``slab`` otherwise.
 
 ``run_alltoall`` and ``run_broadcast`` are pure data movement with no
 compute to fuse: they are the optimizer's torch table replays (one batched
@@ -57,12 +62,24 @@ from repro_torch.runtime.program import check_kind as _check_kind
 _reduce_rounds_plain = _opt.replay_allreduce
 
 
-def _combine_rows_plain(flat: torch.Tensor, gather: torch.Tensor,
-                        mask: torch.Tensor) -> torch.Tensor:
-    return _opt.combine_fold(torch.zeros_like(flat), flat, gather, mask)
+def _combine_rows_plain(flat: torch.Tensor, gather: torch.Tensor, mask: torch.Tensor,
+                        acc: torch.Tensor | None = None) -> torch.Tensor:
+    fold = _opt.combine_fold(torch.zeros_like(flat), flat, gather, mask)
+    return fold if acc is None else acc + fold
 
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+#: The reduce kernel's bodies (csrc/reduce_rounds.cu), chosen by ``body_for``.
+BODIES = ("slab", "staged")
+#: The staged body's limits (``staged::`` in csrc/reduce_rounds.cu, which
+#: also reports them through ``reduce_rounds_staged_limits``): bytes of
+#: values a column tile holds (its consumers' registers), stages in its
+#: ring, rows and columns of a TMA box, and the shared memory a block may
+#: take with two blocks on an H100 SM (228 KiB / 2 less 1 KiB reserved).
+STAGED_TILE_BYTES = 16384
+STAGED_MAX_STAGES = 4
+STAGED_BOX = 256
+STAGED_SMEM_BYTES = 115712
 
 
 @functools.lru_cache(maxsize=None)
@@ -71,7 +88,7 @@ def _slab_floats() -> int:
 
 
 def column_shift(n: int, features: int, slab_floats: int) -> int:
-    """log2 of the kernel's column tile ``block_f``: the widest power of
+    """log2 of the slab body's column tile ``block_f``: the widest power of
     two whose (n, block_f) slab fits ``slab_floats``, and no wider than
     the buffer needs."""
     if n > slab_floats:
@@ -82,10 +99,98 @@ def column_shift(n: int, features: int, slab_floats: int) -> int:
     return shift
 
 
-def _launch_rounds(flat, gather, mask, *, self_add: bool, what: str):
-    if flat.device.type != "cuda" or gather.device != flat.device or mask.device != flat.device:
+def staged_smem(n: int, shift: int, esize: int, rounds: int, k_rows: int, stages: int,
+                acc: bool) -> int:
+    """Bytes of shared memory the staged body takes: barriers, a row of
+    zeros and the packed table, ``stages`` stages of an (n, 1 << shift)
+    tile (two tiles each with ``acc``) and, for R > 1, two scratch tiles.
+    A tile's rows come in TMA boxes of one height, at most STAGED_BOX and,
+    for more than one box, a multiple of 8 rows (each box lands 128-byte
+    aligned), so the last box may pad it; the header and each tile end on
+    a 128-byte boundary."""
+    def up(b, to=128):
+        return -(-b // to) * to
+
+    boxes = -(-n // STAGED_BOX)
+    rows = n if boxes == 1 else boxes * up(-(-n // boxes), 8)
+    tile = up((rows << shift) * esize)
+    header = up(2 * STAGED_MAX_STAGES * 8 + (esize << shift) + 4 * rounds * k_rows * n)
+    return header + stages * tile * (2 if acc else 1) + (2 * tile if rounds > 1 else 0)
+
+
+@functools.lru_cache(maxsize=1024)
+def stage_tile(n: int, features: int, esize: int, rounds: int, k_rows: int, acc: bool = False,
+               smem: int = STAGED_SMEM_BYTES) -> tuple[int, int] | None:
+    """The staged body's column tile and ring, ``(shift, stages)`` with
+    ``block_f = 1 << shift``, or None where it does not take the shape. A
+    row of ``features`` elements of ``esize`` bytes must be whole 16-byte
+    vectors, and the tile at least one vector wide. The widest power of two
+    up to a TMA box (STAGED_BOX columns) whose (n, block_f) tile holds at
+    most STAGED_TILE_BYTES of values and no wider than the buffer needs;
+    then as many stages as fit ``smem`` beside the tables and scratch, at
+    most STAGED_MAX_STAGES. Fewer than two stages halve the tile, down to
+    one vector. Columns are TMA coordinates, so ``features < 2**31``."""
+    vec = 16 // esize
+    if n < 1 or not 0 < features < 2**31 or (features * esize) % 16 or n * 16 > STAGED_TILE_BYTES:
+        return None
+    shift = vec.bit_length() - 1
+    while ((n << (shift + 1)) * esize <= STAGED_TILE_BYTES and 2 << shift <= STAGED_BOX
+           and (1 << shift) < features):
+        shift += 1
+    while True:
+        fixed = staged_smem(n, shift, esize, rounds, k_rows, 0, acc)
+        per_stage = staged_smem(n, shift, esize, rounds, k_rows, 1, acc) - fixed
+        stages = min(STAGED_MAX_STAGES, (smem - fixed) // per_stage) if smem > fixed else 0
+        if stages >= 2:
+            return shift, stages
+        if 1 << shift == vec:
+            return None
+        shift -= 1
+
+
+def body_for(dtype: torch.dtype, n: int, features: int, rounds: int, k_rows: int,
+             acc: bool = False, aligned: bool = True) -> str:
+    """The body the reduce kernel runs for these operands: ``"staged"``
+    where ``stage_tile`` takes the shape and every base (x, out, acc) is
+    16-byte aligned (``aligned``), else ``"slab"``."""
+    if aligned and stage_tile(n, features, dtype.itemsize, rounds, k_rows, acc) is not None:
+        return "staged"
+    return "slab"
+
+
+def pack_tables(gather, mask):
+    """The staged body's table: each (gather, mask) entry as one int32, the
+    gathered row where the mask holds and -1 where it does not. numpy
+    arrays or tensors, of any shape."""
+    if isinstance(gather, torch.Tensor):
+        return torch.where(mask, gather, -1).to(torch.int32).contiguous()
+    return np.where(mask, gather, -1).astype(np.int32)
+
+
+def replay_packed(flat: torch.Tensor, packed: torch.Tensor, *, self_add: bool = True,
+                  acc: torch.Tensor | None = None) -> torch.Tensor:
+    """What the staged body computes from packed (R, k, n) tables, in plain
+    torch on (n, F) values: per round ``recv`` folds ``where(p >= 0,
+    val[p], 0)`` for k in order from zeros, then ``val = val + recv`` (or
+    ``recv`` without the self-add); ``acc + val`` at the end where ``acc``
+    is given. The same bits as the unpacked replays."""
+    zero = flat.new_zeros(())
+    val = flat
+    for r in range(packed.shape[0]):
+        recv = torch.zeros_like(val)
+        for p in packed[r]:
+            recv = recv + torch.where((p >= 0)[:, None], val[p.clamp(min=0).long()], zero)
+        val = val + recv if self_add else recv
+    return val if acc is None else acc + val
+
+
+def _launch_rounds(flat, gather, mask, *, packed, acc, self_add: bool, body, what: str):
+    """Check the operands, choose the body and launch it; returns the output
+    and the body launched (None where the output is empty)."""
+    tensors = [flat, gather, mask] + [t for t in (packed, acc) if t is not None]
+    if flat.device.type != "cuda" or any(t.device != flat.device for t in tensors):
         raise ValueError(f"{what} takes CPU or same-card CUDA tensors, got "
-                         f"{flat.device}, {gather.device}, {mask.device}")
+                         f"{[str(t.device) for t in tensors]}")
     if flat.dtype not in _DTYPES:
         raise TypeError(f"{what} takes float32 or bfloat16 on the card, got {flat.dtype}")
     if gather.dtype != torch.int32 or mask.dtype != torch.bool:
@@ -95,74 +200,135 @@ def _launch_rounds(flat, gather, mask, *, self_add: bool, what: str):
             or gather.shape[2] != flat.shape[0]):
         raise ValueError(f"{what}: expected (n, F) values and (R, k, n) tables, got "
                          f"{tuple(flat.shape)}, {tuple(gather.shape)}, {tuple(mask.shape)}")
-    if not (flat.is_contiguous() and gather.is_contiguous() and mask.is_contiguous()):
+    if packed is not None and (packed.dtype != torch.int32 or packed.shape != gather.shape):
+        raise ValueError(f"{what}: the packed table must be int32 of the tables' shape, got "
+                         f"{packed.dtype} {tuple(packed.shape)}")
+    if acc is not None and (acc.dtype != flat.dtype or acc.shape != flat.shape):
+        raise ValueError(f"{what}: acc must match the values, got {acc.dtype} "
+                         f"{tuple(acc.shape)} for {flat.dtype} {tuple(flat.shape)}")
+    if not all(t.is_contiguous() for t in tensors):
         raise ValueError(f"{what} takes contiguous values and tables")
+    if body not in (None,) + BODIES:
+        raise ValueError(f"{what}: no body {body!r}; the bodies are {BODIES}")
     n, features = flat.shape
     rounds, k_rows, _ = gather.shape
+    if rounds == 0 or k_rows == 0:
+        raise ValueError(f"{what} takes at least one round and one table row, got "
+                         f"(R, k) = ({rounds}, {k_rows})")
     out = torch.empty_like(flat)
     if out.numel() == 0:
-        return out
-    shift = column_shift(n, features, _slab_floats())
+        return out, None
+    aligned = all(t.data_ptr() % 16 == 0 for t in (flat, out, acc) if t is not None)
+    chosen = body_for(flat.dtype, n, features, rounds, k_rows, acc is not None, aligned)
+    if body == "staged" and chosen != "staged":
+        raise ValueError(f"{what}: the staged body does not take {flat.dtype} "
+                         f"{tuple(flat.shape)} with (R, k) = ({rounds}, {k_rows})"
+                         f"{'' if aligned else ' at bases off 16 bytes'}")
+    body = body or chosen
+    lib = build.load("reduce_rounds")
+    acc_ptr = None if acc is None else acc.data_ptr()
+    stream = torch.cuda.current_stream(flat.device).cuda_stream
     with torch.cuda.device(flat.device):
-        err = build.load("reduce_rounds").reduce_rounds_launch(
-            flat.data_ptr(), out.data_ptr(), gather.data_ptr(), mask.data_ptr(),
-            rounds, k_rows, n, features, shift, int(self_add), _DTYPES[flat.dtype],
-            torch.cuda.current_stream().cuda_stream)
-    build.check(err, f"{what} launch")
-    return out
+        if body == "staged":
+            shift, stages = stage_tile(n, features, flat.element_size(), rounds, k_rows,
+                                       acc is not None)
+            if packed is None:
+                packed = pack_tables(gather, mask)
+            err = lib.reduce_rounds_staged_launch(
+                flat.data_ptr(), acc_ptr, out.data_ptr(), packed.data_ptr(), rounds, k_rows,
+                n, features, shift, stages, int(self_add), _DTYPES[flat.dtype], stream)
+        else:
+            err = lib.reduce_rounds_launch(
+                flat.data_ptr(), acc_ptr, out.data_ptr(), gather.data_ptr(), mask.data_ptr(),
+                rounds, k_rows, n, features, column_shift(n, features, _slab_floats()),
+                int(self_add), _DTYPES[flat.dtype], stream)
+    build.check(err, f"{what} launch ({body} body)")
+    return out, body
 
 
-def reduce_rounds(flat: torch.Tensor, gather: torch.Tensor,
-                  mask: torch.Tensor) -> torch.Tensor:
+def reduce_rounds(flat: torch.Tensor, gather: torch.Tensor, mask: torch.Tensor, *,
+                  packed: torch.Tensor | None = None, body: str | None = None) -> torch.Tensor:
     """K1, the §4 all-reduce replay in one launch: for each of R rounds,
     ``val += Σ_k where(mask[r, k], val[gather[r, k]], 0)`` folded in k
     order. ``flat`` is (n, F) float32 or bfloat16 (each bf16 add is rounded
     at once, as a torch bf16 add is); the tables are (R, k, n) int32 / bool
     (``optimize.stacked_combine_tables``), gathers in [0, n) as ``optimize``
     builds them (the kernel does not check). Bit-exact with the plain
-    version. Every launch adds one to ``reduce_rounds.launches``."""
+    version.
+
+    On the card the body follows ``body_for`` (``body`` forces one; a
+    forced ``"staged"`` that the operands do not fit raises). ``packed``
+    is ``pack_tables(gather, mask)`` where the caller keeps it, else the
+    staged body packs them on the card. Every launch adds one to
+    ``reduce_rounds.launches`` and to its body's entry of
+    ``reduce_rounds.body_launches``."""
     if flat.device.type == "cpu":
         return _reduce_rounds_plain(flat, gather, mask)
-    out = _launch_rounds(flat, gather, mask, self_add=True, what="reduce_rounds")
-    reduce_rounds.launches += 1
+    out, launched = _launch_rounds(flat, gather, mask, packed=packed, acc=None, self_add=True,
+                                   body=body, what="reduce_rounds")
+    if launched:
+        reduce_rounds.launches += 1
+        reduce_rounds.body_launches[launched] += 1
     return out
 
 
-def combine_rows(flat: torch.Tensor, gather: torch.Tensor,
-                 mask: torch.Tensor) -> torch.Tensor:
+def combine_rows(flat: torch.Tensor, gather: torch.Tensor, mask: torch.Tensor, *,
+                 acc: torch.Tensor | None = None, packed: torch.Tensor | None = None,
+                 body: str | None = None) -> torch.Tensor:
     """K2, one §2 ReduceCombine group: ``Σ_k where(mask[k], val[gather[k]], 0)``
-    in stage order over (n, F) rows, with (k, n) tables. The reduce-rounds
-    kernel at R = 1 without the self-add. Every launch adds one to
-    ``combine_rows.launches``."""
+    in stage order over (n, F) rows, with (k, n) tables; with ``acc`` (n, F)
+    of the same dtype, ``acc + that``, added in the kernel's epilogue (the
+    bits of the plain ``acc + fold``). The reduce-rounds kernel at R = 1
+    without the self-add; ``packed`` and ``body`` as for ``reduce_rounds``.
+    Every launch adds one to ``combine_rows.launches``, to its body's entry
+    of ``combine_rows.body_launches`` and, with ``acc``, to
+    ``combine_rows.acc_launches``."""
+    if acc is not None and acc.shape != flat.shape:
+        raise ValueError(f"combine_rows: acc {tuple(acc.shape)} for values {tuple(flat.shape)}")
     if flat.device.type == "cpu":
-        return _combine_rows_plain(flat, gather, mask)
-    out = _launch_rounds(flat, gather[None], mask[None], self_add=False,
-                         what="combine_rows")
-    combine_rows.launches += 1
+        return _combine_rows_plain(flat, gather, mask, acc)
+    out, launched = _launch_rounds(flat, gather[None], mask[None],
+                                   packed=None if packed is None else packed[None], acc=acc,
+                                   self_add=False, body=body, what="combine_rows")
+    if launched:
+        combine_rows.launches += 1
+        combine_rows.body_launches[launched] += 1
+        combine_rows.acc_launches += acc is not None
     return out
 
 
-reduce_rounds.launches = 0
-combine_rows.launches = 0
-
-
-def _combine_fn(acc, val, gather, mask):
-    """The §2 combine hook: ``acc + combine_rows(val)``. The §2 program
-    zeroes ``acc`` before every combine group, so this equals the plain
-    fold straight into ``acc`` bit for bit."""
-    n = val.shape[0]
-    return acc + combine_rows(val.reshape(n, -1), gather, mask).reshape(val.shape)
+reduce_rounds.launches = combine_rows.launches = combine_rows.acc_launches = 0
+reduce_rounds.body_launches = dict.fromkeys(BODIES, 0)
+combine_rows.body_launches = dict.fromkeys(BODIES, 0)
 
 
 @functools.lru_cache(maxsize=None)
 def _matmul_executor(opt: _opt.OptimizedProgram, device: torch.device):
-    return _opt.build_torch_matmul(opt, device, mul_fn=batched_matmul,
-                                   combine_fn=_combine_fn)
+    """The §2 replay with K3 as its product and K2 as its combine hook. Each
+    combine group's packed table is made on the host once, beside its
+    gather and mask, and found by its gather tensor, which the recipe holds."""
+    recipe = tuple(
+        (kind, fn, _opt.to_device_tables(
+            {**tabs, "packed": pack_tables(tabs["gather"], tabs["mask"])}
+            if kind == "combine" else tabs, device))
+        for kind, fn, tabs in _opt.matmul_tables(opt))
+    packed = {id(t["gather"]): t["packed"] for kind, _, t in recipe if kind == "combine"}
+
+    def combine_fn(acc, val, gather, mask):
+        """``acc + combine_rows(val)``, the add in K2's epilogue."""
+        n = val.shape[0]
+        return combine_rows(val.reshape(n, -1), gather, mask, acc=acc.reshape(n, -1),
+                            packed=packed[id(gather)]).reshape(val.shape)
+
+    return functools.partial(_opt.replay_matmul, recipe, mul_fn=batched_matmul,
+                             combine_fn=combine_fn)
 
 
 @functools.lru_cache(maxsize=None)
 def _allreduce_tables(opt: _opt.OptimizedProgram, device: torch.device):
-    return _opt.to_device_tables(_opt.allreduce_tables(opt), device)
+    tables = _opt.allreduce_tables(opt)
+    return _opt.to_device_tables(
+        {**tables, "packed": pack_tables(tables["gather"], tables["mask"])}, device)
 
 
 # ---------------------------------------------------------------------------
@@ -426,7 +592,7 @@ class CudaFusedBackend:
         x = self._tensor(x, opt.n, "run_allreduce")
         t = _allreduce_tables(opt, self.device)
         flat = x.reshape(opt.n, -1)
-        return reduce_rounds(flat, t["gather"], t["mask"]).reshape(x.shape)
+        return reduce_rounds(flat, t["gather"], t["mask"], packed=t["packed"]).reshape(x.shape)
 
     def run_broadcast(self, x, program, *, pipelined: bool = False) -> torch.Tensor:
         # fused replay is order-free: barrier == pipelined bit-for-bit

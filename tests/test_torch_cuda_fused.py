@@ -163,6 +163,114 @@ def test_backend_checks_the_device_axis():
         be.run_alltoall(np.zeros((p.n, p.n), np.float32), p)
 
 
+# ---------------------------------------------- CPU: K1/K2's two bodies' rules
+STAGED_CASES = [  # (dtype, n, F, R, k, acc, aligned) -> body
+    ((torch.float32, 64, 6553600, 6, 1, False, True), "staged"),   # K1 at the main shape
+    ((torch.bfloat16, 64, 6553600, 6, 1, False, True), "staged"),
+    ((torch.float32, 256, 262144, 1, 5, True, True), "staged"),    # K2 with acc at X = 512
+    ((torch.bfloat16, 256, 262144, 1, 4, True, True), "staged"),
+    ((torch.float32, 1, 4, 8, 5, False, True), "staged"),          # one row, one vector
+    ((torch.float32, 1024, 4, 1, 1, False, True), "staged"),       # the most rows a tile holds
+    ((torch.float32, 1025, 4, 1, 1, False, True), "slab"),
+    ((torch.bfloat16, 1024, 8, 1, 1, False, True), "staged"),
+    ((torch.bfloat16, 1025, 8, 1, 1, False, True), "slab"),
+    ((torch.float32, 301, 1000, 2, 3, False, True), "staged"),     # two TMA boxes of 152 rows
+    ((torch.float32, 256, 9, 1, 5, True, True), "slab"),           # X = 3: rows of 36 bytes
+    ((torch.float32, 256, 4, 1, 5, True, True), "staged"),         # X = 2: one vector a row
+    ((torch.bfloat16, 256, 4, 1, 5, False, True), "slab"),         # 8 bytes a row
+    ((torch.float32, 64, 1000, 6, 1, False, False), "slab"),       # a base off 16 bytes
+    ((torch.float32, 512, 1024, 25, 1, False, True), "staged"),    # a big table: smaller tile
+    ((torch.float32, 1024, 1024, 40, 1, False, True), "slab"),     # a table past the memory
+]
+
+
+@pytest.mark.parametrize("case,body", STAGED_CASES, ids=str)
+def test_reduce_body_for_and_stage_tile(case, body):
+    """Which shapes take the staged body, and that its tile and stages fit:
+    whole 16-byte vectors, at most a TMA box wide and STAGED_TILE_BYTES of
+    values, no wider than the buffer needs, 2..STAGED_MAX_STAGES stages,
+    and shared memory within a block's share."""
+    dtype, n, F, R, k, acc, aligned = case
+    assert cf.body_for(dtype, n, F, R, k, acc, aligned) == body
+    esize = dtype.itemsize
+    tile = cf.stage_tile(n, F, esize, R, k, acc)
+    if body == "slab" and aligned:
+        assert tile is None
+        return
+    shift, stages = tile
+    block_f = 1 << shift
+    assert 16 <= block_f * esize and block_f <= cf.STAGED_BOX
+    assert n * block_f * esize <= cf.STAGED_TILE_BYTES
+    assert block_f // 2 * esize < 16 or block_f // 2 < F
+    assert 2 <= stages <= cf.STAGED_MAX_STAGES
+    assert cf.staged_smem(n, shift, esize, R, k, stages, acc) <= cf.STAGED_SMEM_BYTES
+
+
+def test_stage_tile_takes_the_widest_tile_and_the_most_stages():
+    assert cf.stage_tile(64, 6553600, 4, 6, 1) == (6, 4)  # 16 KiB tiles, 4 stages, 2 scratch
+    assert cf.stage_tile(64, 6553600, 2, 6, 1) == (7, 4)  # bf16: twice the columns
+    assert cf.stage_tile(256, 262144, 4, 1, 5, acc=True) == (4, 3)  # 32 KiB stages
+    assert cf.stage_tile(256, 262144, 4, 1, 5) == (4, 4)
+    assert cf.stage_tile(512, 1024, 4, 25, 1) == (2, 4)  # 50 KiB of table: 8 KiB tiles
+    assert cf.stage_tile(64, 6553600, 4, 6, 1, smem=60_000) == (5, 4)  # less memory: halve
+    assert cf.stage_tile(4, 100, 4, 1, 1) == (7, 4)  # no wider than the buffer needs
+    # 301 rows come in two TMA boxes of 152 (a multiple of 8: each lands
+    # 128-byte aligned): 304 rows of 16 bytes, beside barriers, a zero row
+    # and the table (to 128)
+    assert cf.staged_smem(301, 2, 4, 1, 1, 1, False) == 1408 + 304 * 16
+
+
+@pytest.mark.parametrize("km", LAYOUTS, ids=str)
+def test_packed_tables_replay_like_the_unpacked(km):
+    """One int32 an entry (the row, or -1 where the mask is false) replays
+    bit for bit as the (gather, mask) pair does, special values included."""
+    p = dc.allreduce_program(DeviceLayout(D3(*km)), optimized=True)
+    g, m = opt.stacked_combine_tables(p)
+    packed = cf.pack_tables(g, m)
+    assert packed.dtype == np.int32 and packed.shape == g.shape
+    assert np.array_equal(packed >= 0, m) and np.array_equal(packed[m], g[m])
+    assert torch.equal(cf.pack_tables(torch.from_numpy(g), torch.from_numpy(m)),
+                       torch.from_numpy(packed))
+    x = torch.from_numpy(_special_values(np.random.default_rng(12), (p.n, 9)))
+    _same_bits(cf.replay_packed(x, torch.from_numpy(packed)),
+               cf.reduce_rounds(x, torch.from_numpy(g), torch.from_numpy(m)))
+
+
+@pytest.mark.parametrize("grid", GRIDS, ids=str)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=str)
+def test_combine_rows_plain_adds_acc(grid, dtype):
+    """``combine_rows(..., acc=)`` on the CPU is ``acc + fold`` bit for bit,
+    for a non-zero acc, and the packed replay with acc agrees."""
+    rng = np.random.default_rng(13)
+    for op in _combine_groups(grid):
+        n = op.gather.shape[1]
+        val = torch.from_numpy(_special_values(rng, (n, 6))).to(dtype)
+        acc = torch.from_numpy(_special_values(rng, (n, 6))).to(dtype)
+        g, m = torch.from_numpy(op.gather), torch.from_numpy(op.mask)
+        got = cf.combine_rows(val, g, m, acc=acc)
+        _same_bits(got, acc + cf.combine_rows(val, g, m))
+        _same_bits(got, cf.replay_packed(val, cf.pack_tables(g, m)[None], self_add=False,
+                                         acc=acc))
+        with pytest.raises(ValueError, match="acc"):
+            cf.combine_rows(val, g, m, acc=acc[:, :3])
+
+
+@pytest.mark.parametrize("grid,X", [((1, 2), 4), ((2, 2), 2), ((1, 3), 3)], ids=str)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=str)
+def test_backend_cpu_matmul_matches_the_plain_replay(grid, X, dtype):
+    """run_matmul on the CPU, its combine hook now ``combine_rows(acc=)``,
+    against the optimizer's plain §2 replay on random normals, bit for bit."""
+    be = cf.CudaFusedBackend(device="cpu")
+    prog = dc.matmul_program(*grid, optimized=True)
+    rng = np.random.default_rng(14)
+    N = mm.MatmulGrid(*grid).n * X
+    B, A = (torch.from_numpy(rng.standard_normal((N, N)).astype(np.float32)).to(dtype)
+            for _ in range(2))
+    want = opt.torch_gather_blocks(opt.torch_matmul_blocks(prog, torch.device("cpu"))(
+        opt.torch_scatter_blocks(B, grid), opt.torch_scatter_blocks(A, grid)), grid)
+    _same_bits(be.run_matmul(B, A, prog), want)
+
+
 # ------------------------------------------------------------- card: kernels
 @pytest.mark.gpu
 @pytest.mark.parametrize("km", LAYOUTS, ids=str)
@@ -219,6 +327,100 @@ def test_combine_rows_kernel_bit_exact_in_bf16(cuda, grid, X):
             cuda, torch.bfloat16)
         _same_bits(cf.combine_rows(val, t["gather"], t["mask"]),
                    cf._combine_rows_plain(val, t["gather"], t["mask"]))
+
+
+def _random_tables(rng, R, k, n, device):
+    """Random (R, k, n) gather and mask tables, about a third of the mask false."""
+    g = torch.from_numpy(rng.integers(0, n, (R, k, n)).astype(np.int32)).to(device)
+    m = torch.from_numpy(rng.random((R, k, n)) < 0.67).to(device)
+    return g, m
+
+
+def _each_body(dtype, n, F, R, k, acc):
+    """The bodies that take these operands: slab always, staged where its rule does."""
+    staged = cf.body_for(dtype, n, F, R, k, acc) == "staged"
+    return ["slab", "staged"] if staged else ["slab"]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=str)
+@pytest.mark.parametrize("n", [1, 8, 64, 256, 301])
+@pytest.mark.parametrize("R,k", [(1, 1), (2, 3), (5, 2), (8, 5)], ids=str)
+@pytest.mark.parametrize("F", [8, 40, 1000, 4104, 3])
+def test_reduce_rounds_each_body_bit_exact(cuda, dtype, n, R, k, F):
+    """K1's two bodies against the plain replay on random tables: ragged F
+    (off every tile width; 3 columns only the slab body takes), n from 1
+    to 256 and 301 (two TMA boxes of 152 rows), up to 8 rounds of 5 rows,
+    NaN, ±inf and ±0 planted. Same bits, one launch of the body asked for."""
+    rng = np.random.default_rng(n * 1000 + R * 10 + k)
+    g, m = _random_tables(rng, R, k, n, cuda)
+    x = torch.from_numpy(_special_values(rng, (n, F))).to(cuda, dtype)
+    want = cf._reduce_rounds_plain(x, g, m)
+    for body in _each_body(dtype, n, F, R, k, False):
+        before = dict(cf.reduce_rounds.body_launches)
+        got = cf.reduce_rounds(x, g, m, body=body)
+        torch.cuda.synchronize()
+        _same_bits(got, want)
+        assert cf.reduce_rounds.body_launches[body] == before[body] + 1
+    _same_bits(cf.reduce_rounds(x, g, m, packed=cf.pack_tables(g, m)), want)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=str)
+@pytest.mark.parametrize("n", [1, 8, 64, 256])
+@pytest.mark.parametrize("k", [1, 4, 5])
+@pytest.mark.parametrize("F", [8, 72, 1000, 4104, 9])
+def test_combine_rows_each_body_with_acc(cuda, dtype, n, k, F):
+    """K2's two bodies, with and without acc, against ``acc + fold`` and the
+    fold: random tables, a random non-zero acc, special values in both."""
+    rng = np.random.default_rng(n * 100 + k)
+    g, m = _random_tables(rng, 1, k, n, cuda)
+    g, m = g[0], m[0]
+    val = torch.from_numpy(_special_values(rng, (n, F))).to(cuda, dtype)
+    acc = torch.from_numpy(_special_values(rng, (n, F))).to(cuda, dtype)
+    fold = cf._combine_rows_plain(val, g, m)
+    for body in _each_body(dtype, n, F, 1, k, True):
+        before = (cf.combine_rows.acc_launches, cf.combine_rows.body_launches[body])
+        _same_bits(cf.combine_rows(val, g, m, acc=acc, body=body), acc + fold)
+        _same_bits(cf.combine_rows(val, g, m, body=body), fold)
+        torch.cuda.synchronize()
+        assert (cf.combine_rows.acc_launches, cf.combine_rows.body_launches[body]) == \
+            (before[0] + 1, before[1] + 2)
+
+
+@pytest.mark.gpu
+def test_staged_limits_are_the_kernels(cuda):
+    """The tile chooser's limits are the kernel's on this card: otherwise it
+    would pick tiles the kernel refuses, or leave shared memory unused."""
+    import ctypes
+
+    from repro_torch.kernels import build
+
+    got = [ctypes.c_int() for _ in range(3)]
+    build.load("reduce_rounds").reduce_rounds_staged_limits(*map(ctypes.byref, got))
+    assert [v.value for v in got] == [cf.STAGED_TILE_BYTES, cf.STAGED_MAX_STAGES,
+                                      cf.STAGED_SMEM_BYTES]
+
+
+@pytest.mark.gpu
+def test_staged_body_refuses_what_it_does_not_take(cuda):
+    """No quiet fallback: a forced staged body on rows of 36 bytes, on a base
+    off 16 bytes, or past the rows a tile holds raises before a launch; the
+    rule sends those shapes to the slab body."""
+    g = torch.zeros((1, 1, 4), dtype=torch.int32, device=cuda)
+    m = torch.ones((1, 1, 4), dtype=torch.bool, device=cuda)
+    x = torch.ones((4, 9), device=cuda)
+    with pytest.raises(ValueError, match="staged"):
+        cf.reduce_rounds(x, g, m, body="staged")
+    x = torch.ones(4 * 8 + 1, device=cuda)[1:].view(4, 8)  # 4 bytes off 16
+    assert x.is_contiguous() and x.data_ptr() % 16
+    with pytest.raises(ValueError, match="16 bytes"):
+        cf.reduce_rounds(x, g, m, body="staged")
+    _same_bits(cf.reduce_rounds(x, g, m), cf._reduce_rounds_plain(x, g, m))
+    g = torch.zeros((1, 1, 4096), dtype=torch.int32, device=cuda)
+    m = torch.ones((1, 1, 4096), dtype=torch.bool, device=cuda)
+    with pytest.raises(ValueError, match="staged"):
+        cf.reduce_rounds(torch.ones((4096, 4), device=cuda), g, m, body="staged")
 
 
 @pytest.mark.gpu

@@ -304,3 +304,93 @@ def test_combine_rows_bf16_plain_path_is_bit_exact_with_pallas(grid):
         got = cf.combine_rows(torch.from_numpy(val).bfloat16(), torch.from_numpy(op.gather),
                               torch.from_numpy(op.mask))
         _bf16_bits(got, want)
+
+
+# ---------------------------------------- K1/K2's packed tables and fused acc
+def _planted(seed, shape, rows=None):
+    """Random normals with NaN, ±inf and -0.0 planted, in ``rows`` only
+    where given (else anywhere)."""
+    rng = np.random.default_rng(seed)
+    x = rng.standard_normal(shape).astype(np.float32)
+    where = x if rows is None else x[rows]
+    flat = where.reshape(-1)
+    picks = rng.choice(flat.size, size=min(flat.size, 6), replace=False)
+    flat[picks] = np.array([np.nan, np.inf, -np.inf, -0.0, np.nan, -0.0], np.float32)[: len(picks)]
+    if rows is not None:
+        x[rows] = where
+    return x
+
+
+@pytest.mark.parametrize("km", LAYOUTS + [(4, 4)], ids=str)
+def test_packed_tables_replay_bit_equal_to_pallas(km):
+    """The staged body's packed table (the row, or -1 where the mask is
+    false) replays as the (gather, mask) pair, as ``np_allreduce`` and as
+    ``pallas_fused``'s reduce-rounds kernel in interpret mode, bit for bit,
+    on normals and on integers."""
+    from repro_torch.runtime.backends import cuda_fused as cf
+
+    jo = j_dc.allreduce_program(JLayout(JD3(*km)), optimized=True)
+    to = t_dc.allreduce_program(TLayout(TD3(*km)), optimized=True)
+    g, m = t_opt.stacked_combine_tables(to)
+    packed = torch.from_numpy(cf.pack_tables(g, m))
+    for x in (np.random.default_rng(15).standard_normal((jo.n, 7)).astype(np.float32),
+              inputs("allreduce", jo.n, 16)):
+        got = cf.replay_packed(torch.from_numpy(x), packed).numpy()
+        assert_bits(got, t_opt.replay_allreduce(torch.from_numpy(x), torch.from_numpy(g),
+                                                torch.from_numpy(m)).numpy())
+        assert_bits(got, t_opt.np_allreduce(x, to))
+        assert_bits(got, PAL.run_allreduce(x, jo))
+
+
+def _pallas_combine_fn(monkeypatch, jo):
+    """``pallas_fused``'s own §2 combine hook (``combine_fn`` of
+    ``_matmul_executor``, in interpret mode), taken from the call that
+    builds its replay."""
+    from repro.runtime.backends import pallas_fused
+
+    hooks = {}
+    build = j_opt.build_jax_matmul
+
+    def spy(opt, **kw):
+        hooks.update(kw)
+        return build(opt, **kw)
+
+    monkeypatch.setattr(j_opt, "build_jax_matmul", spy)
+    pallas_fused._matmul_executor.__wrapped__(jo, True)
+    return hooks["combine_fn"]
+
+
+@pytest.mark.parametrize("grid", [(1, 2), (2, 2)], ids=str)
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_combine_rows_acc_bit_exact_with_pallas_combine_fn(monkeypatch, grid, dtype):
+    """``combine_rows(val, g, m, acc=acc)``, K2 with its add fused, on the
+    CPU against ``pallas_fused``'s combine hook ``acc + _combine_group_kernel(val)``
+    for a random non-zero acc, with NaN, ±inf and -0.0 planted in rows that
+    the group gathers only where its mask is false: the same bits, in
+    float32 and bf16, and nothing planted leaks."""
+    from repro_torch.runtime.backends import cuda_fused as cf
+
+    jo = j_dc.matmul_program(*grid, optimized=True)
+    combine_fn = _pallas_combine_fn(monkeypatch, jo)
+    groups = [op for op in jo.ops if type(op).__name__ == "FusedCombine"]
+    assert groups
+    X = 3
+    for i, op in enumerate(groups):
+        n = op.gather.shape[1]
+        # the group's tables with every entry that gathers rows 0 and 1 masked
+        # off, so those rows are gathered only where the mask is false
+        unselected = np.array([0, 1])
+        mask = op.mask & ~np.isin(op.gather, unselected)
+        val = _planted(17 + i, (n, X, X), unselected)
+        acc = np.random.default_rng(30 + i).standard_normal((n, X, X)).astype(np.float32)
+        want = combine_fn(jnp.asarray(acc, dtype), jnp.asarray(val, dtype),
+                          jnp.asarray(op.gather), jnp.asarray(mask))
+        tdt = getattr(torch, dtype)
+        got = cf.combine_rows(torch.from_numpy(val).to(tdt).reshape(n, -1),
+                              torch.from_numpy(op.gather), torch.from_numpy(mask),
+                              acc=torch.from_numpy(acc).to(tdt).reshape(n, -1)).reshape(n, X, X)
+        want = torch.from_numpy(np.array(want, np.float32)).to(tdt)
+        assert got.dtype == want.dtype and got.shape == want.shape
+        assert torch.equal(got.view(torch.int16 if dtype == "bfloat16" else torch.int32),
+                           want.view(torch.int16 if dtype == "bfloat16" else torch.int32))
+        assert bool(torch.isfinite(got.float()).all())  # nothing planted leaked
