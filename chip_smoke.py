@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the port's collective runtime, dense model path and per-shard
-path on one NVIDIA card, end to end.
+"""Drive the port's collective runtime, dense and MoE model paths and
+per-shard path on one NVIDIA card, end to end.
 
     python3 chip_smoke.py
 
@@ -42,7 +42,8 @@ path on one NVIDIA card, end to end.
    TinyLlama-1.1B's prefill shape (q (8, 2048, 32, 64) bf16, k/v
    (8, 2048, 4, 64), causal), at small shapes with head_dim 64, 96
    (Phi-3-mini's) and 128, with a sliding window of 32 at Sq != Sk and at
-   ragged lengths. bf16 within |Δ| <= 1e-2 + 1e-2·|want| everywhere and
+   ragged lengths, and at Mixtral-8x7B's prefill shape (q (1, 8192, 32,
+   128) bf16, k/v (1, 8192, 8, 128), causal, window 4096). bf16 within |Δ| <= 1e-2 + 1e-2·|want| everywhere and
    ||Δ|| <= 1e-2·||want|| (bf16 out, and p rounds to bf16 after scaling
    by running maxima taken over other key tiles: about one bf16 step of
    2^-8); float32 within 2e-4 in both. Shows that the bf16 bound rejects
@@ -54,7 +55,10 @@ path on one NVIDIA card, end to end.
    never called by the port) and its bound at the 989 TFLOP/s of the bf16
    tensor cores, and the host time of one call of the wrapper at the
    prefill shape, bf16 (the wgmma body, three TMA tensor maps encoded per
-   call) beside float32 (the mma_sync body, no maps);
+   call) beside float32 (the mma_sync body, no maps); at the Mixtral
+   shape, its time beside the plain version, SDPA given the same window
+   as a boolean mask (KV heads expanded beforehand; timed only) and its
+   bound, the keys inside the causal window at the bf16 tensor-core rate;
 8. runs TinyLlama-1.1B's prefill forward at full width (22 layers,
    random weights from a seed, tokens (8, 2048), its published context)
    through ``models.model.forward_train`` and ``loss_fn``: exactly 22 K4
@@ -73,7 +77,27 @@ path on one NVIDIA card, end to end.
 10. profiles one prefill forward and one engine step with torch.profiler:
    device time by kernel group (flash attention, matrix products, the
    rest), kernels per call, and the idle share of the wall time;
-11. runs the per-shard §4 all-reduce: 8 processes share the card in one
+11. runs Mixtral-8x7B at its published widths (d 4096, 32 heads, 8 KV
+   heads of 128, 8 experts top-2 of d_ff 14336, vocab 32000, window 4096,
+   bf16) with the depth cut from 32 layers to 8 (all 32 layers of bf16
+   weights take 93 GB, more than the card's 80 GB), random weights from
+   seed 0 made on the card: ``forward_train`` and ``loss_fn`` on tokens
+   (1, 8192) from seed 0 (one sequence: the capacity couples every token
+   of a batch), exactly 8 K4 launches all on the wgmma body, against the
+   naive forward with step 8's criteria; the share of (token, layer)
+   routes that differ between the two passes under 3 %, and each token's
+   first differing route at a near-tie of the kernel pass (its router
+   probabilities at the nearest rank boundary within 0.02): the bf16
+   noise between the passes grows with depth and flips near-ties, not
+   clear choices; prints its ms,
+   tokens/s, device ms by group (expert products, dispatch and combine,
+   K4, the rest) from torch.profiler, kernels per call, idle share, the
+   peak GiB of each pass and the share of (token, k) entries the capacity
+   dropped; then the engine on the same model with 4 slots, 6 requests,
+   a 128-token cache and 12 new tokens each (the JAX launcher's smoke
+   defaults; its rate is a smoke figure, not serving throughput), held
+   like step 9's;
+12. runs the per-shard §4 all-reduce: 8 processes share the card in one
    gloo group (``launch.mesh.spawn``, D3(2,2)), each with a 25 MiB bucket
    from the seed plus its rank, and call
    ``CudaFusedBackend().allreduce_shard`` 5 times back to back with fresh
@@ -110,6 +134,7 @@ The cells (layout D3(K, M) has n = K·M² routers):
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import pathlib
 import statistics
@@ -126,6 +151,11 @@ CHUNK = 262144  # all-to-all: floats per (src, dst) chunk, 1 MiB
 BUCKET = 6553600  # all-reduce and broadcast: floats per router, 25 MiB
 BLOCK = 512  # matmul: X, the side of each router's block
 PREFILL = (8, 2048)  # TinyLlama-1.1B prefill: batch, tokens (its published context)
+MIXTRAL_LAYERS = 8  # of 32: 8 layers of bf16 weights are 23.7 GB, all 32 are 93 GB
+MIXTRAL_TOKENS = (1, 8192)  # one sequence of twice the window
+ROUTE_FLIP_MAX = 0.03  # share of (token, layer) routes the kernel and naive passes may differ on
+FIRST_FLIP_GAP_MAX = 0.02  # a token's first differing route must be a near-tie: the kernel
+# pass's router probabilities at ranks k, k + 1 (or k - 1, k) closer than this
 FLASH_TOL = {"torch.bfloat16": 1e-2, "torch.float32": 2e-4}  # K4: rtol = atol = relative rms
 LOGIT_MAX_ABS, LOGIT_REL_RMS, LOSS_REL = 0.5, 0.05, 1e-3  # bf16 model-path tolerances
 RANKS = 8  # per-shard phase: D3(2,2), the shape of one 8-GPU node, all on one card here
@@ -335,6 +365,7 @@ def main() -> None:
     from repro_torch.kernels.flash_attention.flash_attention import (
         flash_attention, flash_attention_plain)
     from repro_torch.models import model as M
+    from repro_torch.models import moe as MOE
     from repro_torch.runtime import optimize as opt
     from repro_torch.runtime.backends import get_backend
     from repro_torch.runtime.backends import cuda_fused as cf
@@ -685,8 +716,14 @@ def main() -> None:
     B, S = PREFILL
     cfg = get_config("tinyllama-1.1b")
     Hq, Hkv, D = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    full_mcfg = get_config("mixtral-8x7b")
+    mcfg = dataclasses.replace(full_mcfg, n_layers=MIXTRAL_LAYERS)
+    MS = MIXTRAL_TOKENS[1]
+    mixtral_case = (MIXTRAL_TOKENS[0], MS, MS, mcfg.n_heads, mcfg.n_kv_heads, mcfg.head_dim,
+                    True, mcfg.sliding_window, torch.bfloat16)
     cases = [  # (B, Sq, Sk, Hq, Hkv, D, causal, window, dtype)
         (B, S, S, Hq, Hkv, D, True, None, torch.bfloat16),  # the prefill shape
+        mixtral_case,  # Mixtral-8x7B's prefill shape: the window binds on half the rows
         (2, 256, 256, 8, 2, 64, True, None, torch.float32),
         (2, 192, 320, 4, 4, 96, False, None, torch.float32),  # Phi-3-mini's head_dim
         (2, 160, 160, 8, 8, 96, True, None, torch.bfloat16),
@@ -722,6 +759,8 @@ def main() -> None:
               "rel_rms_tol": tol, "max_abs_err": err, "rel_rms": rel, "bodies": bodies})
         if i == 0:
             prefill_err, prefill_qkv, prefill_want0 = err, (q, k, v), want[0]
+        if cases[i] == mixtral_case:
+            mixtral_err, mixtral_qkv = err, (q, k, v)
     q, k, v = prefill_qkv
 
     # The bf16 bound rejects a kernel with a planted fault: a materialised
@@ -789,6 +828,41 @@ def main() -> None:
               "ms", "plain_ms", "library_ms", "bound_ms", "bound_by")},
           "host_us": host, "tensor_map_host_us": host["wgmma"] - host["mma_sync"]})
     del q, k, v, qt, kt, vt, prefill_qkv, got, want
+    release()
+
+    # K4 at Mixtral's prefill shape. Its bound counts only the keys inside
+    # the causal window: sum over q of min(q + 1, window) pairs, 4·D
+    # operations a pair and head. The yardstick is one SDPA call given the
+    # same window as a boolean mask, with the KV heads expanded beforehand.
+    q, k, v = mixtral_qkv
+    window = mcfg.sliding_window
+    pairs = sum(min(i + 1, window) for i in range(MS))
+    b_ms, b_by = bound(2 * q.numel() * 2 + 2 * k.numel() * 2,
+                       4 * pairs * mcfg.head_dim * mcfg.n_heads, BF16_FLOP_PER_S)
+    pos = torch.arange(MS, device=dev)
+    allowed = (pos[None, :] <= pos[:, None]) & (pos[:, None] - pos[None, :] < window)
+    G = mcfg.n_heads // mcfg.n_kv_heads
+    qt = q.transpose(1, 2)
+    kt, vt = (x.repeat_interleave(G, dim=2).transpose(1, 2) for x in (k, v))
+
+    def sdpa():
+        return torch.nn.functional.scaled_dot_product_attention(qt, kt, vt, attn_mask=allowed)
+
+    lib_err = max_abs_err(sdpa().transpose(1, 2), flash_attention(q, k, v, causal=True,
+                                                                   window=window))
+    mixtral_k4 = {"q": list(q.shape), "kv": list(k.shape), "window": window,
+                  "max_abs_err": mixtral_err, "key_pairs": pairs,
+                  "ms": time_ms(lambda: flash_attention(q, k, v, causal=True, window=window),
+                                reps=10),
+                  "plain_ms": time_ms(lambda: flash_attention_plain(q, k, v, causal=True,
+                                                                    window=window),
+                                      reps=3, warmup=1),
+                  "library_ms": time_ms(sdpa, reps=10), "bound_ms": b_ms, "bound_by": b_by,
+                  "library": "SDPA, boolean window mask, KV heads expanded",
+                  "library_max_abs_err_vs_kernel": lib_err}
+    kernels["flash_attention"]["mixtral_shape"] = mixtral_k4
+    emit({"check": "flash_attention timing, Mixtral-8x7B shape", **mixtral_k4})
+    del q, k, v, qt, kt, vt, mixtral_qkv, allowed, pos
     release()
 
     # ------------------------------- 8. TinyLlama-1.1B prefill at full width
@@ -893,11 +967,15 @@ def main() -> None:
     release()
 
     # ---------------------------- 10. where the model path's device time goes
-    def device_profile(fn, wall_ms, reps=3):
+    def device_profile(fn, wall_ms, reps=3, labels=(), top_ops=0):
         """Device time per call by kernel group, from torch.profiler, beside
         a wall time taken without the profiler; the idle share is the part
         of the wall time with no kernel running (None where the profiler
-        saw no device time)."""
+        saw no device time). With ``labels``, also the device time of the
+        kernels launched inside each ``record_function`` range of that
+        name (the ranges' own device spans are not kernels and are left
+        out of the groups); with ``top_ops``, the device time of the kernels
+        each torch op launches itself, for the ops with the most."""
         from torch.profiler import ProfilerActivity, profile
 
         fn()
@@ -908,7 +986,7 @@ def main() -> None:
             torch.cuda.synchronize()
         groups, n_kernels = {}, 0
         for e in prof.key_averages():
-            if e.device_type != torch.autograd.DeviceType.CUDA:
+            if e.device_type != torch.autograd.DeviceType.CUDA or e.key in labels:
                 continue
             name = e.key.lower()
             group = ("flash_attention" if "flash_attention" in name else
@@ -917,8 +995,26 @@ def main() -> None:
             groups[group] = groups.get(group, 0.0) + e.self_device_time_total / 1e3 / reps
             n_kernels += e.count
         busy = sum(groups.values())
-        return {"wall_ms": wall_ms, "device_ms": busy, "kernels_per_call": n_kernels / reps,
-                "idle_share": 1 - busy / wall_ms if busy else None, "device_ms_by_group": groups}
+        rec = {"wall_ms": wall_ms, "device_ms": busy, "kernels_per_call": n_kernels / reps,
+               "idle_share": 1 - busy / wall_ms if busy else None, "device_ms_by_group": groups}
+        if top_ops:
+            own = sorted(((e.self_device_time_total / 1e3 / reps, e.key)
+                          for e in prof.key_averages()
+                          if e.device_type == torch.autograd.DeviceType.CPU
+                          and e.self_device_time_total > 0), reverse=True)
+            rec["device_ms_by_op"] = {key: ms for ms, key in own[:top_ops]}
+        if labels:
+            by_label = dict.fromkeys(labels, 0.0)
+            for e in prof.events():
+                if e.device_type != torch.autograd.DeviceType.CPU or not e.kernels:
+                    continue
+                up = e
+                while up is not None and up.name not in by_label:
+                    up = up.cpu_parent
+                if up is not None:
+                    by_label[up.name] += sum(k.duration for k in e.kernels) / 1e3 / reps
+            rec["device_ms_by_label"] = by_label
+        return rec
 
     step_ms = time_ms(eng._forward, reps=5, warmup=1)
     emit({"profile": "prefill forward", **device_profile(
@@ -927,7 +1023,159 @@ def main() -> None:
     del params, eng, batch
     release()
 
-    # ------------------------ 11. the per-shard all-reduce, 8 ranks on the card
+    # ----------------- 11. Mixtral-8x7B at full width, the depth cut to 8 layers
+    t0 = time.perf_counter()
+    mparams = M.init_params(torch.Generator(device=dev).manual_seed(SEED), mcfg, device=dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+
+    def tensors(tree):
+        if isinstance(tree, torch.Tensor):
+            yield tree
+            return
+        for sub in tree.values() if isinstance(tree, dict) else tree:
+            yield from tensors(sub)
+
+    n_params = sum(t.numel() for t in tensors(mparams))
+    weight_gb = sum(t.numel() * t.element_size() for t in tensors(mparams)) / 1e9
+    print(f"mixtral-8x7b: depth cut from {full_mcfg.n_layers} to {mcfg.n_layers} layers: all "
+          f"{full_mcfg.n_layers} take {full_mcfg.param_count() * 2 / 1e9:.1f} GB of bf16 "
+          f"weights, more than the card holds; {mcfg.n_layers} layers: {n_params / 1e9:.2f} B "
+          f"parameters, {weight_gb:.1f} GB (made on the card in {init_s:.1f} s); every width "
+          "is the published one", flush=True)
+    mtokens = torch.randint(1, mcfg.vocab, MIXTRAL_TOKENS, device=dev,
+                            generator=torch.Generator(device=dev).manual_seed(SEED))
+    mbatch = {"tokens": mtokens, "labels": mtokens}
+    T_m = mtokens.numel()
+    only_k4 = {name: 0 for name in launches} | {"flash_attention": mcfg.n_layers}
+    torch.cuda.reset_peak_memory_stats()
+    with MOE.recording_routes() as k_routes:
+        (logits, aux, _), counts = model_run(M.forward_train, mparams, mbatch, mcfg, True)
+    kernel_peak = torch.cuda.max_memory_allocated() / 2**30
+    require(counts == only_k4, f"mixtral forward_train launched {counts}, expected {only_k4}")
+    m_launches = counts["flash_attention"]
+    m_bodies = dict(flash_attention.body_launches)
+    require(m_bodies == {"mma_sync": 0, "wgmma": mcfg.n_layers},
+            f"mixtral forward_train launched flash_attention's bodies {m_bodies}")
+    require(len(k_routes) == mcfg.n_layers and bool(torch.isfinite(aux)),
+            f"{len(k_routes)} MoE layers routed, aux {float(aux)}")
+    last = logits[:, -1].float()
+    del logits
+    (loss, metrics), counts = model_run(M.loss_fn, mparams, mbatch, mcfg, True)
+    require(counts == only_k4, f"mixtral loss_fn launched {counts}, expected {only_k4}")
+    require(bool(torch.isfinite(loss)) and "moe_aux" in metrics, f"mixtral loss {float(loss)}")
+    release()
+    torch.cuda.reset_peak_memory_stats()
+    with MOE.recording_routes() as n_routes:
+        (naive, naive_aux, _), counts = model_run(M.forward_train, mparams, mbatch, mcfg, False)
+    naive_peak = torch.cuda.max_memory_allocated() / 2**30
+    require(counts["flash_attention"] == 0, "the naive mixtral forward launched flash_attention")
+    naive_last = naive[:, -1].float()
+    del naive
+    release()
+    naive_loss = M.loss_fn(mparams, mbatch, mcfg, False)[0]
+    release()
+    err, rel = logits_close(last, naive_last, "mixtral: kernel vs naive forward")
+    loss_rel = abs(float(loss) - float(naive_loss)) / abs(float(naive_loss))
+    require(loss_rel <= LOSS_REL, f"mixtral loss {float(loss)} vs naive {float(naive_loss)}")
+    # (layer, token) routes that differ between the passes: in any order,
+    # as a set, and first for the token (before it, the token's routes
+    # agreed in every layer); for the first ones, the kernel pass's gap
+    # between the router probabilities of ranks k and k + 1 or k - 1 and k
+    diff = torch.stack([(a != b).any(-1) for (a, *_), (b, *_) in zip(k_routes, n_routes)])
+    set_diff = torch.stack([(a.sort(-1)[0] != b.sort(-1)[0]).any(-1)
+                            for (a, *_), (b, *_) in zip(k_routes, n_routes)])
+    first = diff & (diff.int().cumsum(0) == 1)
+    k = mcfg.moe.top_k
+    probs = torch.stack([torch.softmax(lg.float(), -1).sort(-1, descending=True)[0]
+                         for _, _, lg in k_routes])  # (L, T, E)
+    gap = (probs[..., :k + 1].diff(dim=-1).abs()).amin(-1)  # nearest boundary among ranks 1..k+1
+    flip_share = float(diff.float().mean())
+    flips = {"share": flip_share, "set_share": float(set_diff.float().mean()),
+             "by_layer": diff.sum(1).tolist(), "first_by_layer": first.sum(1).tolist(),
+             "tokens_ever": int(diff.any(0).sum()),
+             "first_gap_median": float(gap[first].median()) if first.any() else None,
+             "first_gap_max": float(gap[first].max()) if first.any() else None,
+             "all_gap_median": float(gap.median())}
+    kept = [keep for _, keep, _ in k_routes]
+    drop_share = sum(int((~keep).sum()) for keep in kept) / sum(keep.numel() for keep in kept)
+    drops_by_layer = [int((~keep).sum()) for keep in kept]
+    del k_routes, n_routes, kept, last, naive_last, probs, gap, diff, set_diff, first
+    release()
+    m_fwd_ms = time_ms(lambda: M.forward_train(mparams, mbatch, mcfg, True), reps=3, warmup=1)
+    labels = ("moe.dispatch", "moe.experts", "moe.combine")
+    mprof = device_profile(lambda: M.forward_train(mparams, mbatch, mcfg, True), m_fwd_ms,
+                           labels=labels, top_ops=16)
+    lab = mprof["device_ms_by_label"]
+    k4_ms = mprof["device_ms_by_group"].get("flash_attention", 0.0)
+    if lab["moe.experts"]:  # kernels were traced back to their torch ops
+        dc_ms = lab["moe.dispatch"] + lab["moe.combine"]
+        mprof["device_ms_by_part"] = {
+            "expert products (moe.experts: 3 bmm and the gate)": lab["moe.experts"],
+            "dispatch and combine (router included)": dc_ms, "flash_attention (K4)": k4_ms,
+            "the rest": mprof["device_ms"] - lab["moe.experts"] - dc_ms - k4_ms}
+    else:
+        mprof["device_ms_by_part"] = "not measured: the profiler tied no kernel to a torch op"
+    C_m = MOE.capacity(mcfg, T_m)
+    launches["flash_attention"] += m_launches
+    kernels["flash_attention"]["launches_by_path"] = {
+        f"{cfg.name} prefill": cfg.n_layers, f"{mcfg.name} prefill": m_launches}
+    kernels["flash_attention"]["body_launches"] = {
+        body: kernels["flash_attention"]["body_launches"][body] + m_bodies[body]
+        for body in m_bodies}
+    runs.append({"run": "prefill", "model": mcfg.name, "layers": f"{mcfg.n_layers} of "
+                 f"{full_mcfg.n_layers}", "tokens": list(MIXTRAL_TOKENS), "params": n_params,
+                 "launches": {"flash_attention": mcfg.n_layers}, "flash_attention_bodies": m_bodies,
+                 "ms": m_fwd_ms, "tokens_per_s": T_m / m_fwd_ms * 1e3,
+                 "peak_gib": {"kernel": kernel_peak, "naive": naive_peak},
+                 "loss": float(loss), "naive_loss": float(naive_loss), "moe_aux": float(aux),
+                 "naive_moe_aux": float(naive_aux),
+                 "last_logits_vs_naive": {"max_abs_err": err, "rel_rms": rel},
+                 "capacity": C_m, "dropped_share": drop_share, "dropped_by_layer": drops_by_layer,
+                 "route_flips": flips, "profile": mprof})
+    emit(runs[-1])
+    del loss, metrics, naive_loss, aux, naive_aux
+    release()
+
+    rng = np.random.default_rng(SEED)
+    mreqs = [Request(rid=i, prompt=rng.integers(1, mcfg.vocab, size=rng.integers(3, 9))
+                     .astype(np.int32), max_new_tokens=12) for i in range(6)]
+    torch.cuda.reset_peak_memory_stats()
+    meng = Recording(mcfg, mparams, batch_slots=4, max_seq=128, device=dev)
+    meng.trace = []
+    zero_counts(all_counters)
+    pending = list(mreqs)
+    t0 = time.perf_counter()
+    while pending or meng.slot_req:
+        while pending and meng.free_slots:
+            meng.admit(pending.pop(0))
+        meng.step()
+    torch.cuda.synchronize()
+    serve_s = time.perf_counter() - t0
+    require(all(r.done and len(r.out) == 12 for r in mreqs),
+            f"mixtral requests not answered: {[(r.rid, r.done, len(r.out)) for r in mreqs]}")
+    require(meng.tokens_out == 72, f"mixtral engine committed {meng.tokens_out} tokens")
+    p0 = mreqs[0].prompt
+    step_logits = next(out[0] for pos, out in meng.trace if pos[0] == len(p0) - 1)
+    full = M.forward_train(mparams, {"tokens": torch.from_numpy(p0).to(dev)[None]}, mcfg, True)[0]
+    err, rel = logits_close(torch.from_numpy(step_logits).to(dev), full[0, -1],
+                            "mixtral decode vs prefill logits")
+    runs.append({"run": "serve (smoke)", "model": mcfg.name, "layers": mcfg.n_layers, "slots": 4,
+                 "max_seq": 128, "requests": len(mreqs),
+                 "prompt_lens": [len(r.prompt) for r in mreqs], "steps": meng.steps_run,
+                 "tokens": meng.tokens_out, "s": serve_s,
+                 "smoke_tokens_per_s": meng.tokens_out / serve_s,
+                 "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
+                 "launches": {c.__name__: c.launches for c in all_counters},
+                 "decode_vs_prefill_logits": {"max_abs_err": err, "rel_rms": rel}})
+    emit(runs[-1])
+    del mparams, meng, mbatch, mtokens, full
+    release()
+    require(flip_share < ROUTE_FLIP_MAX and (flips["first_gap_max"] or 0) < FIRST_FLIP_GAP_MAX,
+            f"mixtral: {flip_share:.4%} of (token, layer) routes differ between the kernel and "
+            f"naive passes, or one first differs away from a near-tie: {flips}")
+
+    # ------------------------ 12. the per-shard all-reduce, 8 ranks on the card
     for name, rec in kernels.items():
         rec["launches"] = launches[name]
     kernels["ring_exchange"] = per_shard_phase(dev, SEED)
@@ -936,7 +1184,8 @@ def main() -> None:
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms")
     extra = ("body", "body_launches", "acc_launches", "body_ms", "combine_hook_ms",
-             "combine_hook_bound_ms", "ffma_bound_ms", "tf32x3_route_bound_ms")
+             "combine_hook_bound_ms", "ffma_bound_ms", "tf32x3_route_bound_ms",
+             "launches_by_path", "mixtral_shape")
     print(card, flush=True)
     emit({"kernels": [{key: rec[key] for key in keys + extra if key in rec or key in keys}
                       for rec in kernels.values()]})

@@ -42,6 +42,9 @@ so N tenants' collectives run in max(T_i) rounds instead of Σ T_i;
 ``concurrent_programs`` builds the whole suite at once. Per-guest inputs
 and results move through ``runtime.combine.scatter_guests`` /
 ``gather_guests``.
+
+``device_trace(program)`` exports any of these programs as its validated
+per-device send/recv trace (``runtime.export``).
 """
 
 from __future__ import annotations
@@ -236,6 +239,19 @@ def concurrent_programs(
             optimized=optimized,
         )
     return out
+
+
+# ----------------------------------------------------------- trace export
+def device_trace(program):
+    """The versioned per-device send/recv op trace of any program the
+    getters above return (``runtime.export``), statically validated for
+    link-conflict-freedom and send/recv pairing — the form another
+    runtime consumes, and what ``backend="sendrecv"`` replays. Memoized
+    per program; accepts the ``optimized=True`` fused form too (same
+    trace as its source)."""
+    from repro_torch.runtime.backends.sendrecv import SendRecvBackend
+
+    return SendRecvBackend.trace(program)
 
 
 # ------------------------------------------------------------- collectives

@@ -22,6 +22,11 @@ build or a launch:
 
 With no key at all (Sk = 0) the output is 0 and nothing is launched.
 
+The kernel has no backward (nor has the JAX package's): on a CUDA tensor
+``flash_attention`` raises where autograd would need a gradient of q, k
+or v (``refuse_grad``), rather than return an output with no gradient.
+The plain version on the CPU is differentiated by autograd as usual.
+
 The plain version, ``flash_attention_plain``, repeats the recurrence of
 the JAX package's ``_flash_kernel`` tile by tile in torch: scores in
 float32 times the scale, masked to NEG_INF = -1e30, running max m, sum l
@@ -135,6 +140,15 @@ def flash_attention_plain(q, k, v, *, causal: bool = True, window: int | None = 
     return o.reshape(B, Hq, Sq, D).transpose(1, 2)
 
 
+def refuse_grad(q, k, v) -> None:
+    """Raise where autograd would need a gradient of q, k or v: the kernel
+    writes its output through ctypes and has no backward."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        raise RuntimeError("flash_attention's CUDA kernel has no backward, and an operand "
+                           "requires grad: run under torch.no_grad(), or take the naive "
+                           "attention (use_kernel=False) to differentiate")
+
+
 def body_for(dtype: torch.dtype) -> str:
     """The body the kernel runs for operands of this dtype (module docstring)."""
     return "wgmma" if dtype == torch.bfloat16 else "mma_sync"
@@ -154,6 +168,7 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int | None = None,
         raise ValueError(f"flash_attention takes CPU or same-card CUDA tensors, got "
                          f"{q.device}, {k.device} and {v.device}")
     _check(q, k, v, window)
+    refuse_grad(q, k, v)
     if q.dtype not in _DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
         raise TypeError(f"flash_attention takes float32 or bfloat16 operands of one dtype, "
                         f"got {q.dtype}, {k.dtype} and {v.dtype}")

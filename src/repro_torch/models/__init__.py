@@ -1,7 +1,7 @@
-"""Model zoo: the composable decoder of the JAX package, on torch. This
-slice carries the dense attention models (GQA, sliding window, M-RoPE,
-gated or GELU MLPs); MoE, MLA, Mamba and xLSTM members raise
-``NotImplementedError``."""
+"""Model zoo: the composable decoder of the JAX package, on torch. It
+carries the attention models (GQA, sliding window, M-RoPE) with gated or
+GELU MLPs or a single-card MoE FFN (``models.moe``); MLA, Mamba and xLSTM
+members raise ``NotImplementedError``."""
 
 from repro_torch.models.model import (
     init_params,

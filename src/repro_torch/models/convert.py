@@ -3,8 +3,9 @@
 ``params_from_jax`` takes the JAX parameter tree as numpy arrays (on the
 JAX side, ``jax.tree.map(np.asarray, params)``) and returns the port's
 parameters: the same dicts, with the stack unstacked into one dict per
-layer (group g, member mi is layer g·period + mi). Imports neither jax
-nor the JAX package.
+layer (group g, member mi is layer g·period + mi). A MoE member's expert
+tensors (``router``, ``w_in``, ``w_gate``, ``w_out`` and ``shared``) come
+across like any other. Imports neither jax nor the JAX package.
 """
 
 from __future__ import annotations

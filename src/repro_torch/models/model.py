@@ -2,9 +2,9 @@
 the loss, and the decode step. All entry points are plain functions of
 (params, batch).
 
-The port of ``repro.models.model`` for the dense attention models. Not
-ported here: MLA with the dense prefix and multi-token-prediction head of
-DeepSeek-V3 (they come with MoE), ``param_specs`` and
+The port of ``repro.models.model`` for the attention models with dense or
+MoE FFNs. Not ported here: MLA with the dense prefix and
+multi-token-prediction head of DeepSeek-V3, ``param_specs`` and
 ``cache_specs`` (sharding), and ``decode_step_staged`` (the multi-tenant
 fleet's).
 """
@@ -34,7 +34,7 @@ def _check_supported(cfg: ModelConfig) -> None:
     if cfg.attention == "mla" or cfg.first_dense_layers or cfg.mtp_depth:
         raise NotImplementedError(
             "MLA, the dense prefix and the MTP head (DeepSeek-V3) are not ported yet: "
-            "ROADMAP Queue 1 item 8")
+            "ROADMAP Queue 1 item 3")
 
 
 # ------------------------------------------------------------------ init
@@ -75,13 +75,14 @@ def _embed_inputs(params, batch, cfg):
 
 def forward_train(params, batch, cfg: ModelConfig, use_kernel: bool = True):
     """-> (logits (B, S, vocab), aux_loss, hidden (B, S, d)). ``aux_loss``
-    is a float32 zero: only MoE layers add to it."""
+    is the float32 sum of the MoE layers' load-balance losses (zero
+    without MoE layers)."""
     _check_supported(cfg)
     x, positions, mrope = _embed_inputs(params, batch, cfg)
-    x = T.stack_train(params["stack"], x, cfg, positions, mrope, use_kernel)
+    x, aux = T.stack_train(params["stack"], x, cfg, positions, mrope, use_kernel)
     h = _norm_f(cfg)(params["final_norm"], x)
     logits = _unembed(params, h, cfg)
-    return logits, torch.zeros((), dtype=torch.float32, device=x.device), h
+    return logits, aux, h
 
 
 def _norm_f(cfg):
@@ -108,7 +109,12 @@ def loss_fn(params, batch, cfg: ModelConfig, use_kernel: bool = True):
     logits, aux, h = forward_train(params, batch, cfg, use_kernel)
     labels = batch["labels"]
     loss = softmax_xent(logits[:, :-1], labels[:, 1:])
-    return loss, {"ce": loss, "loss": loss}
+    metrics = {"ce": loss}
+    if cfg.moe is not None:
+        loss = loss + cfg.moe.aux_loss_weight * aux
+        metrics["moe_aux"] = aux
+    metrics["loss"] = loss
+    return loss, metrics
 
 
 # ---------------------------------------------------------------- decode

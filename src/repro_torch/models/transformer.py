@@ -1,25 +1,29 @@
 """Composable decoder: blocks = mixer + optional FFN, pre-norm residual.
 
 The port of ``repro.models.transformer`` for ``attn`` mixers with dense
-``mlp`` FFNs, in the train (full sequence) and decode (one token, cache)
-forms. The JAX package stacks layers as repeating groups and scans them
-with ``lax.scan`` under ``jax.checkpoint``; here the stack is a list with
-one parameter dict per layer, in the JAX stack's order (group g, member
-mi is layer g·period + mi), walked by a Python loop. There is no remat:
-nothing runs backward yet. ``moe``, ``mamba``, ``mlstm`` and ``slstm``
-members raise ``NotImplementedError``, and so does MLA
-(``models.model`` refuses its configs).
+``mlp`` or ``moe`` FFNs, in the train (full sequence) and decode (one
+token, cache) forms. The JAX package stacks layers as repeating groups and
+scans them with ``lax.scan`` under ``jax.checkpoint``; here the stack is a
+list with one parameter dict per layer, in the JAX stack's order (group g,
+member mi is layer g·period + mi), walked by a Python loop. There is no
+remat: nothing runs backward yet. A ``moe`` FFN takes
+``moe.moe_apply_auto`` with no mesh, the sparse dispatch of one card; its
+load-balance loss is summed over the stack in train form and dropped in
+decode form, as in the JAX package. ``mamba``, ``mlstm`` and ``slstm``
+members raise ``NotImplementedError``, and so does MLA (``models.model``
+refuses its configs).
 """
 
 from __future__ import annotations
 
+import torch
 import torch.nn.functional as F
 
 from repro_torch.models import attention as A
 from repro_torch.models import layers as L
+from repro_torch.models import moe as MOE
 
 _WAITING = {
-    "moe": "the MoE FFN (models/moe.py: EP, TP and guest modes)",
     "mamba": "the Mamba mixer (models/mamba.py)",
     "mlstm": "the mLSTM mixer (models/xlstm.py)",
     "slstm": "the sLSTM mixer (models/xlstm.py)",
@@ -27,10 +31,9 @@ _WAITING = {
 
 
 def _check_kinds(mixer: str, ffn: str) -> None:
-    for kind in (mixer, ffn):
-        if kind in _WAITING:
-            raise NotImplementedError(f"{_WAITING[kind]} is not ported yet: ROADMAP Queue 1 item 8")
-    if mixer != "attn" or ffn not in ("mlp", "none"):
+    if mixer in _WAITING:
+        raise NotImplementedError(f"{_WAITING[mixer]} is not ported yet: ROADMAP Queue 1 item 5")
+    if mixer != "attn" or ffn not in ("mlp", "moe", "none"):
         raise ValueError(f"unknown layer kind ({mixer}, {ffn})")
 
 
@@ -46,7 +49,8 @@ def member_init(gen, cfg, mixer: str, ffn: str, dtype, device):
     p["mixer"] = A.gqa_init(gen, cfg, dtype, device)
     if ffn != "none":
         p["norm2"] = L.make_norm(cfg.norm, cfg.d_model, dtype, device)[0]
-        p["ffn"] = L.mlp_init(gen, cfg.d_model, cfg.d_ff, dtype, device, gated=cfg.mlp_gated)
+        p["ffn"] = MOE.moe_init(gen, cfg, dtype, device) if ffn == "moe" else L.mlp_init(
+            gen, cfg.d_model, cfg.d_ff, dtype, device, gated=cfg.mlp_gated)
     return p
 
 
@@ -58,15 +62,27 @@ def _act(cfg):
     return F.silu if cfg.mlp_gated else L.gelu
 
 
+def _ffn(params, h2, cfg, ffn):
+    """(y, aux) of the member's FFN on its post-norm2 hidden."""
+    if ffn == "moe":
+        return MOE.moe_apply_auto(params, h2, cfg)
+    return L.mlp_apply(params, h2, act=_act(cfg)), None
+
+
 def member_train(params, x, cfg, mixer, ffn, positions, mrope_positions, use_kernel):
+    """-> (x, aux): aux is the MoE load-balance loss, a float32 zero for
+    any other FFN."""
     _check_kinds(mixer, ffn)
     norm = _norm(cfg)
     h = norm(params["norm1"], x)
     x = x + A.gqa_train(params["mixer"], h, cfg, positions, mrope_positions, use_kernel)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     if ffn != "none":
-        h2 = norm(params["norm2"], x)
-        x = x + L.mlp_apply(params["ffn"], h2, act=_act(cfg))
-    return x
+        y, moe_aux = _ffn(params["ffn"], norm(params["norm2"], x), cfg, ffn)
+        x = x + y
+        if moe_aux is not None:
+            aux = moe_aux
+    return x, aux
 
 
 def member_decode_mixer(params, x, cache, cfg, mixer, position, mrope_positions):
@@ -81,8 +97,8 @@ def member_decode_mixer(params, x, cache, cfg, mixer, position, mrope_positions)
 def member_decode(params, x, cache, cfg, mixer, ffn, position, mrope_positions):
     x, cache = member_decode_mixer(params, x, cache, cfg, mixer, position, mrope_positions)
     if ffn != "none":
-        h2 = _norm(cfg)(params["norm2"], x)
-        x = x + L.mlp_apply(params["ffn"], h2, act=_act(cfg))
+        y, _ = _ffn(params["ffn"], _norm(cfg)(params["norm2"], x), cfg, ffn)
+        x = x + y
     return x, cache
 
 
@@ -98,9 +114,12 @@ def stack_init(gen, cfg, dtype, device):
 
 
 def stack_train(stack_params, x, cfg, positions, mrope_positions=None, use_kernel=True):
+    """-> (x, the float32 sum of the members' aux losses)."""
+    aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
     for params, (mixer, ffn) in zip(stack_params, layer_kinds(cfg)):
-        x = member_train(params, x, cfg, mixer, ffn, positions, mrope_positions, use_kernel)
-    return x
+        x, aux = member_train(params, x, cfg, mixer, ffn, positions, mrope_positions, use_kernel)
+        aux_total = aux_total + aux
+    return x, aux_total
 
 
 def stack_decode(stack_params, x, caches, cfg, position, mrope_positions=None):

@@ -24,6 +24,9 @@ Registered backends:
     contraction on the batched block-product kernel. Runs on the card by
     default; ``device="cpu"`` runs the kernels' plain torch versions. Its
     ``allreduce_shard`` is the per-shard §4 all-reduce on K5.
+  * ``sendrecv`` — a pure-NumPy host replay of the program's exported
+    send/recv trace (``runtime.export``): no devices; it executes the
+    trace, never the program stages.
   * ``torch_dist`` — the per-shard replay over ``torch.distributed``: one
     ``batch_isend_irecv`` per communication stage on a process group of
     ``program.n`` ranks (``overlap``/``overlap_fused`` orders, the
@@ -50,6 +53,12 @@ def _load_cuda_fused():
     return CudaFusedBackend
 
 
+def _load_sendrecv():
+    from repro_torch.runtime.backends.sendrecv import SendRecvBackend
+
+    return SendRecvBackend
+
+
 def _load_torch_dist():
     from repro_torch.runtime.backends.torch_dist import TorchDistBackend
 
@@ -60,6 +69,7 @@ def _load_torch_dist():
 _REGISTRY = {
     "reference": _load_reference,
     "cuda_fused": _load_cuda_fused,
+    "sendrecv": _load_sendrecv,
     "torch_dist": _load_torch_dist,
 }
 

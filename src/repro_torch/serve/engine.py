@@ -67,7 +67,14 @@ class Engine:
         frees for the next ``admit``). Prefill steps are NOT charged to the
         admitted request's budget — its ``out`` stays empty until the first
         decode step after admission.
+
+        A prompt longer than ``max_seq`` raises ``ValueError`` before
+        anything changes: its cache writes would fall past the cache. (The
+        JAX engine drops those writes and answers all the same.)
         """
+        if len(req.prompt) > self.max_seq:
+            raise ValueError(f"request {req.rid}: a prompt of {len(req.prompt)} tokens does not "
+                             f"fit the engine's max_seq of {self.max_seq}")
         free = self.free_slots
         if not free:
             return False

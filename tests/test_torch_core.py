@@ -15,6 +15,7 @@ import pytest
 
 from repro.core import alltoall as j_a2a
 from repro.core import broadcast as j_bc
+from repro.core import costmodel as j_cost
 from repro.core import emulation as j_emu
 from repro.core import hypercube as j_hc
 from repro.core import matmul as j_mm
@@ -32,6 +33,7 @@ from repro.runtime import optimize as j_opt
 
 from repro_torch.core import alltoall as t_a2a
 from repro_torch.core import broadcast as t_bc
+from repro_torch.core import costmodel as t_cost
 from repro_torch.core import emulation as t_emu
 from repro_torch.core import hypercube as t_hc
 from repro_torch.core import matmul as t_mm
@@ -196,3 +198,59 @@ def test_embeddings_equal(host, guest):
     dead = {(0, 0, 0), (1, 1, 1)}
     assert canon(t_emu.largest_embeddable(TD3(*host), dead)) == \
         canon(j_emu.largest_embeddable(JD3(*host), dead))
+
+
+# ------------------------------------------------------------- cost model
+PRICES = [(1.0, 0.0), (1.0, 1.0), (2.5e-6, 7e-6)]  # (t_w, t_s)
+
+
+@pytest.mark.parametrize("km", SHAPES, ids=str)
+def test_costmodel_prices_every_schedule_alike(km):
+    """``price`` and ``price_pipelined`` of every schedule the slice
+    lowers, and of the §2 schedules, equal the JAX package's."""
+    pairs = list(schedules(*km).values()) + [
+        (j_mm.schedule(j_mm.MatmulGrid(*g)), t_mm.schedule(t_mm.MatmulGrid(*g))) for g in GRIDS]
+    for js, ts in pairs:
+        for t_w, t_s in PRICES:
+            assert t_cost.price(ts, t_w, t_s) == j_cost.price(js, t_w, t_s)
+            assert t_cost.price_pipelined(ts, t_w, t_s) == j_cost.price_pipelined(js, t_w, t_s)
+        assert t_cost.price(ts) == j_cost.price(js)
+        assert t_cost.price_pipelined(ts) == j_cost.price_pipelined(js)
+
+
+@pytest.mark.parametrize("km", SHAPES, ids=str)
+def test_costmodel_tables_alike(km):
+    """The §2–§5 table formulas at the sweep's shapes (P = K·M² routers,
+    s = gcd(K, M), k and m their base-2 logs where they are powers of 2)."""
+    K, M = km
+    P, s = K * M * M, math.gcd(K, M)
+    assert t_cost.MATMUL_TABLE.keys() == j_cost.MATMUL_TABLE.keys()
+    for name, fn in t_cost.MATMUL_TABLE.items():
+        for n in (P, 4 * P, 1000):
+            assert fn(n, P) == j_cost.MATMUL_TABLE[name](n, P), name
+    for fn in ("alltoall_schedule1", "alltoall_schedule2", "alltoall_schedule3"):
+        assert getattr(t_cost, fn)(K, M, s) == getattr(j_cost, fn)(K, M, s), fn
+    for n in (None, 2 * P):
+        assert t_cost.alltoall_doubly_parallel(K, M, s, n) == \
+            j_cost.alltoall_doubly_parallel(K, M, s, n)
+        assert t_cost.alltoall_johnsson_ho(P, n) == j_cost.alltoall_johnsson_ho(P, n)
+    k, m = K.bit_length() - 1, M.bit_length() - 1
+    assert t_cost.alltoall_jh_on_sbh(k, m) == j_cost.alltoall_jh_on_sbh(k, m)
+    assert t_cost.alltoall_dp_on_d3_2k2m(k, m) == j_cost.alltoall_dp_on_d3_2k2m(k, m)
+    for X in (M, 16, 1024):
+        assert t_cost.broadcast_depth3(X) == j_cost.broadcast_depth3(X)
+        assert t_cost.broadcast_m_tree(X, M) == j_cost.broadcast_m_tree(X, M)
+
+
+@pytest.mark.parametrize("km", SHAPES, ids=str)
+def test_costmodel_seconds_alike_with_the_bandwidth_named(km):
+    """``seconds`` of each schedule's hop count, the bandwidth passed to
+    both (the port's has no default: the JAX package's is a TPU link's)."""
+    for _, ts in schedules(*km).values():
+        hops = t_cost.price(ts)
+        for t_w, t_s in PRICES:
+            for nbytes, bw in ((0.0, 1e9), (1 << 20, 450e9), (4096.0, 25e9)):
+                assert t_cost.seconds(hops, t_w, t_s, bytes_per_hop=nbytes, bandwidth=bw) == \
+                    j_cost.seconds(hops, t_w, t_s, bytes_per_hop=nbytes, bandwidth=bw)
+    with pytest.raises(TypeError, match="bandwidth"):
+        t_cost.seconds(1.0)

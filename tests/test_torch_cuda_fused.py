@@ -22,7 +22,7 @@ from repro_torch.dist.mesh import DeviceLayout
 from repro_torch.kernels.block_matmul.block_matmul import block_matmul
 from repro_torch.kernels.block_matmul.block_matmul import body_for as matmul_body
 from repro_torch.kernels.flash_attention.flash_attention import (
-    flash_attention, flash_attention_plain)
+    flash_attention, flash_attention_plain, refuse_grad)
 from repro_torch.kernels.block_matmul.ref import block_matmul_ref
 from repro_torch.runtime import optimize as opt
 from repro_torch.runtime.backends import cuda_fused as cf
@@ -161,6 +161,25 @@ def test_backend_checks_the_device_axis():
         be.run_allreduce(np.zeros((p.n + 1, 2), np.float32), p)
     with pytest.raises(ValueError, match="expected 'alltoall'"):
         be.run_alltoall(np.zeros((p.n, p.n), np.float32), p)
+
+
+def test_flash_attention_grad_guard():
+    """K4 has no backward: its guard refuses operands that need a gradient
+    while autograd records, and lets everything else through. On CPU
+    tensors the wrapper takes the plain version, which autograd
+    differentiates."""
+    q = torch.randn(1, 8, 2, 64, requires_grad=True)
+    k, v = torch.randn(1, 8, 1, 64), torch.randn(1, 8, 1, 64)
+    for args in ((q, k, v), (k.expand(1, 8, 2, 64), q, v), (q.detach(), k, q)):
+        with pytest.raises(RuntimeError, match="no backward"):
+            refuse_grad(*args)
+    refuse_grad(q.detach(), k, v)
+    with torch.no_grad():
+        refuse_grad(q, k, v)
+    before = flash_attention.launches
+    flash_attention(q, k, v).sum().backward()
+    assert q.grad is not None and bool(q.grad.abs().sum() > 0)
+    assert flash_attention.launches == before
 
 
 # ---------------------------------------------- CPU: K1/K2's two bodies' rules
@@ -588,6 +607,22 @@ def test_flash_attention_kernel_refuses_what_it_does_not_take(cuda):
     x = torch.zeros((1, 64, 2, 72), device=cuda)[..., 2:66]  # rows 8 bytes off 16
     with pytest.raises(ValueError, match="aligned"):
         flash_attention(x, x, x)
+
+
+@pytest.mark.gpu
+def test_flash_attention_kernel_refuses_autograd(cuda):
+    """A backward through K4 on the card raises before the launch instead
+    of leaving q, k and v without a gradient; under no_grad the kernel
+    runs."""
+    q = torch.randn(1, 128, 4, 64, device=cuda).to(torch.bfloat16).requires_grad_()
+    k, v = (torch.randn(1, 128, 2, 64, device=cuda).to(torch.bfloat16) for _ in range(2))
+    before = flash_attention.launches
+    with pytest.raises(RuntimeError, match="no backward"):
+        flash_attention(q, k, v).float().sum().backward()
+    assert flash_attention.launches == before and q.grad is None
+    with torch.no_grad():
+        out = flash_attention(q, k, v)
+    assert flash_attention.launches == before + 1 and not out.requires_grad
 
 
 # ------------------------------------------------- card: K5, the ring exchange

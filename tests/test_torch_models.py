@@ -27,6 +27,7 @@ from repro_torch.configs import ARCH_IDS, get_config, get_smoke_config
 from repro_torch.models import layers as TL
 from repro_torch.models import model as TM
 from repro_torch.models.convert import params_from_jax
+from repro_torch.models.moe import moe_apply_auto
 
 LAYER_TOL = 1e-5
 MODEL_TOL = 1e-4
@@ -219,9 +220,24 @@ def test_decode_matches_the_forward_at_the_last_prompt_token():
     close(logits[0], full[0, -1], MODEL_TOL)
 
 
-@pytest.mark.parametrize("arch,what", [("mixtral-8x7b", "MoE"), ("jamba-1.5-large-398b", "Mamba"),
-                                       ("xlstm-1.3b", "LSTM"), ("deepseek-v3-671b", "ROADMAP")])
-def test_unported_members_name_the_roadmap(arch, what):
+def _init(arch):
+    return lambda: TM.init_params(0, get_smoke_config(arch), device="cpu")
+
+
+def _moe_on_mesh(mesh):
+    """Mixtral smoke's MoE layer on 16 tokens, spread over a (data, model)
+    mesh: (1, 4) divides its 4 experts (EP), (2, 3) does not (TP)."""
+    cfg = get_smoke_config("mixtral-8x7b")
+    return lambda: moe_apply_auto({}, torch.zeros(2, 8, cfg.d_model), cfg, mesh=mesh)
+
+
+@pytest.mark.parametrize("call,what", [
+    (_moe_on_mesh((1, 4)), "expert-parallel"), (_moe_on_mesh((2, 3)), "tensor-parallel"),
+    (_init("jamba-1.5-large-398b"), "Mamba"), (_init("xlstm-1.3b"), "LSTM"),
+    (_init("deepseek-v3-671b"), "ROADMAP")],
+    ids=["moe-ep-expert-parallel", "moe-tp-tensor-parallel", "jamba-1.5-large-398b-Mamba",
+         "xlstm-1.3b-LSTM", "deepseek-v3-671b-ROADMAP"])
+def test_unported_members_name_the_roadmap(call, what):
     with pytest.raises(NotImplementedError, match=what) as err:
-        TM.init_params(0, get_smoke_config(arch), device="cpu")
-    assert "ROADMAP" in str(err.value)
+        call()
+    assert "ROADMAP Queue 1 item" in str(err.value)

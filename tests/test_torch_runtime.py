@@ -25,6 +25,7 @@ from repro.kernels.block_matmul.ops import batched_matmul as j_batched_matmul
 from repro.runtime import optimize as j_opt
 from repro.runtime.backends.pallas_fused import PallasFusedBackend
 from repro.runtime.backends.reference import NumpyReferenceBackend as JRef
+from repro.runtime.backends.sendrecv import SendRecvBackend as JSendRecv
 
 from repro_torch.core.topology import D3 as TD3
 from repro_torch.dist import collectives as t_dc
@@ -34,6 +35,7 @@ from repro_torch.runtime import optimize as t_opt
 from repro_torch.runtime.backends import available_backends, get_backend
 from repro_torch.runtime.backends.cuda_fused import CudaFusedBackend
 from repro_torch.runtime.backends.reference import NumpyReferenceBackend as TRef
+from repro_torch.runtime.backends.sendrecv import SendRecvBackend
 
 PAL = PallasFusedBackend(interpret=True)
 JREF = JRef()
@@ -88,10 +90,11 @@ def jax_matmul_recipe(jo):
 
 # ------------------------------------------------------------- registry
 def test_registry_holds_reference_and_cuda_fused():
-    assert available_backends() == ("reference", "cuda_fused", "torch_dist")
+    assert available_backends() == ("reference", "cuda_fused", "sendrecv", "torch_dist")
     assert isinstance(get_backend("cuda_fused", device="cpu"), CudaFusedBackend)
     assert isinstance(get_backend("reference"), TRef)
-    with pytest.raises(ValueError, match="reference, cuda_fused, torch_dist"):
+    assert isinstance(get_backend("sendrecv"), SendRecvBackend)
+    with pytest.raises(ValueError, match="reference, cuda_fused, sendrecv, torch_dist"):
         get_backend("pallas_fused")
 
 
@@ -126,6 +129,35 @@ def test_reference_backends_bit_equal(km):
         return chunks * (dst + 1) - 1
 
     assert_bits(TREF.run_alltoall_compute(x, tp, compute), JREF.run_alltoall_compute(x, jp, compute))
+
+
+# ------------------------------------------ sendrecv: the trace replayed
+@pytest.mark.parametrize("km", LAYOUTS, ids=str)
+@pytest.mark.parametrize("optimized", [False, True])
+def test_sendrecv_replays_bit_equal(km, optimized):
+    """The port's sendrecv backend, replaying each program's exported
+    trace, against the port's reference and cuda_fused (CPU) and the JAX
+    package's sendrecv, bit for bit."""
+    sr, jsr = SendRecvBackend(), JSendRecv()
+    for kind, (jp, tp) in programs(km, optimized).items():
+        x = inputs(kind, jp.n, 5)
+        got = getattr(sr, f"run_{kind}")(x, tp)
+        assert_bits(got, getattr(TREF, f"run_{kind}")(x, tp))
+        assert_bits(got, getattr(CPU, f"run_{kind}")(x, tp).numpy())
+        assert_bits(got, getattr(jsr, f"run_{kind}")(x, jp))
+
+
+@pytest.mark.parametrize("grid,X", GRIDS, ids=str)
+@pytest.mark.parametrize("optimized", [False, True])
+def test_sendrecv_matmul_bit_equal(grid, X, optimized):
+    jp = j_dc.matmul_program(*grid, optimized=optimized)
+    tp = t_dc.matmul_program(*grid, optimized=optimized)
+    B, A = matrices(grid, X, 6)
+    got = SendRecvBackend().run_matmul(B, A, tp)
+    assert_bits(got, TREF.run_matmul(B, A, tp))
+    assert_bits(got, CPU.run_matmul(B, A, tp).numpy())
+    assert_bits(got, JSendRecv().run_matmul(B, A, jp))
+    assert_bits(got, B @ A)
 
 
 # ------------------------------------ the port's CPU path vs pallas_fused

@@ -10,6 +10,7 @@ the continuous-batching bookkeeping is the JAX engine's line for line.
 
 import numpy as np
 import pytest
+import torch
 import jax
 
 from repro.configs import get_smoke_config as j_smoke
@@ -22,10 +23,9 @@ from repro_torch.models.convert import params_from_jax
 from repro_torch.serve.engine import Engine as TEngine, Request as TRequest
 
 
-@pytest.fixture(scope="module")
-def engines():
+def engine_pairs(arch):
     """A factory of (JAX engine, port engine) pairs on one set of weights."""
-    jcfg, cfg = j_smoke("tinyllama-1.1b"), get_smoke_config("tinyllama-1.1b")
+    jcfg, cfg = j_smoke(arch), get_smoke_config(arch)
     jp = JM.init_params(jax.random.key(0), jcfg)
     tp = params_from_jax(jax.tree.map(np.asarray, jp), cfg, device="cpu")
 
@@ -33,6 +33,11 @@ def engines():
         return (JEngine(jcfg, jp, batch_slots=slots, max_seq=max_seq),
                 TEngine(cfg, tp, batch_slots=slots, max_seq=max_seq, device="cpu"))
     return make
+
+
+@pytest.fixture(scope="module")
+def engines():
+    return engine_pairs("tinyllama-1.1b")
 
 
 def prompts(seed, n, vocab=256):
@@ -109,3 +114,50 @@ def test_launcher_matches_the_jax_launcher_step_count(capsys):
     from repro.launch import serve as j_serve
     argv = ["--requests", "4", "--max-new", "5", "--seed", "3"]
     assert t_serve.main(argv + ["--device", "cpu"]) == j_serve.main(argv)
+
+
+def test_mixtral_engines_give_the_same_tokens():
+    """The MoE model behind both engines (Mixtral smoke, its sparse
+    dispatch on every decode step), driven by the launcher's loop with its
+    smoke defaults: 4 slots, 6 requests, 12 new tokens."""
+    jeng, teng = engine_pairs("mixtral-8x7b")(4, 128)
+    ps = prompts(11, 6)
+    assert serve_loop(teng, TRequest, ps, 12) == serve_loop(jeng, JRequest, ps, 12)
+    same_state(jeng, teng)
+
+
+def test_overlong_prompt_is_refused_and_changes_nothing(engines):
+    """A prompt of max_seq + 1 tokens raises ValueError before the engine
+    seats it: the slots, positions, pending tokens, cache and counters
+    stay as they were, and the engine goes on serving."""
+    _, eng = engines(2, 8)
+    eng.admit(TRequest(rid=0, prompt=np.asarray([4, 13, 7], np.int32), max_new_tokens=3))
+    eng.step()
+    before = (dict(eng.slot_req), eng.positions.copy(), eng.pending_tok.copy(),
+              [{k: v.clone() for k, v in c.items()} for c in eng.cache["stack"]],
+              eng.steps_run, eng.tokens_out)
+    long = TRequest(rid=1, prompt=np.arange(1, 10, dtype=np.int32), max_new_tokens=2)
+    with pytest.raises(ValueError, match="max_seq"):
+        eng.admit(long)
+    assert eng.slot_req == before[0] and long.out == [] and not long.done
+    np.testing.assert_array_equal(eng.positions, before[1])
+    np.testing.assert_array_equal(eng.pending_tok, before[2])
+    for got, want in zip(eng.cache["stack"], before[3]):
+        assert all(torch.equal(got[k], want[k]) for k in want)
+    assert (eng.steps_run, eng.tokens_out) == before[4:]
+    eng.run_to_completion()
+    assert eng.slot_req == {} and len(before[0][0].out) == 3
+
+
+def test_prompt_of_exactly_max_seq_matches_the_jax_engine(engines):
+    """A prompt that fills the cache to its last position is served, and
+    gives the JAX engine's tokens and state."""
+    outs = []
+    for eng, Request in zip(engines(2, 8), (JRequest, TRequest)):
+        a = Request(rid=0, prompt=np.asarray([5, 9, 42], np.int32), max_new_tokens=4)
+        b = Request(rid=1, prompt=np.arange(3, 11, dtype=np.int32), max_new_tokens=4)
+        assert eng.admit(a) and eng.admit(b)
+        eng.run_to_completion()
+        assert a.done and b.done and len(b.out) == 1  # cut at max_seq - 1
+        outs.append((a.out, b.out, eng.steps_run, eng.tokens_out, eng.positions.tolist()))
+    assert outs[0] == outs[1]
