@@ -97,7 +97,29 @@ per-shard path on one NVIDIA card, end to end.
    a 128-token cache and 12 new tokens each (the JAX launcher's smoke
    defaults; its rate is a smoke figure, not serving throughput), held
    like step 9's;
-12. runs the per-shard §4 all-reduce: 8 processes share the card in one
+12. runs the same Mixtral-8x7B weights under expert parallelism: 8
+   processes share the card on a (data 1, model 8) mesh of processes
+   (``launch.mesh.make_mesh``, gloo, the host as the exchanges' carrier;
+   the model axis is D3(2,2)), the weights made once in the parent and
+   handed to the ranks by CUDA IPC, each rank taking its expert as a view
+   (a checksum of every weight before and after). a) layer 0's MoE on
+   hidden states (1, 8192, 4096) bf16 from the seed, in all four modes
+   through ``moe_apply_auto`` under active rules: ``xla``, ``dragonfly``
+   and ``dragonfly_overlap`` bit-identical, the fused mode within K4's
+   bf16 bound of them, all four within it of the one-process
+   ``moe_apply_ep_plain``, the aux equal; per mode the wall ms of a call
+   of all ranks (median of 3 after a warm-up), the exchange, expert-FFN
+   and all-gather ms (``moe.timing_parts``), the carrier's copies and
+   bytes, the drops and the peak. b) ``forward_train`` on tokens
+   (1, 8192) in the ``dragonfly`` mode with K4 on, exactly 8 ``wgmma``
+   launches a rank, rank 0's last-token logits and loss against the
+   one-process forward whose MoE layers are ``moe_apply_ep_plain``
+   (step 8's criteria, the route flips as in step 11); its ms, tokens/s
+   and the exchange's share. c) the whole-array wave replay
+   ``torch_alltoall_overlapped`` of the all-to-all cell's input on the
+   pipelined D3(4,4) program, bit for bit against ``torch_alltoall``,
+   both timed;
+13. runs the per-shard §4 all-reduce: 8 processes share the card in one
    gloo group (``launch.mesh.spawn``, D3(2,2)), each with a 25 MiB bucket
    from the seed plus its rank, and call
    ``CudaFusedBackend().allreduce_shard`` 5 times back to back with fresh
@@ -129,7 +151,10 @@ The cells (layout D3(K, M) has n = K·M² routers):
   matmul      grid (4,4) = D3(16,4), n = 256, X = 512: B, A 8192 × 8192 f32
               with integer entries in [-4, 4], so B @ A is exact;
   per-shard   D3(2,2), 8 ranks (one 8-GPU node's shape) sharing the card,
-  all-reduce  x (6553600,) f32 per rank: the DDP bucket again.
+  all-reduce  x (6553600,) f32 per rank: the DDP bucket again;
+  MoE EP      Mixtral-8x7B, 8 of 32 layers, mesh (1, 8), 8 ranks sharing
+              the card: T_loc 1024 tokens a rank, C_loc 320, a dispatch
+              buffer (8, 1, 320, 4096) bf16 of 21 MB a rank each way.
 """
 
 from __future__ import annotations
@@ -161,6 +186,11 @@ LOGIT_MAX_ABS, LOGIT_REL_RMS, LOSS_REL = 0.5, 0.05, 1e-3  # bf16 model-path tole
 RANKS = 8  # per-shard phase: D3(2,2), the shape of one 8-GPU node, all on one card here
 CALLS = 5  # back-to-back allreduce_shard calls with fresh data
 SKEW = (2, 3, 0.05)  # in call 2, rank 3 sleeps 50 ms before its first put
+EP_MESH = (1, 8)  # EP phase: (data, model); the model axis is dragonfly_layout(8) = D3(2,2)
+EP_MODES = ("xla", "dragonfly", "dragonfly_overlap", "dragonfly_overlap_fused")
+EP_CALLS = 3  # timed calls of the EP layer per mode, after a warm-up
+EP_FORWARD_LAYERS = 8  # layers of the EP model forward (part b), of the 8 the weights hold
+EP_PHASE_S = 150  # the EP phase's time budget: a phase past it says so
 
 
 def require(cond: bool, what: str) -> None:
@@ -170,6 +200,39 @@ def require(cond: bool, what: str) -> None:
 
 def emit(record: dict) -> None:
     print(json.dumps(record), flush=True)
+
+
+def attention_close(got, want, tol):
+    """|Δ| <= tol + tol·|want| everywhere and ||Δ|| <= tol·||want||:
+    whether both hold, max |Δ| and the relative rms error."""
+    got, want = got.float(), want.float()
+    diff = got - want
+    rel = float(diff.norm() / want.norm())
+    ok = bool((diff.abs() <= tol + tol * want.abs()).all()) and rel <= tol
+    return ok, float(diff.abs().max()), rel
+
+
+def route_flips(k_routes, n_routes, k):
+    """(layer, token) routes that differ between two passes' per-layer
+    (expert ids, kept, router logits): in any order, as a set, and first
+    for the token (before it, the token's routes agreed in every layer);
+    for the first ones, the first pass's gap between the router
+    probabilities of ranks k and k + 1 or k - 1 and k."""
+    import torch
+
+    diff = torch.stack([(a != b).any(-1) for (a, *_), (b, *_) in zip(k_routes, n_routes)])
+    set_diff = torch.stack([(a.sort(-1)[0] != b.sort(-1)[0]).any(-1)
+                            for (a, *_), (b, *_) in zip(k_routes, n_routes)])
+    first = diff & (diff.int().cumsum(0) == 1)
+    probs = torch.stack([torch.softmax(lg.float(), -1).sort(-1, descending=True)[0]
+                         for _, _, lg in k_routes])  # (L, T, E)
+    gap = (probs[..., :k + 1].diff(dim=-1).abs()).amin(-1)  # nearest boundary among ranks 1..k+1
+    return {"share": float(diff.float().mean()), "set_share": float(set_diff.float().mean()),
+            "by_layer": diff.sum(1).tolist(), "first_by_layer": first.sum(1).tolist(),
+            "tokens_ever": int(diff.any(0).sum()),
+            "first_gap_median": float(gap[first].median()) if first.any() else None,
+            "first_gap_max": float(gap[first].max()) if first.any() else None,
+            "all_gap_median": float(gap.median())}
 
 
 def zero_counts(wrappers) -> None:
@@ -275,6 +338,299 @@ def per_shard_rank(rank, group, layout, seed):
             "out0": outs[0].cpu().numpy(), "call_ms": call_ms, "plain_ms": plain_ms,
             "copy_ms": copy_ms, "put_ms": statistics.median(put_ms),
             "wait_ms": statistics.median(wait_ms)}
+
+
+def ep_rank(rank, group, layout, mparams, cfg, x, tokens, want_y, layers_b):
+    """One rank of the EP phase, on a (1, 8) mesh of processes sharing the
+    card. ``mparams`` are the parent's weights, shared through CUDA IPC:
+    the rank takes its expert of every layer as a view and writes to none.
+
+    a) layer 0's MoE alone on ``x`` in every mode through
+       ``moe_apply_auto`` under active rules: the first call's output and
+       routes are kept (and held against the one-process ``want_y`` and
+       between the modes here), then EP_CALLS timed calls (from a barrier
+       to the device's end), then one call under ``moe.timing_parts``;
+    b) ``forward_train`` with K4 on ``tokens`` in the ``dragonfly`` mode over
+       ``layers_b`` layers, its K4 launches counted, then ``loss_fn``, one
+       forward under ``timing_parts`` and one timed forward.
+    Returns host data."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.dist import sharding as SH
+    from repro_torch.kernels.flash_attention.flash_attention import flash_attention
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import model as M
+    from repro_torch.models import moe as MOE
+
+    dev = x.device
+    mesh = make_mesh(EP_MESH, ("data", "model"), device=dev.type)
+    SH.set_active(SH.ShardRules(), mesh)
+    rules = SH.active()[0]
+    # this rank's experts: views of the shared stacks, read only
+    params = {**mparams, "stack": [
+        {**layer, "ffn": MOE.local_experts(layer["ffn"], rules, mesh.coords, mesh.sizes)}
+        for layer in mparams["stack"]]}
+
+    def sync():
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+
+    def wall_ms(fn):
+        dist.barrier()
+        t0 = time.perf_counter()
+        out = fn()
+        sync()
+        return out, (time.perf_counter() - t0) * 1e3
+
+    def peak_gib():
+        return torch.cuda.max_memory_allocated(dev) / 2**30 if dev.type == "cuda" else float("nan")
+
+    def reset_peak():
+        if dev.type == "cuda":
+            torch.cuda.reset_peak_memory_stats(dev)
+
+    # a) the MoE layer alone, in every mode
+    ffn0 = params["stack"][0]["ffn"]
+    layer = {"modes": {}}
+    outs = {}
+    for mode in EP_MODES:
+        SH.set_active(SH.ShardRules(moe_collectives=mode), mesh)
+        mesh.carrier_copies = mesh.carrier_bytes = 0
+        reset_peak()
+        with MOE.recording_routes() as routes:
+            (y, aux), first_ms = wall_ms(lambda: MOE.moe_apply_auto(ffn0, x, cfg))
+        copies = {"copies": mesh.carrier_copies, "bytes": mesh.carrier_bytes}
+        times = [wall_ms(lambda: MOE.moe_apply_auto(ffn0, x, cfg))[1] for _ in range(EP_CALLS)]
+        with MOE.timing_parts() as parts:
+            wall_ms(lambda: MOE.moe_apply_auto(ffn0, x, cfg))
+        (_, keep, _), = routes
+        outs[mode] = (y, aux)
+        layer["modes"][mode] = {"first_ms": first_ms, "call_ms": times, "parts": dict(parts),
+                                "carrier_per_call": copies, "dropped": int((~keep).sum()),
+                                "entries": keep.numel(), "peak_gib": peak_gib()}
+    xla_y = outs["xla"][0]
+    layer["bit_identical_to_xla"] = {
+        mode: bool(torch.equal(outs[mode][0].view(torch.int16), xla_y.view(torch.int16)))
+        for mode in EP_MODES}
+    layer["fused_vs_xla"] = attention_close(outs[EP_MODES[3]][0], xla_y,
+                                            FLASH_TOL[str(x.dtype)])
+    layer["vs_plain"] = {mode: attention_close(outs[mode][0], want_y, FLASH_TOL[str(x.dtype)])
+                         for mode in EP_MODES}
+    layer["aux"] = {mode: float(outs[mode][1]) for mode in EP_MODES}
+    layer["finite"] = all(bool(torch.isfinite(y).all()) for y, _ in outs.values())
+    layer["shape_ok"] = all(y.shape == x.shape and y.dtype == x.dtype for y, _ in outs.values())
+    layer["transport"], layer["carrier"] = mesh.transport, str(mesh.carrier)
+    del outs, xla_y, y
+
+    # b) the model forward under EP, the dragonfly mode, K4 on
+    SH.set_active(SH.ShardRules(moe_collectives="dragonfly"), mesh)
+    cfg_b = dataclasses.replace(cfg, n_layers=layers_b)
+    params_b = {**params, "stack": params["stack"][:layers_b]}
+    batch = {"tokens": tokens, "labels": tokens}
+    flash_attention.launches = 0
+    flash_attention.body_launches = dict.fromkeys(flash_attention.body_launches, 0)
+    reset_peak()
+    with MOE.recording_routes() as routes:
+        (logits, aux, _), first_ms = wall_ms(lambda: M.forward_train(params_b, batch, cfg_b, True))
+    k4 = {"launches": flash_attention.launches, "bodies": dict(flash_attention.body_launches)}
+    model = {"k4": k4, "first_ms": first_ms, "aux": float(aux),
+             "finite": bool(torch.isfinite(logits).all()),
+             "last_logits": logits[:, -1].float().cpu(),
+             "routes": [(idx.cpu(), keep.cpu(), lg.float().cpu()) for idx, keep, lg in routes]}
+    del logits
+    model["loss"] = float(M.loss_fn(params_b, batch, cfg_b, True)[0])
+    with MOE.timing_parts() as parts:
+        _, parts_ms = wall_ms(lambda: M.forward_train(params_b, batch, cfg_b, True))
+    model["parts"], model["parts_wall_ms"] = dict(parts), parts_ms
+    model["ms"] = wall_ms(lambda: M.forward_train(params_b, batch, cfg_b, True))[1]
+    model["peak_gib"] = peak_gib()
+    SH.clear_active()
+    return {"layer": layer, "model": model}
+
+
+def ep_phase(dev, mparams, mcfg, seed):
+    """The expert-parallel path at Mixtral-8x7B's full width on 8 ranks that
+    share the card (gloo, the host as the exchanges' carrier). Returns its
+    record and K4's launches (per rank, all ranks)."""
+    import torch
+
+    from repro_torch.dist.mesh import dragonfly_layout
+    from repro_torch.kernels import build
+    from repro_torch.launch.mesh import spawn
+    from repro_torch.models import model as M
+    from repro_torch.models import moe as MOE
+
+    t_phase = time.perf_counter()
+    n_data, n_model = EP_MESH
+    ranks_n = n_data * n_model
+    layout = dragonfly_layout(n_model)
+    require((layout.topo.K, layout.topo.M) == (2, 2), f"dragonfly_layout({n_model}) is {layout.topo}")
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    B, S = MIXTRAL_TOKENS
+    x = torch.randn((B, S, mcfg.d_model), generator=gen, device=dev).to(
+        getattr(torch, mcfg.compute_dtype))
+    tokens = torch.randint(1, mcfg.vocab, MIXTRAL_TOKENS, device=dev,
+                           generator=torch.Generator(device=dev).manual_seed(seed))
+    T_loc = B * S // ranks_n
+    C = MOE.ep_capacity(mcfg, T_loc)
+    E_loc = mcfg.moe.num_experts // n_model
+    buf_bytes = n_model * E_loc * C * mcfg.d_model * x.element_size()
+
+    def checksum():
+        """Every weight's bits summed as int16: the shared weights, unchanged."""
+        out = 0
+        stack = [mparams["embed"], mparams["final_norm"], mparams.get("unembed", {})] + \
+            mparams["stack"]
+        todo = list(stack)
+        while todo:
+            node = todo.pop()
+            if isinstance(node, dict):
+                todo.extend(node.values())
+            else:
+                out += int(node.view(torch.int16).sum(dtype=torch.int64))
+        return out
+
+    # the one-process oracles: layer 0 and the forward with every MoE layer
+    # as moe_apply_ep_plain (the main path's launches are counted in the ranks)
+    ffn0 = mparams["stack"][0]["ffn"]
+    want_y, want_aux = MOE.moe_apply_ep_plain(ffn0, x, mcfg, n_data, n_model)
+    cfg_b = dataclasses.replace(mcfg, n_layers=EP_FORWARD_LAYERS)
+    params_b = {**mparams, "stack": mparams["stack"][:EP_FORWARD_LAYERS]}
+    batch = {"tokens": tokens, "labels": tokens}
+    auto = MOE.moe_apply_auto
+    MOE.moe_apply_auto = lambda p, h, c: MOE.moe_apply_ep_plain(p, h, c, n_data, n_model)
+    try:
+        with MOE.recording_routes() as plain_routes:
+            plain_logits = M.forward_train(params_b, batch, cfg_b, True)[0]
+        plain_last = plain_logits[:, -1].float()
+        del plain_logits
+        plain_loss = float(M.loss_fn(params_b, batch, cfg_b, True)[0])
+    finally:
+        MOE.moe_apply_auto = auto
+    torch.cuda.synchronize()
+    before = checksum()
+
+    build.build_all()  # the ranks only load the libraries
+    t0 = time.perf_counter()
+    ranks = spawn(ep_rank, ranks_n, device="cuda",
+                  args=(mparams, mcfg, x, tokens, want_y, EP_FORWARD_LAYERS))
+    ranks_s = time.perf_counter() - t0
+    torch.cuda.ipc_collect()  # free what the ranks released of the shared tensors
+    require(checksum() == before, "a rank wrote to the shared weights")
+
+    # a) the layer
+    lay = [r["layer"] for r in ranks]
+    for r, rec in enumerate(lay):
+        require(rec["finite"] and rec["shape_ok"], f"EP layer, rank {r}: shape or non-finite")
+        require(all(rec["bit_identical_to_xla"][m] for m in EP_MODES[:3]),
+                f"EP layer, rank {r}: xla, dragonfly and dragonfly_overlap differ: "
+                f"{rec['bit_identical_to_xla']}")
+        require(rec["fused_vs_xla"][0], f"EP layer, rank {r}: fused vs xla {rec['fused_vs_xla']}")
+        for mode, (ok, err, rel) in rec["vs_plain"].items():
+            require(ok, f"EP layer, rank {r}, {mode}: off the plain version by max {err}, "
+                        f"relative rms {rel}")
+        require(len(set(rec["aux"].values())) == 1, f"EP layer, rank {r}: aux {rec['aux']}")
+    require(all(rec["aux"] == lay[0]["aux"] for rec in lay), "EP layer: aux differs between ranks")
+    aux_rel = abs(lay[0]["aux"]["xla"] - float(want_aux)) / abs(float(want_aux))
+    require(aux_rel < 1e-5, f"EP layer aux {lay[0]['aux']['xla']} vs plain {float(want_aux)}")
+    modes = {}
+    for mode in EP_MODES:
+        recs = [rec["modes"][mode] for rec in lay]
+        per_call = [max(rec["call_ms"][i] for rec in recs) for i in range(EP_CALLS)]
+        parts = {key: statistics.median(rec["parts"][key] for rec in recs)
+                 for key in ("exchange_ms", "experts_ms", "gather_ms")}
+        modes[mode] = {
+            "call_ms": statistics.median(per_call), "call_ms_each": per_call,
+            "first_call_ms": max(rec["first_ms"] for rec in recs),
+            "median_rank_parts_ms": parts,
+            "carrier_copies_per_call": recs[0]["carrier_per_call"],
+            "dropped_share": sum(rec["dropped"] for rec in recs) / sum(rec["entries"] for rec in recs),
+            "peak_gib_per_rank_max": max(rec["peak_gib"] for rec in recs),
+            "bit_identical_to_xla": lay[0]["bit_identical_to_xla"][mode],
+            "vs_plain": {"max_abs_err": max(rec["vs_plain"][mode][1] for rec in lay),
+                         "rel_rms": max(rec["vs_plain"][mode][2] for rec in lay)}}
+    layer_rec = {"x": list(x.shape), "dtype": str(x.dtype), "T_loc": T_loc, "C_loc": C,
+                 "dispatch_buffer": [n_model, E_loc, C, mcfg.d_model],
+                 "bytes_sent_per_rank": 2 * buf_bytes * (n_model - 1) // n_model,
+                 "gather_bytes_received_per_rank": (n_model - 1) * T_loc * mcfg.d_model
+                 * x.element_size(),
+                 "transport": lay[0]["transport"], "carrier": lay[0]["carrier"],
+                 "fused_vs_xla": {"max_abs_err": max(rec["fused_vs_xla"][1] for rec in lay),
+                                  "rel_rms": max(rec["fused_vs_xla"][2] for rec in lay)},
+                 "tol": FLASH_TOL[str(x.dtype)], "aux": lay[0]["aux"]["xla"],
+                 "plain_aux": float(want_aux), "modes": modes}
+
+    # b) the model forward
+    mod = [r["model"] for r in ranks]
+    k4 = {"launches": EP_FORWARD_LAYERS,
+          "bodies": {"mma_sync": 0, "wgmma": EP_FORWARD_LAYERS}}
+    for r, rec in enumerate(mod):
+        require(rec["k4"] == k4, f"EP forward, rank {r}: K4 launched {rec['k4']}, expected {k4}")
+        require(rec["finite"], f"EP forward, rank {r}: non-finite logits")
+    last = mod[0]["last_logits"].to(dev)
+    err = float((last - plain_last).abs().max())
+    rel = float((last - plain_last).norm() / plain_last.norm())
+    require(err <= LOGIT_MAX_ABS and rel <= LOGIT_REL_RMS,
+            f"EP forward: last-token logits off the one-process forward by max {err}, "
+            f"relative rms {rel}")
+    loss_rel = abs(mod[0]["loss"] - plain_loss) / abs(plain_loss)
+    require(loss_rel <= LOSS_REL, f"EP forward loss {mod[0]['loss']} vs one-process {plain_loss}")
+    ep_routes = [tuple(torch.cat([rec["routes"][li][j] for rec in mod]) for j in range(3))
+                 for li in range(EP_FORWARD_LAYERS)]
+    flips = route_flips(ep_routes, [tuple(t.cpu() for t in r) for r in plain_routes],
+                        mcfg.moe.top_k)
+    require(flips["share"] < ROUTE_FLIP_MAX and (flips["first_gap_max"] or 0) < FIRST_FLIP_GAP_MAX,
+            f"EP forward: routes differ from the one-process forward's: {flips}")
+    fwd_ms = max(rec["ms"] for rec in mod)
+    parts_wall = max(rec["parts_wall_ms"] for rec in mod)
+    ex = statistics.median(rec["parts"]["exchange_ms"] + rec["parts"]["gather_ms"] for rec in mod)
+    model_rec = {"layers": f"{EP_FORWARD_LAYERS} of {mcfg.n_layers} held on the card",
+                 "tokens": list(MIXTRAL_TOKENS), "mode": "dragonfly", "ms": fwd_ms,
+                 "first_ms": max(rec["first_ms"] for rec in mod),
+                 "tokens_per_s": B * S / fwd_ms * 1e3,
+                 "exchange_and_gather_share": ex / parts_wall, "timed_with_parts_ms": parts_wall,
+                 "median_rank_parts_ms": {key: statistics.median(rec["parts"][key] for rec in mod)
+                                          for key in ("exchange_ms", "experts_ms", "gather_ms")},
+                 "k4_per_rank": k4, "peak_gib_per_rank_max": max(rec["peak_gib"] for rec in mod),
+                 "loss": mod[0]["loss"], "plain_loss": plain_loss, "aux": mod[0]["aux"],
+                 "last_logits_vs_plain": {"max_abs_err": err, "rel_rms": rel},
+                 "route_flips": flips}
+    del want_y, plain_last, last, x, tokens
+    return {"run": "moe_ep", "model": mcfg.name, "mesh": {"data": n_data, "model": n_model},
+            "model_axis_layout": "D3(2,2)", "ranks_s": ranks_s,
+            "phase_s": time.perf_counter() - t_phase, "weights_unchanged": True,
+            "layer": layer_rec, "forward": model_rec}, ranks_n * EP_FORWARD_LAYERS
+
+
+def wave_replay_check(dev, time_ms):
+    """The whole-array wave replay on the card: the all-to-all phase's input
+    on the pipelined dragonfly_layout(64) program, torch_alltoall_overlapped
+    against torch_alltoall bit for bit, both timed."""
+    import torch
+
+    from repro_torch.dist import collectives as dc
+    from repro_torch.dist.mesh import dragonfly_layout
+    from repro_torch.runtime import optimize as opt
+
+    layout = dragonfly_layout(64)
+    prog = dc.alltoall_program(layout, optimized=True, pipelined=1)
+    n = layout.n
+    x = torch.randn((n, n, CHUNK), generator=torch.Generator(device=dev).manual_seed(SEED),
+                    device=dev)
+    waves = opt.exchange_waves(prog)
+    got = opt.torch_alltoall_overlapped(prog, dev)(x)
+    want = opt.torch_alltoall(prog, dev)(x)
+    require(torch.equal(got.view(torch.int32), want.view(torch.int32)),
+            "torch_alltoall_overlapped differs from torch_alltoall")
+    del got, want
+    rec = {"run": "alltoall_overlapped", "shape": list(x.shape), "waves": len(waves),
+           "pairs_per_wave": sorted({len(s) for _, s, _ in waves}), "bit_exact": True,
+           "ms": time_ms(lambda: opt.torch_alltoall_overlapped(prog, dev)(x), reps=3, warmup=1),
+           "torch_alltoall_ms": time_ms(lambda: opt.torch_alltoall(prog, dev)(x), reps=3,
+                                        warmup=1)}
+    del x
+    return rec
 
 
 def per_shard_phase(dev, seed):
@@ -733,15 +1089,6 @@ def main() -> None:
         (3, 1, 77, 8, 8, 64, False, None, torch.bfloat16),
     ]
 
-    def attention_close(got, want, tol):
-        """|Δ| <= tol + tol·|want| everywhere and ||Δ|| <= tol·||want||:
-        whether both hold, max |Δ| and the relative rms error."""
-        got, want = got.float(), want.float()
-        diff = got - want
-        rel = float(diff.norm() / want.norm())
-        ok = bool((diff.abs() <= tol + tol * want.abs()).all()) and rel <= tol
-        return ok, float(diff.abs().max()), rel
-
     for i, (b_, sq, sk, hq, hkv, d, causal, window, dtype) in enumerate(cases):
         tol = FLASH_TOL[str(dtype)]
         q, k, v = randn(b_, sq, hq, d).to(dtype), randn(b_, sk, hkv, d).to(dtype), \
@@ -1078,29 +1425,12 @@ def main() -> None:
     err, rel = logits_close(last, naive_last, "mixtral: kernel vs naive forward")
     loss_rel = abs(float(loss) - float(naive_loss)) / abs(float(naive_loss))
     require(loss_rel <= LOSS_REL, f"mixtral loss {float(loss)} vs naive {float(naive_loss)}")
-    # (layer, token) routes that differ between the passes: in any order,
-    # as a set, and first for the token (before it, the token's routes
-    # agreed in every layer); for the first ones, the kernel pass's gap
-    # between the router probabilities of ranks k and k + 1 or k - 1 and k
-    diff = torch.stack([(a != b).any(-1) for (a, *_), (b, *_) in zip(k_routes, n_routes)])
-    set_diff = torch.stack([(a.sort(-1)[0] != b.sort(-1)[0]).any(-1)
-                            for (a, *_), (b, *_) in zip(k_routes, n_routes)])
-    first = diff & (diff.int().cumsum(0) == 1)
-    k = mcfg.moe.top_k
-    probs = torch.stack([torch.softmax(lg.float(), -1).sort(-1, descending=True)[0]
-                         for _, _, lg in k_routes])  # (L, T, E)
-    gap = (probs[..., :k + 1].diff(dim=-1).abs()).amin(-1)  # nearest boundary among ranks 1..k+1
-    flip_share = float(diff.float().mean())
-    flips = {"share": flip_share, "set_share": float(set_diff.float().mean()),
-             "by_layer": diff.sum(1).tolist(), "first_by_layer": first.sum(1).tolist(),
-             "tokens_ever": int(diff.any(0).sum()),
-             "first_gap_median": float(gap[first].median()) if first.any() else None,
-             "first_gap_max": float(gap[first].max()) if first.any() else None,
-             "all_gap_median": float(gap.median())}
+    flips = route_flips(k_routes, n_routes, mcfg.moe.top_k)
+    flip_share = flips["share"]
     kept = [keep for _, keep, _ in k_routes]
     drop_share = sum(int((~keep).sum()) for keep in kept) / sum(keep.numel() for keep in kept)
     drops_by_layer = [int((~keep).sum()) for keep in kept]
-    del k_routes, n_routes, kept, last, naive_last, probs, gap, diff, set_diff, first
+    del k_routes, n_routes, kept, last, naive_last
     release()
     m_fwd_ms = time_ms(lambda: M.forward_train(mparams, mbatch, mcfg, True), reps=3, warmup=1)
     labels = ("moe.dispatch", "moe.experts", "moe.combine")
@@ -1169,13 +1499,31 @@ def main() -> None:
                  "launches": {c.__name__: c.launches for c in all_counters},
                  "decode_vs_prefill_logits": {"max_abs_err": err, "rel_rms": rel}})
     emit(runs[-1])
-    del mparams, meng, mbatch, mtokens, full
+    del meng, mbatch, mtokens, full
     release()
     require(flip_share < ROUTE_FLIP_MAX and (flips["first_gap_max"] or 0) < FIRST_FLIP_GAP_MAX,
             f"mixtral: {flip_share:.4%} of (token, layer) routes differ between the kernel and "
             f"naive passes, or one first differs away from a near-tie: {flips}")
 
-    # ------------------------ 12. the per-shard all-reduce, 8 ranks on the card
+    # ----------- 12. Mixtral-8x7B under expert parallelism, 8 ranks on the card
+    if EP_FORWARD_LAYERS < mcfg.n_layers:
+        print(f"moe_ep: the forward (part b) runs {EP_FORWARD_LAYERS} of the "
+              f"{mcfg.n_layers} layers the weights hold", flush=True)
+    ep_rec, ep_k4 = ep_phase(dev, mparams, mcfg, SEED)
+    del mparams
+    release()
+    ep_rec["card_free_gib_after"] = torch.cuda.mem_get_info()[0] / 2**30
+    ep_rec["wave_replay"] = wave_replay_check(dev, time_ms)
+    emit(ep_rec)
+    if ep_rec["phase_s"] > EP_PHASE_S:
+        print(f"moe_ep: the phase took {ep_rec['phase_s']:.0f} s, past its {EP_PHASE_S} s",
+              flush=True)
+    launches["flash_attention"] += ep_k4
+    kernels["flash_attention"]["launches_by_path"][f"{mcfg.name} EP forward, all ranks"] = ep_k4
+    kernels["flash_attention"]["body_launches"]["wgmma"] += ep_k4
+    release()
+
+    # ------------------------ 13. the per-shard all-reduce, 8 ranks on the card
     for name, rec in kernels.items():
         rec["launches"] = launches[name]
     kernels["ring_exchange"] = per_shard_phase(dev, SEED)

@@ -2,7 +2,7 @@
 (full sequence, flash kernel) and decode path (single token, KV cache).
 
 The port of the GQA/SWA half of ``repro.models.attention``. MLA (DeepSeek
-latent attention) waits for the DeepSeek slice (ROADMAP Queue 1 item 3):
+latent attention) waits for the DeepSeek slice (ROADMAP Queue 1 item 2):
 ``models.model`` refuses its configs with ``NotImplementedError``.
 """
 

@@ -34,7 +34,7 @@ def _check_supported(cfg: ModelConfig) -> None:
     if cfg.attention == "mla" or cfg.first_dense_layers or cfg.mtp_depth:
         raise NotImplementedError(
             "MLA, the dense prefix and the MTP head (DeepSeek-V3) are not ported yet: "
-            "ROADMAP Queue 1 item 3")
+            "ROADMAP Queue 1 item 2")
 
 
 # ------------------------------------------------------------------ init

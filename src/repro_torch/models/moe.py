@@ -21,19 +21,34 @@ What has to match the reference exactly:
   reference's ``.at[].add`` does (no masking of the write itself);
 * the combine accumulates in float32 and casts back once.
 
-The expert-parallel (``moe_apply_ep``), tensor-parallel (``moe_apply_tp``)
-and guest-embedded modes wait for later slices: ``moe_apply_auto`` names
-their ROADMAP items when a mesh would pick them.
+The expert-parallel path ``moe_apply_ep`` runs on every rank of a
+process mesh registered by ``dist.sharding.set_active``, in four modes
+(``rules.moe_collectives``): ``xla`` (``torch.distributed``'s own
+all-to-all), ``dragonfly`` and ``dragonfly_overlap`` (the §3 program on
+``torch_dist``, in round and in ``start_step`` order) and
+``dragonfly_overlap_fused`` (dispatch, expert FFN and combine as one wave
+pipeline). Its semantics differ from the sparse path's, as in the
+reference: ``C_loc = max(8, int(cf·T_loc·k/E))`` rounded up to 8, and the
+combine accumulates in the activation dtype. ``moe_apply_ep_plain`` is its
+one-process counterpart, for checks. The tensor-parallel
+(``moe_apply_tp``) and guest-embedded modes and the ``auto`` strategy wait
+for later slices: ``moe_apply_auto`` and ``moe_apply_ep`` name their
+ROADMAP items.
 """
 
 from __future__ import annotations
 
 import contextlib
+import math
+import time
+from typing import NamedTuple
 
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 from torch.autograd.profiler import record_function
 
+from repro_torch.dist import sharding as SH
 from repro_torch.models import layers as L
 
 #: Where ``moe_apply_sparse`` appends each call's routing while
@@ -117,6 +132,40 @@ def moe_apply(params, x, cfg):
     return y.reshape(B, S, d), aux
 
 
+class _Routes(NamedTuple):
+    logits: torch.Tensor  # (T, E)
+    w: torch.Tensor       # (T, k) float32 gates
+    idx: torch.Tensor     # (T, k) expert ids
+    flat_e: torch.Tensor  # (T·k,)
+    at: torch.Tensor      # (T·k,) slot, clipped to C - 1
+    keep: torch.Tensor    # (T·k,) slot < C
+    src: torch.Tensor     # (T·k,) token of each entry
+
+
+def _route(xt, router, cfg, C: int) -> _Routes:
+    """Route one token shard: top-k experts, each (token, k) entry's slot
+    (its running count in its expert over the flattened (t, k) order) and
+    whether it fits in ``C`` slots."""
+    m = cfg.moe
+    logits = xt @ router
+    w, idx = router_topk(logits, m.top_k, m.norm_topk_probs)
+    flat_e = idx.reshape(-1)
+    # the running count, scanned along the last dim (a scan along dim 0 of
+    # (T*k, E) took 3.1 ms a layer on an H100 at T*k = 16384)
+    onehot = F.one_hot(flat_e, m.num_experts).T.contiguous()  # (E, T*k)
+    slot = onehot.cumsum(dim=1).gather(0, flat_e[None])[0] - 1
+    src = torch.arange(xt.shape[0], device=xt.device).repeat_interleave(m.top_k)
+    return _Routes(logits, w, idx, flat_e, slot.clamp(0, C - 1), slot < C, src)
+
+
+def _dispatch(xt, r: _Routes, E: int, C: int) -> torch.Tensor:
+    """(E, C, d) expert-major buffer; dropped entries add zeros at slot C - 1."""
+    buf = torch.zeros((E, C, xt.shape[1]), dtype=xt.dtype, device=xt.device)
+    buf.index_put_((r.flat_e, r.at), torch.where(r.keep[:, None], xt[r.src], 0),
+                   accumulate=True)
+    return buf
+
+
 def capacity(cfg, tokens: int, capacity_factor: float | None = None) -> int:
     """Slots per expert of the sparse dispatch for ``tokens`` tokens."""
     m = cfg.moe
@@ -138,53 +187,289 @@ def moe_apply_sparse(params, x, cfg, capacity_factor: float | None = None):
     C = capacity(cfg, T, capacity_factor)
     xt = x.reshape(T, d)
     with record_function("moe.dispatch"):
-        logits = xt @ params["router"]
-        w, idx = router_topk(logits, m.top_k, m.norm_topk_probs)  # (T, k)
-        flat_e = idx.reshape(-1)  # (T*k,)
-        # position of each (t, k) within its expert's buffer: the running
-        # count, scanned along the last dim (a scan along dim 0 of (T*k, E)
-        # took 3.1 ms a layer on an H100 at T*k = 16384)
-        onehot = F.one_hot(flat_e, E).T.contiguous()  # (E, T*k) int64
-        slot = onehot.cumsum(dim=1).gather(0, flat_e[None])[0] - 1
-        keep = slot < C
-        at = slot.clamp(0, C - 1)
-        src_tok = torch.arange(T, device=x.device).repeat_interleave(m.top_k)
+        r = _route(xt, params["router"], cfg, C)
         if _ROUTES is not None:
-            _ROUTES.append((idx.detach(), keep.detach(), logits.detach()))
-        buf = torch.zeros((E, C, d), dtype=xt.dtype, device=x.device)
-        buf.index_put_((flat_e, at), torch.where(keep[:, None], xt[src_tok], 0),
-                       accumulate=True)
+            _ROUTES.append((r.idx.detach(), r.keep.detach(), r.logits.detach()))
+        buf = _dispatch(xt, r, E, C)
     with record_function("moe.experts"):
         y_buf = _expert_ffn(params, buf)  # (E, C, d)
     with record_function("moe.combine"):
-        gathered = y_buf[flat_e, at].float() * w.reshape(-1)[:, None]
+        gathered = y_buf[r.flat_e, r.at].float() * r.w.reshape(-1)[:, None]
         y = torch.zeros((T, d), dtype=torch.float32, device=x.device)
-        y.index_add_(0, src_tok, torch.where(keep[:, None], gathered, 0))
+        y.index_add_(0, r.src, torch.where(r.keep[:, None], gathered, 0))
         y = y.to(x.dtype)
     if "shared" in params:
         y = y + L.mlp_apply(params["shared"], xt)
-    aux = load_balance_loss(logits, idx, E, m.top_k)
+    aux = load_balance_loss(r.logits, r.idx, E, m.top_k)
     return y.reshape(B, S, d), aux
 
 
-def moe_apply_auto(params, x, cfg, mesh: tuple[int, int] | None = None):
-    """The MoE FFN as the reference's launcher would pick it. ``mesh`` is
-    (data axis size, model axis size) of the devices the layer spreads
-    over; with none (one card) the sparse dispatch runs. A mesh picks the
-    expert-parallel path where the model axis divides the experts and the
-    tensor-parallel path where it does not, each when the tokens split
-    evenly over it (else the sparse dispatch, as in the reference); both
-    wait for later slices."""
-    if mesh is not None:
-        n_data, n_model = mesh
+#: the fixed exchange strategies of ``moe_apply_ep`` (``rules.moe_collectives``)
+EP_MODES = ("xla", "dragonfly", "dragonfly_overlap", "dragonfly_overlap_fused")
+
+#: Where ``moe_apply_ep`` adds each call's part times while ``timing_parts``
+#: is open.
+_PARTS: dict | None = None
+
+
+@contextlib.contextmanager
+def timing_parts():
+    """Time the parts of every ``moe_apply_ep`` call made inside the block,
+    summed over calls: ``exchange_ms``, the host ms of the dispatch and
+    combine exchanges with their carrier copies (the device synchronised
+    at each end; in the fused mode the round trip less its expert FFN),
+    ``experts_ms``, the expert FFN's ms (CUDA events on the card, the host
+    clock on the CPU), and ``gather_ms``, the host ms of the output
+    all-gather. Synchronising changes the run: time other calls without it."""
+    global _PARTS
+    outer, _PARTS = _PARTS, {"calls": 0, "exchange_ms": 0.0, "experts_ms": 0.0,
+                             "gather_ms": 0.0}
+    try:
+        yield _PARTS
+    finally:
+        _PARTS = outer
+
+
+class _Timer:
+    """Host ms of a block with the device synchronised at both ends, or the
+    device ms between two CUDA events (``events=True`` on the card)."""
+
+    def __init__(self, device: torch.device, events: bool = False):
+        self.device, self.ms = device, 0.0
+        self.events = events and device.type == "cuda"
+
+    def __enter__(self):
+        if _PARTS is not None:
+            if self.events:
+                self.start = torch.cuda.Event(enable_timing=True)
+                self.start.record()
+            else:
+                self._sync()
+                self.t0 = time.perf_counter()
+        return self
+
+    def __exit__(self, *exc):
+        if _PARTS is not None:
+            if self.events:
+                stop = torch.cuda.Event(enable_timing=True)
+                stop.record()
+                stop.synchronize()
+                self.ms += self.start.elapsed_time(stop)
+            else:
+                self._sync()
+                self.ms += (time.perf_counter() - self.t0) * 1e3
+
+    def _sync(self):
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+
+
+def ep_capacity(cfg, tokens: int) -> int:
+    """Slots per expert of one token shard of ``tokens`` tokens on the
+    expert-parallel path: at least 8, rounded up to a multiple of 8."""
+    m = cfg.moe
+    C = max(8, int(m.capacity_factor * tokens * m.top_k / m.num_experts))
+    return -(-C // 8) * 8
+
+
+def _combine(back, r: _Routes, T: int) -> torch.Tensor:
+    """(T, d) from the returned (E, C, d) buffer, accumulated in its dtype
+    with each gate cast to it, as the reference's ``out.at[src].add``."""
+    g = back[r.flat_e, r.at]
+    out = torch.zeros((T, back.shape[-1]), dtype=back.dtype, device=back.device)
+    out.index_add_(0, r.src, torch.where(r.keep[:, None],
+                                         g * r.w.reshape(-1)[:, None].to(g.dtype), 0))
+    return out
+
+
+def _check_ep_mode(mode: str) -> None:
+    if mode == "auto":
+        raise NotImplementedError(
+            "moe_collectives='auto' needs the autotuner (runtime/autotune.py), which is not "
+            "ported yet: ROADMAP Queue 1 item 3")
+    if mode not in EP_MODES:
+        raise ValueError(f"unknown moe_collectives {mode!r}; expected one of {EP_MODES}")
+
+
+#: the dim of each expert stack that the TP-experts rule shards
+EXPERT_FF_DIM = {"w_in": 2, "w_gate": 2, "w_out": 1}
+
+
+def local_experts(params, rules, coords, sizes):
+    """A MoE layer's parameters with ``w_in``, ``w_gate`` and ``w_out`` cut,
+    as views, to the rows ``rules.expert`` gives the rank at ``coords`` of
+    a mesh of ``sizes``; the router and the shared expert as given."""
+    E = params["router"].shape[1]
+    return {key: w[SH.local_slices(rules.expert(w.shape, EXPERT_FF_DIM[key], E), w.shape,
+                                   coords, sizes)] if key in EXPERT_FF_DIM else w
+            for key, w in params.items()}
+
+
+def moe_apply_ep(params, x, cfg):
+    """Expert-parallel MoE on one rank of the active mesh: the dispatch and
+    combine are explicit all-to-alls over the model axis, the §3 boundary.
+
+    The per-rank form of the reference's ``shard_map``: ``x`` (B, S, d) is
+    this rank's data shard, the same on every rank of its model group. The
+    rank routes its T_loc = B·S/n_model contiguous tokens (its model
+    coordinate's block, data-major as ``PS((data, model))`` gives), sends
+    an (n_model, E_loc, C_loc, d) buffer to the experts' owners, runs its
+    own E_loc experts on the (E_loc, n_model·C_loc, d) arrivals, returns
+    the outputs, combines them, and all-gathers the tokens over its model
+    group. Returns (y (B, S, d), aux): aux is the mean of every rank's
+    load-balance loss, the reference's ``pmean``. Expert weights come
+    whole (E, ...) or cut to this rank's (E_loc, ...) by ``rules.expert``.
+    The shared expert, if any, runs on the data shard outside the exchange.
+
+    Exchanges travel on the mesh's carrier device (the host for gloo, the
+    card for NCCL), moved there and back explicitly and counted by the
+    mesh; the expert products run on the rank's device. In the fused mode
+    the compute takes each wave's arrivals to the device once."""
+    from repro_torch.dist.collectives import (dragonfly_all_to_all,
+                                              dragonfly_all_to_all_compute, native_all_to_all)
+    from repro_torch.dist.mesh import dragonfly_layout
+    from repro_torch.runtime.backends.torch_dist import TorchDistBackend
+
+    act = SH.active()
+    if act is None:
+        raise RuntimeError("moe_apply_ep needs active sharding rules: dist.sharding.set_active")
+    rules, mesh = act
+    mode = rules.moe_collectives
+    _check_ep_mode(mode)
+    m = cfg.moe
+    E, n_model = m.num_experts, rules.model_axis_size
+    E_loc = E // n_model
+    B, S, d = x.shape
+    if E % n_model or (B * S) % n_model:
+        raise ValueError(f"{E} experts and {B * S} tokens must split over {n_model} model ranks")
+    T_loc = B * S // n_model
+    mc = mesh.coords[rules.tensor_axis]
+    xs = x.reshape(B * S, d)
+    xt = xs[mc * T_loc:(mc + 1) * T_loc]
+    held = params["w_in"].shape[0]
+    if held == E and E_loc != E:
+        experts = local_experts(params, rules, mesh.coords, mesh.sizes)
+    elif held == E_loc:
+        experts = params
+    else:
+        raise ValueError(f"the expert stacks hold {held} experts: expected all {E} or this "
+                         f"rank's {E_loc}")
+    C = ep_capacity(cfg, T_loc)
+    group = mesh.group(rules.tensor_axis)
+    layout = dragonfly_layout(n_model)
+    with record_function("moe.dispatch"):
+        r = _route(xt, params["router"], cfg, C)
+        if _ROUTES is not None:
+            _ROUTES.append((r.idx.detach(), r.keep.detach(), r.logits.detach()))
+        buf = _dispatch(xt, r, E, C).reshape(n_model, E_loc, C, d)
+    ffn = _Timer(x.device, events=True)
+    exchange = _Timer(x.device)
+    if mode == "dragonfly_overlap_fused":
+        def expert_chunk(chunks):
+            # one wave's (V, E_loc, C, d) arrivals, on the carrier: to the
+            # device once, the same gated FFN, and back
+            h = mesh.from_carrier(chunks)
+            V = h.shape[0]
+            with ffn, record_function("moe.experts"):
+                y = _expert_ffn(experts, h.transpose(0, 1).reshape(E_loc, V * C, d))
+            return mesh.to_carrier(y.reshape(E_loc, V, C, d).transpose(0, 1))
+
+        with exchange, record_function("moe.exchange"):
+            back = mesh.from_carrier(dragonfly_all_to_all_compute(
+                mesh.to_carrier(buf), group, layout, expert_chunk,
+                backend=TorchDistBackend(overlap_fused=True)))
+        exchange.ms -= ffn.ms
+    else:
+        if mode == "xla":
+            def a2a(t):
+                return native_all_to_all(t, group)
+        else:
+            be = TorchDistBackend(overlap=mode == "dragonfly_overlap")
+
+            def a2a(t):
+                return dragonfly_all_to_all(t, group, layout, backend=be)
+
+        with exchange, record_function("moe.exchange"):
+            recv = mesh.from_carrier(a2a(mesh.to_carrier(buf)))
+        with ffn, record_function("moe.experts"):
+            h = recv.transpose(0, 1).reshape(E_loc, n_model * C, d)
+            y = _expert_ffn(experts, h).reshape(E_loc, n_model, C, d).transpose(0, 1)
+        with exchange, record_function("moe.exchange"):
+            back = mesh.from_carrier(a2a(mesh.to_carrier(y.contiguous())))
+    with record_function("moe.combine"):
+        out = _combine(back.reshape(E, C, d), r, T_loc)
+        aux = load_balance_loss(r.logits, r.idx, E, m.top_k)
+    gather = _Timer(x.device)
+    with gather, record_function("moe.gather"):
+        part = mesh.to_carrier(out)
+        outs = [torch.empty_like(part) for _ in range(n_model)]
+        dist.all_gather(outs, part, group=group)
+        y = mesh.from_carrier(torch.cat(outs))
+        total = mesh.to_carrier(aux.reshape(1)).clone()
+        dist.all_reduce(total)  # over the whole mesh: every token shard
+    if _PARTS is not None:
+        _PARTS["calls"] += 1
+        _PARTS["exchange_ms"] += exchange.ms
+        _PARTS["experts_ms"] += ffn.ms
+        _PARTS["gather_ms"] += gather.ms
+    aux = mesh.from_carrier(total)[0] / math.prod(mesh.shape)
+    if "shared" in params:
+        y = y + L.mlp_apply(params["shared"], xs)
+    return y.reshape(B, S, d), aux
+
+
+def moe_apply_ep_plain(params, x, cfg, n_data: int, n_model: int):
+    """The expert-parallel layer in one process, for checks: ``x`` is the
+    whole (B, S, d) batch and the weights whole. Each of the
+    n_data·n_model token shards routes with its own C_loc; each data
+    group's shards meet at the experts as (E, n_model·C_loc, d), as the
+    ranks' arrivals do; the combine runs in the activation dtype; aux is
+    the mean of the per-shard losses. Nothing on the main path calls it."""
+    m = cfg.moe
+    E = m.num_experts
+    B, S, d = x.shape
+    n = n_data * n_model
+    if E % n_model or (B * S) % n:
+        raise ValueError(f"{E} experts and {B * S} tokens must split over a "
+                         f"({n_data}, {n_model}) mesh")
+    T_loc = B * S // n
+    C = ep_capacity(cfg, T_loc)
+    xt = x.reshape(B * S, d)
+    shards = [xt[i * T_loc:(i + 1) * T_loc] for i in range(n)]
+    routes = [_route(s, params["router"], cfg, C) for s in shards]
+    if _ROUTES is not None:
+        _ROUTES.append(tuple(torch.cat([getattr(r, key).detach() for r in routes])
+                             for key in ("idx", "keep", "logits")))
+    bufs = torch.stack([_dispatch(s, r, E, C) for s, r in zip(shards, routes)])
+    h = bufs.reshape(n_data, n_model, E, C, d).transpose(1, 2).reshape(n_data, E, n_model * C, d)
+    y = torch.stack([_expert_ffn(params, h[g]) for g in range(n_data)])
+    y = y.reshape(n_data, E, n_model, C, d).transpose(1, 2).reshape(n, E, C, d)
+    out = torch.cat([_combine(y[i], r, T_loc) for i, r in enumerate(routes)])
+    aux = torch.stack([load_balance_loss(r.logits, r.idx, E, m.top_k) for r in routes]).mean()
+    if "shared" in params:
+        out = out + L.mlp_apply(params["shared"], xt)
+    return out.reshape(B, S, d), aux
+
+
+def moe_apply_auto(params, x, cfg):
+    """The MoE FFN as the reference's launcher would pick it. With sharding
+    rules active (``dist.sharding.set_active``) ``x`` is this rank's data
+    shard: the expert-parallel path runs where the model axis divides the
+    experts and the shard's tokens, and the tensor-parallel path, which
+    waits for a later slice, would run where it does not divide the
+    experts. Otherwise, and with no rules active (one card), the sparse
+    dispatch runs, on the rank's data shard: with one data shard that is
+    the reference's sparse path under rules; with more, its capacity
+    counts only the shard's tokens."""
+    act = SH.active()
+    if act is not None:
+        rules = act[0]
         T = x.shape[0] * x.shape[1]
-        if cfg.moe.num_experts % n_model == 0:
-            if T % (n_model * n_data) == 0:
-                raise NotImplementedError(
-                    "the expert-parallel MoE (EP, models/moe.py: moe_apply_ep) is not ported "
-                    "yet: ROADMAP Queue 1 item 1")
-        elif T % n_data == 0:
+        if rules.expert_parallel(cfg.moe.num_experts):
+            if T % rules.model_axis_size == 0:
+                return moe_apply_ep(params, x, cfg)
+        else:
             raise NotImplementedError(
                 "the tensor-parallel MoE (TP, models/moe.py: moe_apply_tp) is not ported "
-                "yet: ROADMAP Queue 1 item 2")
+                "yet: ROADMAP Queue 1 item 1")
     return moe_apply_sparse(params, x, cfg)

@@ -7,8 +7,9 @@ scans them with ``lax.scan`` under ``jax.checkpoint``; here the stack is a
 list with one parameter dict per layer, in the JAX stack's order (group g,
 member mi is layer g·period + mi), walked by a Python loop. There is no
 remat: nothing runs backward yet. A ``moe`` FFN takes
-``moe.moe_apply_auto`` with no mesh, the sparse dispatch of one card; its
-load-balance loss is summed over the stack in train form and dropped in
+``moe.moe_apply_auto``: the sparse dispatch of one card, or, with sharding
+rules active (``dist.sharding.set_active``), the expert-parallel path on
+this rank's data shard; its load-balance loss is summed over the stack in train form and dropped in
 decode form, as in the JAX package. ``mamba``, ``mlstm`` and ``slstm``
 members raise ``NotImplementedError``, and so does MLA (``models.model``
 refuses its configs).
@@ -32,7 +33,7 @@ _WAITING = {
 
 def _check_kinds(mixer: str, ffn: str) -> None:
     if mixer in _WAITING:
-        raise NotImplementedError(f"{_WAITING[mixer]} is not ported yet: ROADMAP Queue 1 item 5")
+        raise NotImplementedError(f"{_WAITING[mixer]} is not ported yet: ROADMAP Queue 1 item 4")
     if mixer != "attn" or ffn not in ("mlp", "moe", "none"):
         raise ValueError(f"unknown layer kind ({mixer}, {ffn})")
 

@@ -326,11 +326,13 @@ class TorchDistBackend:
         sends to rank j; returns (n, n, ...) with out[i, j] = x_global[j, i]
         moved by the paper's round schedule, on every rank. An
         ``OptimizedProgram`` takes the fused table replay on the global
-        array (barrier order; the wave-ordered fused replay of
-        ``overlap_fused`` is not ported yet, and gives the same bits)."""
+        array: wave by wave (``optimize.torch_alltoall_overlapped``) with
+        ``overlap_fused``, else in one scatter; both give the same bits."""
         x = torch.as_tensor(x_global)
         if isinstance(program, _opt.OptimizedProgram):
             _check_kind(program.program, "alltoall")
+            if self.overlap_fused:
+                return _opt.torch_alltoall_overlapped(program, x.device)(x)
             return _opt.torch_alltoall(program, x.device)(x)
         r = dist.get_rank(group)
         return self._gather(self.alltoall(x[r], group, program), group)

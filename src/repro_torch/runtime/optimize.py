@@ -464,6 +464,78 @@ def torch_alltoall(opt: OptimizedProgram, device: torch.device):
 
 
 @functools.lru_cache(maxsize=None)
+def exchange_waves(opt: OptimizedProgram) -> tuple[tuple[int, np.ndarray, np.ndarray], ...]:
+    """The fused §3 exchange table sliced per launch wave: one
+    ``(start_step, src, dst)`` triple per distinct ``FusedExchange.starts``
+    value, in launch order. A table without stamps is a single wave; the
+    barrier schedule's lowering stamps each round apart, one wave a round;
+    a ``pipelined_schedule`` program yields one slice per Schedule-1..3
+    launch stamp (``core.alltoall.round_starts``), the launch
+    order of ``torch_alltoall_overlapped`` and of ``torch_dist``'s
+    ``overlap_fused`` replays. Stamps are per stage, so a stage's pairs
+    always land in one wave."""
+    (op,) = opt.ops
+    starts = (op.starts if op.starts is not None
+              else np.zeros(len(op.src), np.int32))
+    out = []
+    for s in np.unique(starts):
+        sel = starts == s
+        out.append((int(s), op.src[sel].copy(), op.dst[sel].copy()))
+    return tuple(out)
+
+
+def _wave_tables(opt: OptimizedProgram) -> tuple[np.ndarray, np.ndarray]:
+    """(W, V) src/dst tables, one row per wave, narrow waves padded by
+    REPEATING their own pairs from the first on (``np.resize``), never by
+    masking: a repeated (src, dst) writes the same value to the same slot,
+    so padding cannot perturb results (no masked adds that would rewrite
+    -0.0)."""
+    waves = exchange_waves(opt)
+    v = max(len(s) for _, s, _ in waves)
+    src = np.stack([np.resize(s, v) for _, s, _ in waves]).astype(np.int32)
+    dst = np.stack([np.resize(d, v) for _, _, d in waves]).astype(np.int32)
+    return src, dst
+
+
+def replay_alltoall_overlapped(x: torch.Tensor, src: torch.Tensor, dst: torch.Tensor,
+                               compute=None) -> torch.Tensor:
+    """Wave-by-wave replay of the fused exchange over (W, V) tables with a
+    double buffer: wave w's rows are pending while wave w-1's already
+    arrived chunks commit, and the last pending wave drains after the loop.
+    Without ``compute``: ``out[dst, src] = x[src, dst]``. With it, the
+    round trip ``out[src, dst] = compute(x[src, dst], dst)``."""
+    def commit(out, psrc, pdst):
+        psrc, pdst = psrc.long(), pdst.long()
+        if compute is None:
+            out[pdst, psrc] = x[psrc, pdst]
+        else:
+            out[psrc, pdst] = compute(x[psrc, pdst], pdst).to(out.dtype)
+        return out
+
+    out, pending = torch.zeros_like(x), None
+    for w in range(src.shape[0]):
+        if pending is not None:  # wave w rides as pending; wave w-1 commits
+            out = commit(out, *pending)
+        pending = (src[w], dst[w])
+    return commit(out, *pending)  # drain the last pending wave
+
+
+@functools.lru_cache(maxsize=None)
+def torch_alltoall_overlapped(opt: OptimizedProgram, device: torch.device, compute=None):
+    """The wave-ordered replay of ``opt``'s exchange on ``device``, the
+    counterpart of the JAX package's ``jax_alltoall_overlapped``. Without
+    ``compute`` it is the one-way exchange, bit-identical to
+    ``torch_alltoall``. With it, the dispatch -> process -> combine round
+    trip: ``compute(chunks, dst_ids)`` takes one wave's stacked (V, ...)
+    chunks and their (V,) destination ids and returns the processed
+    (V, ...) stack."""
+    src, dst = _wave_tables(opt)
+    t = to_device_tables({"src": src, "dst": dst}, device)
+    return functools.partial(replay_alltoall_overlapped, src=t["src"], dst=t["dst"],
+                             compute=compute)
+
+
+@functools.lru_cache(maxsize=None)
 def torch_allreduce(opt: OptimizedProgram, device: torch.device):
     t = to_device_tables(allreduce_tables(opt), device)
     return functools.partial(replay_allreduce, gather=t["gather"], mask=t["mask"])

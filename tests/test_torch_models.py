@@ -24,6 +24,8 @@ from repro.models import layers as JL
 from repro.models import model as JM
 
 from repro_torch.configs import ARCH_IDS, get_config, get_smoke_config
+from repro_torch.dist import sharding as SH
+from repro_torch.launch.mesh import ProcessMesh
 from repro_torch.models import layers as TL
 from repro_torch.models import model as TM
 from repro_torch.models.convert import params_from_jax
@@ -224,18 +226,28 @@ def _init(arch):
     return lambda: TM.init_params(0, get_smoke_config(arch), device="cpu")
 
 
-def _moe_on_mesh(mesh):
-    """Mixtral smoke's MoE layer on 16 tokens, spread over a (data, model)
-    mesh: (1, 4) divides its 4 experts (EP), (2, 3) does not (TP)."""
+def _moe_under_rules(shape, mode="xla"):
+    """Mixtral smoke's MoE layer on 16 tokens of a rank under active rules
+    on a (data, model) mesh of ``shape``: (1, 4) divides its 4 experts (EP,
+    here with the autotuner's ``auto`` mode), (2, 3) does not (TP). Both
+    refuse before any process group is used."""
     cfg = get_smoke_config("mixtral-8x7b")
-    return lambda: moe_apply_auto({}, torch.zeros(2, 8, cfg.d_model), cfg, mesh=mesh)
+
+    def call():
+        SH.set_active(SH.ShardRules(moe_collectives=mode), ProcessMesh(("data", "model"), shape))
+        try:
+            return moe_apply_auto({}, torch.zeros(2, 8, cfg.d_model), cfg)
+        finally:
+            SH.clear_active()
+    return call
 
 
 @pytest.mark.parametrize("call,what", [
-    (_moe_on_mesh((1, 4)), "expert-parallel"), (_moe_on_mesh((2, 3)), "tensor-parallel"),
+    (_moe_under_rules((1, 4), "auto"), "autotuner"),
+    (_moe_under_rules((2, 3)), "tensor-parallel"),
     (_init("jamba-1.5-large-398b"), "Mamba"), (_init("xlstm-1.3b"), "LSTM"),
     (_init("deepseek-v3-671b"), "ROADMAP")],
-    ids=["moe-ep-expert-parallel", "moe-tp-tensor-parallel", "jamba-1.5-large-398b-Mamba",
+    ids=["moe-ep-auto-autotuner", "moe-tp-tensor-parallel", "jamba-1.5-large-398b-Mamba",
          "xlstm-1.3b-LSTM", "deepseek-v3-671b-ROADMAP"])
 def test_unported_members_name_the_roadmap(call, what):
     with pytest.raises(NotImplementedError, match=what) as err:

@@ -26,6 +26,8 @@ from repro.models import model as JM
 from repro.models import moe as JMOE
 
 from repro_torch.configs import get_smoke_config
+from repro_torch.dist import sharding as SH
+from repro_torch.launch.mesh import ProcessMesh
 from repro_torch.models import model as TM
 from repro_torch.models import moe as TMOE
 from repro_torch.models.convert import params_from_jax
@@ -166,8 +168,15 @@ def test_auto_takes_the_sparse_dispatch_on_one_card():
     jy, jaux = JMOE.moe_apply_auto(jp, jx, jcfg)
     close(ty, jy, LAYER_TOL)
     close(taux, jaux, LAYER_TOL)
-    # a mesh whose token split is uneven falls back to the sparse dispatch too
-    assert torch.equal(TMOE.moe_apply_auto(tp, tx, tcfg, mesh=(3, 4))[0], sy)
+    # under rules whose token split is uneven (126 tokens of the rank's data
+    # shard over a model axis of 4) the shard takes the sparse dispatch too
+    SH.set_active(SH.ShardRules(), ProcessMesh(("data", "model"), (3, 4)))
+    try:
+        odd = tx[:, :63]
+        assert torch.equal(TMOE.moe_apply_auto(tp, odd, tcfg)[0],
+                           TMOE.moe_apply_sparse(tp, odd, tcfg)[0])
+    finally:
+        SH.clear_active()
 
 
 # ------------------------------------------------------------- whole model

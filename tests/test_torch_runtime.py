@@ -10,6 +10,8 @@ tables through ``to_device_tables``, so an execution drift fails here even
 where the derivation (``test_torch_core.py``) agrees.
 """
 
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -426,3 +428,156 @@ def test_combine_rows_acc_bit_exact_with_pallas_combine_fn(monkeypatch, grid, dt
         assert torch.equal(got.view(torch.int16 if dtype == "bfloat16" else torch.int32),
                            want.view(torch.int16 if dtype == "bfloat16" else torch.int32))
         assert bool(torch.isfinite(got.float()).all())  # nothing planted leaked
+
+
+# ------------------------------------------- the wave-ordered fused replay
+def _a2a_programs(offset, km=(2, 2)):
+    """(JAX, port) fused §3 programs on D3(km): pipelined with ``offset``,
+    or the barrier schedule for offset 0."""
+    from repro.core import alltoall as j_a2a
+    from repro.runtime import lowering as j_low
+    from repro_torch.core import alltoall as t_a2a
+    from repro_torch.runtime import lowering as t_low
+
+    out = []
+    for a2a, low, opt, layout in ((j_a2a, j_low, j_opt, JLayout(JD3(*km))),
+                                  (t_a2a, t_low, t_opt, TLayout(TD3(*km)))):
+        p = layout.da_params
+        sched = (a2a.pipelined_schedule(p, offset, layout.topo) if offset
+                 else a2a.schedule(p, layout.topo))
+        out.append(opt.optimize(low.lower(sched)))
+    return tuple(out)
+
+
+@pytest.mark.parametrize("offset", [1, 2, 3])
+def test_exchange_waves_match_the_jax_packages(offset):
+    """The same (start, src, dst) waves and padded (W, V) tables; each wave
+    holds its rounds' s·n pairs, in launch order."""
+    from repro_torch.core import alltoall as t_a2a
+
+    jo, to = _a2a_programs(offset)
+    jw, tw = j_opt.exchange_waves(jo), t_opt.exchange_waves(to)
+    assert len(jw) == len(tw)
+    for (js, jsrc, jdst), (ts, tsrc, tdst) in zip(jw, tw):
+        assert js == ts
+        np.testing.assert_array_equal(tsrc, jsrc)
+        np.testing.assert_array_equal(tdst, jdst)
+    for j, t in zip(j_opt._wave_tables(jo), t_opt._wave_tables(to)):
+        np.testing.assert_array_equal(t, j)
+    p = TLayout(TD3(2, 2)).da_params
+    for (_, src, _), rids in zip(tw, t_a2a.wave_rounds(p, offset)):
+        assert len(src) == len(rids) * p.s * to.n
+    assert [w[0] for w in tw] == sorted({w[0] for w in tw})
+
+
+@pytest.mark.parametrize("offset", [0, 1, 2, 3], ids=["barrier", "1", "2", "3"])
+def test_overlapped_replay_bit_exact(offset):
+    """Without a compute: the JAX package's ``jax_alltoall_overlapped``,
+    the port's one-scatter ``torch_alltoall`` and the NumPy replay, bit for
+    bit, on pipelined programs and on the barrier schedule."""
+    jo, to = _a2a_programs(offset)
+    x = np.random.default_rng(offset).standard_normal((8, 8, 3)).astype(np.float32)
+    got = t_opt.torch_alltoall_overlapped(to, torch.device("cpu"))(torch.from_numpy(x))
+    assert_bits(got.numpy(), np.asarray(j_opt.jax_alltoall_overlapped(jo)(jnp.asarray(x))))
+    assert_bits(got.numpy(), t_opt.torch_alltoall(to, torch.device("cpu"))(torch.from_numpy(x)).numpy())
+    assert_bits(got.numpy(), t_opt.np_alltoall(x.copy(), to))
+
+
+@pytest.mark.parametrize("offset", [1, 3])
+def test_overlapped_replay_with_compute_round_trip(offset):
+    """out[s, d] = compute_d(x[s, d]) with a multiply keyed by the
+    destination: the JAX package's bits and x · scale[d]."""
+    jo, to = _a2a_programs(offset)
+    x = np.random.default_rng(2).standard_normal((8, 8, 3)).astype(np.float32)
+    scale = np.arange(8, dtype=np.float32) + 1.0
+    j_scale, t_scale = jnp.asarray(scale), torch.from_numpy(scale)
+    want = j_opt.jax_alltoall_overlapped(
+        jo, lambda chunks, dst: chunks * j_scale[dst][:, None])(jnp.asarray(x))
+    got = t_opt.torch_alltoall_overlapped(
+        to, torch.device("cpu"), lambda chunks, dst: chunks * t_scale[dst][:, None])(
+        torch.from_numpy(x))
+    assert_bits(got.numpy(), np.asarray(want))
+    assert_bits(got.numpy(), x * scale[None, :, None])
+
+
+def test_overlapped_replay_emulated_guest():
+    """Guest D3(2,2) pipelined program embedded on a D3(4,2) host: the JAX
+    package's bits; idle devices stay zero."""
+    from repro.core.emulation import embed as j_embed
+    from repro.core import alltoall as j_a2a
+    from repro.runtime import lowering as j_low
+    from repro.runtime.rewrite import emulate as j_emulate
+    from repro_torch.core.emulation import embed as t_embed
+    from repro_torch.core import alltoall as t_a2a
+    from repro_torch.runtime import lowering as t_low
+    from repro_torch.runtime.rewrite import emulate as t_emulate
+
+    progs = []
+    for D3, Layout, embed, a2a, low, emulate, opt in (
+            (JD3, JLayout, j_embed, j_a2a, j_low, j_emulate, j_opt),
+            (TD3, TLayout, t_embed, t_a2a, t_low, t_emulate, t_opt)):
+        guest = Layout(D3(2, 2))
+        emb = embed(D3(4, 2), 2, 2, c_set=(1, 3), p_set=(0, 1))
+        progs.append(opt.optimize(emulate(low.lower(
+            a2a.pipelined_schedule(guest.da_params, 1, guest.topo)), emb)))
+    jo, to = progs
+    n, act = to.n, np.asarray(to.program.active_devices)
+    x = np.zeros((n, n, 3), np.float32)
+    x[np.ix_(act, act)] = np.random.default_rng(7).standard_normal(
+        (len(act), len(act), 3)).astype(np.float32)
+    got = t_opt.torch_alltoall_overlapped(to, torch.device("cpu"))(torch.from_numpy(x)).numpy()
+    assert_bits(got, np.asarray(j_opt.jax_alltoall_overlapped(jo)(jnp.asarray(x))))
+    assert_bits(got, TREF.run_alltoall(x.copy(), to.program))
+    idle = np.setdiff1d(np.arange(n), act)
+    assert not got[idle].any() and not got[:, idle].any()
+
+
+@pytest.mark.parametrize("compute", [False, True], ids=["exchange", "round_trip"])
+def test_overlapped_replay_keeps_minus_zero_in_a_padded_wave(compute):
+    """The native waves are all one width, so the pipelined tables are
+    re-stamped to make wave 0 narrow (half its pairs moved to wave 1):
+    the narrow wave is padded by repeating its own pairs (``np.resize``,
+    its first pair among them), never by masking, and a -0.0 planted in
+    the first pair's chunk survives in both packages."""
+    jo, to = _a2a_programs(1)
+    progs = []
+    for opt, o in ((j_opt, jo), (t_opt, to)):
+        (op,) = o.ops
+        starts = op.starts.copy()
+        first = np.flatnonzero(starts == starts.min())
+        starts[first[len(first) // 2:]] = np.unique(starts)[1]
+        progs.append(dataclasses.replace(
+            o, ops=(dataclasses.replace(op, starts=starts),)))
+    jo, to = progs
+    src, dst = t_opt._wave_tables(to)
+    width = len(t_opt.exchange_waves(to)[0][1])
+    assert width < src.shape[1]  # wave 0 is padded...
+    np.testing.assert_array_equal(src[0, width:], np.resize(src[0, :width], src.shape[1] - width))
+    np.testing.assert_array_equal(dst[0, width:], np.resize(dst[0, :width], src.shape[1] - width))
+    x = np.random.default_rng(3).standard_normal((8, 8, 3)).astype(np.float32)
+    x[src[0, 0], dst[0, 0]] = -0.0  # ...by repeating this pair
+    scale = np.arange(8, dtype=np.float32) + 1.0
+    j_fn = (lambda c, d: c * jnp.asarray(scale)[d][:, None]) if compute else None
+    t_fn = (lambda c, d: c * torch.from_numpy(scale)[d][:, None]) if compute else None
+    got = t_opt.torch_alltoall_overlapped(to, torch.device("cpu"), t_fn)(
+        torch.from_numpy(x)).numpy()
+    assert_bits(got, np.asarray(j_opt.jax_alltoall_overlapped(jo, j_fn)(jnp.asarray(x))))
+    assert_bits(got, x * scale[None, :, None] if compute else x.transpose(1, 0, 2))
+    at = (src[0, 0], dst[0, 0]) if compute else (dst[0, 0], src[0, 0])
+    assert np.signbit(got[at]).all() and not got[at].any()
+
+
+@pytest.mark.parametrize("overlap_fused", [False, True])
+def test_torch_dist_run_alltoall_on_a_fused_program(overlap_fused):
+    """``TorchDistBackend.run_alltoall`` replays an ``OptimizedProgram`` on
+    the global array with no group: wave by wave under ``overlap_fused``,
+    in one scatter otherwise, the same bits as the JAX package's
+    ``jax_ppermute`` wrapper."""
+    from repro.runtime.backends.jax_ppermute import JaxPpermuteBackend
+    from repro_torch.runtime.backends.torch_dist import TorchDistBackend
+
+    jo, to = _a2a_programs(1)
+    x = np.random.default_rng(4).standard_normal((8, 8, 5)).astype(np.float32)
+    got = TorchDistBackend(overlap_fused=overlap_fused).run_alltoall(torch.from_numpy(x), to)
+    want = JaxPpermuteBackend(overlap_fused=overlap_fused).run_alltoall(jnp.asarray(x), jo)
+    assert_bits(got.numpy(), np.asarray(want))
