@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the port's collective runtime, dense and MoE model paths and
+"""Drive the port's collective runtime, dense and MoE model paths (one
+card, expert- and tensor-parallel), the multi-tenant fleet and the
 per-shard path on one NVIDIA card, end to end.
 
     python3 chip_smoke.py
@@ -119,7 +120,56 @@ per-shard path on one NVIDIA card, end to end.
    ``torch_alltoall_overlapped`` of the all-to-all cell's input on the
    pipelined D3(4,4) program, bit for bit against ``torch_alltoall``,
    both timed;
-13. runs the per-shard §4 all-reduce: 8 processes share the card in one
+13. runs the same Mixtral-8x7B weights under tensor parallelism: 16
+   processes share the card on a (data 1, model 16) mesh, the production
+   model axis, where 8 experts do not split and ``moe_apply_auto`` takes
+   TP (gloo, the host as the all-reduce's carrier); the EP phase's
+   weights are shared again by CUDA IPC, each rank taking its ff slice of
+   every expert (896 of 14336) as a view, a checksum before and after.
+   0) gloo sums in an order of its own, so the ranks first run 9
+   all-reduces of known normals of the partials' shape (8, 2560, 4096)
+   bf16 over the model group; the order of each element is read off the
+   first 8 (``models.moe.ObservedSumOrder``) and must give the 9th's bits.
+   a) layer 0's MoE on step 12's hidden states (1, 8192, 4096): C_loc
+   2560, a (8, 2560, 4096) bf16 buffer and a 168 MB all-reduce a rank a
+   call, held bit for bit against the one-process ``moe_apply_tp_plain``
+   summing the 16 bf16 partial outputs in that order (a planted fault,
+   the psum in float32, must not give the bits; rank order's distance is
+   printed), every rank's output the same bits, the aux equal, the
+   routes and drops equal to the plain version's and to
+   ``moe_apply_sparse``'s (whose capacity is also 2560), the plain
+   version within K4's relative rms (1e-2) of the unsplit sparse layer,
+   and ``torch.bmm`` on a rank's strided ff slice copying no expert
+   stack; the wall ms of a call of all ranks (median of 3 after a
+   warm-up), the all-reduce and expert-FFN ms, the carrier's copies and
+   bytes and the peak a rank. b) ``forward_train`` with K4 on tokens
+   (1, 8192), exactly 8 ``wgmma`` launches a rank, held bit for bit
+   against the one-process forward whose MoE layers are
+   ``moe_apply_tp_plain`` summing in gloo's order: rank 0's last-token
+   logits, the loss, and every layer's routes, drops and router logits;
+   every rank's logits the same bits; its ms, tokens/s and the
+   all-reduce's share;
+14. serves two Mixtral-8x7B tenants at full width, the depth cut to 2 of
+   32 layers each (6.3 GB of bf16 a tenant), made on the card from seeds
+   0 and 1, through ``serve.fleet.TenantFleet`` over ``torch_dist``: 8
+   processes share the card as the D3(2,2) host, each tenant a D3(1,2)
+   guest (n_guest 4, 2 experts a guest device, 2 slots, C 16), every rank
+   driving the same fleet with the tenants' weights shared by CUDA IPC
+   (each rank's expert shard a view, cast to float32 per call). Each
+   tenant gets 3 requests (prompts of 3–8 tokens, 8 new tokens each); the
+   combined arm, each tenant alone, the time-multiplexed arm and the
+   churn drill (tenant 1 evicted after 3 steps, then re-admitted). Checks
+   every tenant's tokens against its solo fleet's, the combined tokens
+   against the time-multiplexed ones, the survivor across the evict, all
+   8 ranks against each other, fewer replayed rounds combined than
+   time-multiplexed, and the first combined boundary's replay output
+   against ``guest_expert_ffn`` run per destination in one process
+   (rtol = atol = 1e-4 and relative rms 1e-4: float32 products batched
+   otherwise); then the launcher's path, the ``reference`` backend in one
+   process with the tenants on the card, serves the combined arm's
+   tokens without copying an expert to the host; prints tokens/s,
+   replays, rounds, ms a boundary and the peak a rank;
+15. runs the per-shard §4 all-reduce: 8 processes share the card in one
    gloo group (``launch.mesh.spawn``, D3(2,2)), each with a 25 MiB bucket
    from the seed plus its rank, and call
    ``CudaFusedBackend().allreduce_shard`` 5 times back to back with fresh
@@ -154,7 +204,12 @@ The cells (layout D3(K, M) has n = K·M² routers):
   all-reduce  x (6553600,) f32 per rank: the DDP bucket again;
   MoE EP      Mixtral-8x7B, 8 of 32 layers, mesh (1, 8), 8 ranks sharing
               the card: T_loc 1024 tokens a rank, C_loc 320, a dispatch
-              buffer (8, 1, 320, 4096) bf16 of 21 MB a rank each way.
+              buffer (8, 1, 320, 4096) bf16 of 21 MB a rank each way;
+  MoE TP      the same weights, mesh (1, 16), 16 ranks sharing the card:
+              T_loc 8192, C_loc 2560, a (8, 2560, 4096) bf16 buffer and a
+              168 MB all-reduce a rank; the forward on the same tokens;
+  fleet       two Mixtral-8x7B tenants of 2 layers each on D3(2,2), 8
+              ranks sharing the card, D3(1,2) guests, 3 requests a tenant.
 """
 
 from __future__ import annotations
@@ -191,6 +246,17 @@ EP_MODES = ("xla", "dragonfly", "dragonfly_overlap", "dragonfly_overlap_fused")
 EP_CALLS = 3  # timed calls of the EP layer per mode, after a warm-up
 EP_FORWARD_LAYERS = 8  # layers of the EP model forward (part b), of the 8 the weights hold
 EP_PHASE_S = 150  # the EP phase's time budget: a phase past it says so
+TP_MESH = (1, 16)  # TP phase: the production model axis; 8 experts do not split over 16
+TP_CALLS = 3  # timed calls of the TP layer, after a warm-up
+TP_FORWARD_LAYERS = 8  # layers of the TP model forward (part b)
+TP_FORWARD_TOKENS = (1, 4096)  # cut from (1, 8192), where 16 ranks ran out of the card's memory
+ORDER_CALLS = 8  # known all-reduces gloo's summation order is read off (one more is held out)
+TP_PHASE_S = 300  # the TP phase's time budget
+FLEET_HOST, FLEET_GUEST = (2, 2), (1, 2)  # D3(2,2): 8 ranks; two D3(1,2) guests of 4 devices
+FLEET_LAYERS = 2  # of Mixtral's 32, per tenant: 6.3 GB of bf16 weights each
+FLEET_SLOTS, FLEET_REQUESTS, FLEET_NEW, FLEET_MAX_SEQ = 2, 3, 8, 32
+FLEET_FFN_TOL = 1e-4  # float32 expert FFN, the replay's wave batches against one batch
+FLEET_PHASE_S = 300  # the fleet phase's time budget
 
 
 def require(cond: bool, what: str) -> None:
@@ -477,20 +543,6 @@ def ep_phase(dev, mparams, mcfg, seed):
     E_loc = mcfg.moe.num_experts // n_model
     buf_bytes = n_model * E_loc * C * mcfg.d_model * x.element_size()
 
-    def checksum():
-        """Every weight's bits summed as int16: the shared weights, unchanged."""
-        out = 0
-        stack = [mparams["embed"], mparams["final_norm"], mparams.get("unembed", {})] + \
-            mparams["stack"]
-        todo = list(stack)
-        while todo:
-            node = todo.pop()
-            if isinstance(node, dict):
-                todo.extend(node.values())
-            else:
-                out += int(node.view(torch.int16).sum(dtype=torch.int64))
-        return out
-
     # the one-process oracles: layer 0 and the forward with every MoE layer
     # as moe_apply_ep_plain (the main path's launches are counted in the ranks)
     ffn0 = mparams["stack"][0]["ffn"]
@@ -509,7 +561,7 @@ def ep_phase(dev, mparams, mcfg, seed):
     finally:
         MOE.moe_apply_auto = auto
     torch.cuda.synchronize()
-    before = checksum()
+    before = _checksum(mparams)
 
     build.build_all()  # the ranks only load the libraries
     t0 = time.perf_counter()
@@ -517,7 +569,7 @@ def ep_phase(dev, mparams, mcfg, seed):
                   args=(mparams, mcfg, x, tokens, want_y, EP_FORWARD_LAYERS))
     ranks_s = time.perf_counter() - t0
     torch.cuda.ipc_collect()  # free what the ranks released of the shared tensors
-    require(checksum() == before, "a rank wrote to the shared weights")
+    require(_checksum(mparams) == before, "a rank wrote to the shared weights")
 
     # a) the layer
     lay = [r["layer"] for r in ranks]
@@ -601,6 +653,631 @@ def ep_phase(dev, mparams, mcfg, seed):
             "model_axis_layout": "D3(2,2)", "ranks_s": ranks_s,
             "phase_s": time.perf_counter() - t_phase, "weights_unchanged": True,
             "layer": layer_rec, "forward": model_rec}, ranks_n * EP_FORWARD_LAYERS
+
+
+def tp_rank(rank, group, layout, mparams, cfg, x, tokens, layers_b, order_shapes):
+    """One rank of the TP phase, on a (1, 16) mesh of processes sharing the
+    card. ``mparams`` are the parent's weights, shared through CUDA IPC:
+    the rank takes its ff slice of every expert as a view and writes to
+    none.
+
+    0) ``ObservedSumOrder.observe``: ORDER_CALLS + 1 all-reduces of known
+       data over the model group at each shape of ``order_shapes`` (the
+       partial outputs' (E, C_loc, d) of parts a and b), so that the
+       parent can read gloo's summation order and sum its oracle in it;
+    a) layer 0's MoE alone on ``x`` through ``moe_apply_auto`` under active
+       rules (it takes TP: 8 experts do not split over 16 model ranks):
+       the first call's output and routes kept, then TP_CALLS timed calls
+       (from a barrier to the device's end), then one call under
+       ``moe.timing_parts``;
+    b) ``forward_train`` with K4 on ``tokens`` over ``layers_b`` layers, its
+       K4 launches counted and its routes kept, then ``loss_fn``, one
+       forward under ``timing_parts`` and one timed forward.
+    Returns host data: the outputs, routes and logits on rank 0 only, the
+    bits of the rest on every rank."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.dist import sharding as SH
+    from repro_torch.kernels.flash_attention.flash_attention import flash_attention
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import model as M
+    from repro_torch.models import moe as MOE
+
+    dev = x.device
+    mesh = make_mesh(TP_MESH, ("data", "model"), device=dev.type)
+    SH.set_active(SH.ShardRules(), mesh)
+    rules = SH.active()[0]
+    # this rank's ff slice of every expert: views of the shared stacks, read only
+    params = {**mparams, "stack": [
+        {**layer, "ffn": MOE.local_experts(layer["ffn"], rules, mesh.coords, mesh.sizes)}
+        for layer in mparams["stack"]]}
+    t0 = time.perf_counter()
+    orders = {shape: MOE.ObservedSumOrder.observe(mesh, "model", shape, x.dtype,
+                                                  calls=ORDER_CALLS + 1)
+              for shape in order_shapes}
+    order_s = time.perf_counter() - t0
+
+    def sync():
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+
+    def wall_ms(fn):
+        dist.barrier()
+        t0 = time.perf_counter()
+        out = fn()
+        sync()
+        return out, (time.perf_counter() - t0) * 1e3
+
+    def peak_gib():
+        return torch.cuda.max_memory_allocated(dev) / 2**30 if dev.type == "cuda" else float("nan")
+
+    def reset_peak():
+        if dev.type == "cuda":
+            torch.cuda.reset_peak_memory_stats(dev)
+
+    def bits(t):
+        return int(t.contiguous().view(torch.int16).sum(dtype=torch.int64))
+
+    def mine(t):
+        return t.cpu() if rank == 0 else None
+
+    # a) the MoE layer alone
+    ffn0 = params["stack"][0]["ffn"]
+    held = list(ffn0["w_in"].shape)
+    views = all(ffn0[k].untyped_storage().data_ptr() == mparams["stack"][0]["ffn"][k]
+                .untyped_storage().data_ptr() for k in ("w_in", "w_gate", "w_out"))
+    mesh.carrier_copies = mesh.carrier_bytes = 0
+    reset_peak()
+    with MOE.recording_routes() as routes:
+        (y, aux), first_ms = wall_ms(lambda: MOE.moe_apply_auto(ffn0, x, cfg))
+    copies = {"copies": mesh.carrier_copies, "bytes": mesh.carrier_bytes}
+    times = [wall_ms(lambda: MOE.moe_apply_auto(ffn0, x, cfg))[1] for _ in range(TP_CALLS)]
+    with MOE.timing_parts() as parts:
+        wall_ms(lambda: MOE.moe_apply_auto(ffn0, x, cfg))
+    (idx, keep, _), = routes
+    layer = {"first_ms": first_ms, "call_ms": times, "parts": dict(parts),
+             "carrier_per_call": copies, "peak_gib": peak_gib(), "held": held, "views": views,
+             "y": mine(y), "bits": bits(y), "aux": float(aux),
+             "finite": bool(torch.isfinite(y).all()),
+             "shape_ok": y.shape == x.shape and y.dtype == x.dtype,
+             "transport": mesh.transport, "carrier": str(mesh.carrier),
+             "route_idx": mine(idx), "route_keep": mine(keep)}
+    del y
+
+    # b) the model forward under TP, K4 on
+    cfg_b = dataclasses.replace(cfg, n_layers=layers_b)
+    params_b = {**params, "stack": params["stack"][:layers_b]}
+    batch = {"tokens": tokens, "labels": tokens}
+    flash_attention.launches = 0
+    flash_attention.body_launches = dict.fromkeys(flash_attention.body_launches, 0)
+    reset_peak()
+    with MOE.recording_routes() as routes:
+        (logits, aux, _), first_ms = wall_ms(lambda: M.forward_train(params_b, batch, cfg_b, True))
+    k4 = {"launches": flash_attention.launches, "bodies": dict(flash_attention.body_launches)}
+    model = {"k4": k4, "first_ms": first_ms, "aux": float(aux),
+             "finite": bool(torch.isfinite(logits).all()),
+             "last_logits": mine(logits[:, -1]), "logits_bits": bits(logits),
+             "routes": [tuple(t.cpu() for t in r) for r in routes] if rank == 0 else None}
+    del logits
+    model["loss"] = float(M.loss_fn(params_b, batch, cfg_b, True)[0])
+    with MOE.timing_parts() as parts:
+        _, parts_ms = wall_ms(lambda: M.forward_train(params_b, batch, cfg_b, True))
+    model["parts"], model["parts_wall_ms"] = dict(parts), parts_ms
+    model["ms"] = wall_ms(lambda: M.forward_train(params_b, batch, cfg_b, True))[1]
+    model["peak_gib"] = peak_gib()
+    SH.clear_active()
+    return {"layer": layer, "model": model, "order_s": order_s,
+            "orders": orders if rank == 0 else None}
+
+
+def read_order(outputs, n_model, dev):
+    """gloo's summation order read off the first ORDER_CALLS of a rank's
+    observed all-reduces (``ObservedSumOrder.read``), and whether it sums
+    the held-out last call's inputs to that call's output bit for bit."""
+    import torch
+
+    from repro_torch.models import moe as MOE
+
+    order = MOE.ObservedSumOrder.read(outputs[:ORDER_CALLS], n_model, dev)
+    last = outputs[ORDER_CALLS]
+    held_out = torch.equal(order(MOE.ObservedSumOrder.inputs(
+        ORDER_CALLS, n_model, last.shape, last.dtype, dev)).view(torch.int16),
+        last.to(dev).view(torch.int16))
+    return order, held_out
+
+
+def tp_phase(dev, mparams, mcfg, seed):
+    """The tensor-parallel path at Mixtral-8x7B's full width on 16 ranks
+    that share the card (gloo, the host as the all-reduce's carrier), the
+    production model axis, where 8 experts do not split and
+    ``moe_apply_auto`` takes TP. Reuses the EP phase's weights (shared by
+    CUDA IPC, no second copy). The ranks' layer and forward are held bit
+    for bit against the one-process ``moe_apply_tp_plain`` summing the
+    partials in gloo's order, read off known all-reduces. Returns its
+    record and K4's launches (all ranks)."""
+    import torch
+
+    from repro_torch.kernels import build
+    from repro_torch.launch.mesh import spawn
+    from repro_torch.models import model as M
+    from repro_torch.models import moe as MOE
+
+    t_phase = time.perf_counter()
+    n_data, n_model = TP_MESH
+    ranks_n = n_data * n_model
+    E, ff, d = mcfg.moe.num_experts, mcfg.moe.d_ff_expert, mcfg.d_model
+    require(E % n_model != 0, f"{E} experts split over {n_model} model ranks: EP, not TP")
+    B, S = MIXTRAL_TOKENS
+    x = torch.randn((B, S, d), generator=torch.Generator(device=dev).manual_seed(seed),
+                    device=dev).to(getattr(torch, mcfg.compute_dtype))
+    tokens = torch.randint(1, mcfg.vocab, TP_FORWARD_TOKENS, device=dev,
+                           generator=torch.Generator(device=dev).manual_seed(seed))
+    C = MOE.ep_capacity(mcfg, B * S)
+    C_b = MOE.ep_capacity(mcfg, TP_FORWARD_TOKENS[0] * TP_FORWARD_TOKENS[1])
+    order_shapes = sorted({(E, C, d), (E, C_b, d)})
+    f_loc = ff // n_model
+    buf_bytes = E * C * d * x.element_size()
+    tol = FLASH_TOL[str(x.dtype)]
+    ffn0 = mparams["stack"][0]["ffn"]
+
+    # a rank's w_gate slice is a strided view of the last dim: does bmm copy it?
+    view = ffn0["w_gate"][..., :f_loc]
+    h = torch.zeros((E, C, d), dtype=x.dtype, device=dev)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    out = torch.bmm(h, view)
+    torch.cuda.synchronize()
+    bmm_extra = torch.cuda.max_memory_allocated() - base - out.numel() * out.element_size()
+    del h, out, view
+    require(bmm_extra < f_loc * d * E * x.element_size(),
+            f"torch.bmm copied a rank's expert stack: {bmm_extra} extra bytes")
+    torch.cuda.empty_cache()
+    free_gib = torch.cuda.mem_get_info()[0] / 2**30
+    print(f"moe_tp: {free_gib:.1f} GiB free on the card before {ranks_n} ranks start", flush=True)
+    before = _checksum(mparams)
+
+    build.build_all()  # the ranks only load the libraries
+    t0 = time.perf_counter()
+    ranks = spawn(tp_rank, ranks_n, device=dev.type,
+                  args=(mparams, mcfg, x, tokens, TP_FORWARD_LAYERS, order_shapes))
+    ranks_s = time.perf_counter() - t0
+    torch.cuda.ipc_collect()
+    require(_checksum(mparams) == before, "a TP rank wrote to the shared weights")
+    orders, held_out = {}, {}
+    for shape, outputs in ranks[0]["orders"].items():
+        orders[shape], held_out[shape] = read_order(outputs, n_model, dev)
+    ranks[0]["orders"] = None
+    order_rec = {str(list(shape)): {"runs": len(o.runs), "first_runs": o.runs[:4],
+                                    "settled_share": o.unique_share,
+                                    "held_out_call_bits_equal": held_out[shape]}
+                 for shape, o in orders.items()}
+    print(f"moe_tp: gloo's order {order_rec}", flush=True)
+    require(all(held_out.values()), f"TP: the order read off {ORDER_CALLS} all-reduces does not "
+                                    f"give a held-out call's bits: {order_rec}")
+
+    def bits_equal(a, b):
+        def raw(t):
+            return t.view({2: torch.int16, 4: torch.int32}[t.element_size()]) \
+                if t.is_floating_point() else t
+        return a.shape == b.shape and a.dtype == b.dtype and torch.equal(raw(a), raw(b))
+
+    def dev_err(a, b):
+        a, b = a.float(), b.float()
+        return {"max_abs_err": float((a - b).abs().max()),
+                "rel_rms": float((a - b).norm() / b.norm()), "bits_equal": bits_equal(a, b)}
+
+    # a) the layer, against the one-process oracles
+    lay = [r["layer"] for r in ranks]
+    y = lay[0]["y"].to(dev)
+    with MOE.recording_routes() as plain_routes:
+        want_y, want_aux = MOE.moe_apply_tp_plain(ffn0, x, mcfg, n_data, n_model,
+                                                  reduce=orders[(E, C, d)])
+    rank_order_y, _ = MOE.moe_apply_tp_plain(ffn0, x, mcfg, n_data, n_model)
+    # a planted fault: the psum in float32, rounded once, in place of gloo's bf16 sum
+    f32_y, _ = MOE.moe_apply_tp_plain(
+        ffn0, x, mcfg, n_data, n_model,
+        reduce=lambda ps: torch.stack(ps).float().sum(0).to(ps[0].dtype))
+    with MOE.recording_routes() as sparse_routes:
+        sparse_y, _ = MOE.moe_apply_sparse(ffn0, x, mcfg)
+    C_sparse = MOE.capacity(mcfg, B * S)
+    (p_idx, p_keep, _), = plain_routes
+    (s_idx, s_keep, _), = sparse_routes
+    vs_sparse = dev_err(want_y, sparse_y)
+    per_call = [max(rec["call_ms"][i] for rec in lay) for i in range(TP_CALLS)]
+    layer_rec = {
+        "x": list(x.shape), "dtype": str(x.dtype), "T_loc": B * S, "C_loc": C,
+        "C_sparse": C_sparse, "dispatch_buffer": [E, C, d], "ff_slice": f_loc,
+        "buffer_mb": buf_bytes / 1e6, "call_ms": statistics.median(per_call),
+        "call_ms_each": per_call, "first_call_ms": max(rec["first_ms"] for rec in lay),
+        "median_rank_parts_ms": {key: statistics.median(rec["parts"][key] for rec in lay)
+                                 for key in ("allreduce_ms", "experts_ms")},
+        "carrier_per_call": lay[0]["carrier_per_call"],
+        "peak_gib_per_rank_max": max(rec["peak_gib"] for rec in lay),
+        "transport": lay[0]["transport"], "carrier": lay[0]["carrier"],
+        "gloo_bf16_all_reduce": True, "order_calls_s": max(r["order_s"] for r in ranks),
+        "vs_plain_gloo_order": dev_err(y, want_y),
+        "vs_plain_rank_order": dev_err(y, rank_order_y),
+        "planted_f32_psum_vs_ranks": dev_err(f32_y, y),
+        "plain_vs_sparse": vs_sparse, "tol_vs_sparse_rel_rms": tol,
+        "drops": int((~p_keep).sum()), "drops_sparse": int((~s_keep).sum()),
+        "entries": p_keep.numel(), "aux": lay[0]["aux"], "plain_aux": float(want_aux),
+        "bmm_view_extra_bytes": int(bmm_extra)}
+    emit({"run": "moe_tp layer", **layer_rec})
+    for r, rec in enumerate(lay):
+        require(rec["finite"] and rec["shape_ok"], f"TP layer, rank {r}: shape or non-finite")
+        require(rec["held"] == [E, d, f_loc] and rec["views"],
+                f"TP layer, rank {r}: holds {rec['held']} (views: {rec['views']})")
+    require(len({rec["bits"] for rec in lay}) == 1, "TP layer: the ranks' outputs differ")
+    require(len({rec["aux"] for rec in lay}) == 1, "TP layer: the ranks' aux differ")
+    require(bits_equal(y, want_y), "TP layer: not the bits of moe_apply_tp_plain summing in "
+                                   f"gloo's order: {layer_rec['vs_plain_gloo_order']}")
+    require(not bits_equal(f32_y, y), "TP layer: the check does not tell a float32 psum apart")
+    require(lay[0]["aux"] == float(want_aux),
+            f"TP layer aux {lay[0]['aux']} vs plain {float(want_aux)}")
+    require(torch.equal(lay[0]["route_idx"], p_idx.cpu()) and
+            torch.equal(lay[0]["route_keep"], p_keep.cpu()),
+            "TP layer: routes or drops differ from moe_apply_tp_plain's")
+    require(torch.equal(p_idx, s_idx), "TP layer: routes differ from moe_apply_sparse's")
+    if C == C_sparse:
+        require(torch.equal(p_keep, s_keep), "TP layer: drops differ from moe_apply_sparse's "
+                                             f"under the same capacity {C}")
+    require(vs_sparse["rel_rms"] <= tol,
+            f"TP layer: moe_apply_tp_plain off the unsplit moe_apply_sparse: {vs_sparse}")
+    del y, want_y, rank_order_y, f32_y, sparse_y
+
+    # b) the model forward, against the one-process forward summing in gloo's order
+    mod = [r["model"] for r in ranks]
+    cfg_b = dataclasses.replace(mcfg, n_layers=TP_FORWARD_LAYERS)
+    params_b = {**mparams, "stack": mparams["stack"][:TP_FORWARD_LAYERS]}
+    batch = {"tokens": tokens, "labels": tokens}
+    auto = MOE.moe_apply_auto
+    MOE.moe_apply_auto = lambda p, hh, c: MOE.moe_apply_tp_plain(
+        p, hh, c, n_data, n_model, reduce=orders[(E, C_b, d)])
+    try:
+        with MOE.recording_routes() as fwd_routes:
+            plain_logits = M.forward_train(params_b, batch, cfg_b, True)[0]
+        plain_last = plain_logits[:, -1]
+        del plain_logits
+        plain_loss = float(M.loss_fn(params_b, batch, cfg_b, True)[0])
+        # a planted fault for the route check: the oracle summing in rank order
+        MOE.moe_apply_auto = lambda p, hh, c: MOE.moe_apply_tp_plain(p, hh, c, n_data, n_model)
+        with MOE.recording_routes() as rank_order_routes:
+            M.forward_train(params_b, batch, cfg_b, True)
+    finally:
+        MOE.moe_apply_auto = auto
+    last = mod[0]["last_logits"].to(dev)
+
+    def routes_equal_by_layer(want):
+        return [all(bits_equal(a.to(dev), b) for a, b in zip(got, w))
+                for got, w in zip(mod[0]["routes"], want)]
+
+    routes_equal = routes_equal_by_layer(fwd_routes)
+    planted = routes_equal_by_layer(rank_order_routes)
+    planted_flips = route_flips(mod[0]["routes"], [tuple(t.cpu() for t in r)
+                                                   for r in rank_order_routes], mcfg.moe.top_k)
+    fwd_ms = max(rec["ms"] for rec in mod)
+    parts_wall = max(rec["parts_wall_ms"] for rec in mod)
+    ar = statistics.median(rec["parts"]["allreduce_ms"] for rec in mod)
+    Tb = TP_FORWARD_TOKENS[0] * TP_FORWARD_TOKENS[1]
+    k4 = {"launches": TP_FORWARD_LAYERS, "bodies": {"mma_sync": 0, "wgmma": TP_FORWARD_LAYERS}}
+    model_rec = {"layers": f"{TP_FORWARD_LAYERS} of {mcfg.n_layers} held on the card",
+                 "tokens": list(TP_FORWARD_TOKENS), "ms": fwd_ms,
+                 "first_ms": max(rec["first_ms"] for rec in mod), "tokens_per_s": Tb / fwd_ms * 1e3,
+                 "allreduce_share": ar / parts_wall, "timed_with_parts_ms": parts_wall,
+                 "median_rank_parts_ms": {key: statistics.median(rec["parts"][key] for rec in mod)
+                                          for key in ("allreduce_ms", "experts_ms")},
+                 "k4_per_rank": k4, "peak_gib_per_rank_max": max(rec["peak_gib"] for rec in mod),
+                 "loss": mod[0]["loss"], "plain_loss": plain_loss, "aux": mod[0]["aux"],
+                 "last_logits_vs_plain": dev_err(last, plain_last),
+                 "routes_and_router_logits_equal_by_layer": routes_equal,
+                 "planted_rank_order_equal_by_layer": planted,
+                 "planted_rank_order_route_flips": planted_flips}
+    emit({"run": "moe_tp forward", **model_rec})
+    for r, rec in enumerate(mod):
+        require(rec["k4"] == k4, f"TP forward, rank {r}: K4 launched {rec['k4']}, expected {k4}")
+        require(rec["finite"], f"TP forward, rank {r}: non-finite logits")
+    require(len({rec["logits_bits"] for rec in mod}) == 1, "TP forward: the ranks' logits differ")
+    require(len({rec["loss"] for rec in mod}) == 1, "TP forward: the ranks' losses differ")
+    require(all(routes_equal) and len(routes_equal) == TP_FORWARD_LAYERS,
+            f"TP forward: routes, drops or router logits differ from the one-process forward's "
+            f"by layer: {routes_equal}")
+    require(not all(planted), "TP forward: the route check does not tell the rank-order "
+                              "oracle apart")
+    require(bits_equal(last, plain_last), "TP forward: last-token logits are not the one-process "
+                                          f"forward's bits: {model_rec['last_logits_vs_plain']}")
+    require(mod[0]["loss"] == plain_loss,
+            f"TP forward loss {mod[0]['loss']} vs one-process {plain_loss}")
+    del plain_last, last, x, tokens
+    return {"run": "moe_tp", "model": mcfg.name, "mesh": {"data": n_data, "model": n_model},
+            "ranks_s": ranks_s, "phase_s": time.perf_counter() - t_phase,
+            "free_gib_before_ranks": free_gib, "weights_unchanged": True,
+            "gloo_order": order_rec, "layer": layer_rec, "forward": model_rec}, \
+        ranks_n * TP_FORWARD_LAYERS
+
+
+def _checksum(tree) -> int:
+    """Every weight's bits summed as int16: shared weights, unchanged."""
+    import torch
+
+    if isinstance(tree, dict):
+        return sum(_checksum(v) for v in tree.values())
+    if isinstance(tree, list):
+        return sum(_checksum(v) for v in tree)
+    return int(tree.view(torch.int16).sum(dtype=torch.int64))
+
+
+def _nbytes(tree) -> int:
+    if isinstance(tree, dict):
+        return sum(_nbytes(v) for v in tree.values())
+    if isinstance(tree, list):
+        return sum(_nbytes(v) for v in tree)
+    return tree.numel() * tree.element_size()
+
+
+def fleet_rank(rank, group, layout, tenants, cfg, prompts, device):
+    """One rank of the fleet phase: 8 ranks share the card as the D3(2,2)
+    host, every rank driving the same ``TenantFleet`` over ``torch_dist``.
+    ``tenants`` are the parent's weights, shared through CUDA IPC. Runs
+    the combined arm, each tenant alone, the time-multiplexed arm and the
+    churn drill (evict tenant 1 mid-traffic, then re-admit it), each from
+    a barrier, after an untimed warm-up of both tenants; rank 0 also holds
+    the first combined boundary's replay output against
+    ``guest_expert_ffn`` run per destination in this one process. Returns
+    host data."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import rank_device
+    from repro_torch.serve.fleet import TenantFleet
+
+    dev = rank_device(rank, device)
+    captured = {}
+
+    def sync():
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+
+    def make(combined=True):
+        fleet = TenantFleet(FLEET_HOST, backend="torch_dist", max_seq=FLEET_MAX_SEQ,
+                            combined=combined, device=device, group=group)
+        fleet.boundary_ms = []
+        dispatch, replay = fleet._dispatch, fleet._replay_dist
+
+        def timed_dispatch(items):
+            t0 = time.perf_counter()
+            out = dispatch(items)
+            sync()
+            fleet.boundary_ms.append((time.perf_counter() - t0) * 1e3)
+            return out
+
+        def kept_replay(prog, items, Xh, owner):
+            out = replay(prog, items, Xh, owner)
+            if combined and "first" not in captured and len(items) == len(fleet.tenants) > 1:
+                captured["first"] = (Xh, out, {tid: fleet.tenants[tid].n_guest for tid in items},
+                                     dict(owner), {tid: items[tid][0] for tid in items})
+            return out
+
+        fleet._dispatch, fleet._replay_dist = timed_dispatch, kept_replay
+        return fleet
+
+    def serve(fleet, tids, plan=None):
+        dist.barrier()
+        t0 = time.perf_counter()
+        reqs = {tid: [fleet.submit(tid, p, FLEET_NEW) for p in prompts] for tid in tids}
+        if plan is not None:
+            plan(fleet, reqs)
+        fleet.run_to_completion()
+        sync()
+        wall = time.perf_counter() - t0
+        return {"tokens": {tid: [list(map(int, r.out)) for r in rs] for tid, rs in reqs.items()},
+                "done": {tid: [r.done for r in rs] for tid, rs in reqs.items()},
+                "wall_s": wall, "tokens_out": fleet.tokens_out, "steps": fleet.steps_run,
+                "replays": fleet.replays, "rounds": fleet.rounds_replayed,
+                "boundaries": len(fleet.boundary_ms),
+                "boundary_ms": statistics.median(fleet.boundary_ms) if fleet.boundary_ms else None}
+
+    # warm-up, untimed: each rank's first replays and expert casts on the card
+    fleet = make()
+    for p in tenants:
+        fleet.submit(fleet.admit_model(cfg, p, guest=FLEET_GUEST, slots=FLEET_SLOTS),
+                     prompts[0][:3], 2)
+    fleet.run_to_completion()
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(dev)
+    out = {}
+    for arm, combined in (("combined", True), ("time_mux", False)):
+        fleet = make(combined)
+        tids = [fleet.admit_model(cfg, p, guest=FLEET_GUEST, slots=FLEET_SLOTS) for p in tenants]
+        out[arm] = serve(fleet, tids)
+        out[arm]["rounds_a_boundary"] = fleet.program().num_rounds if combined else sum(
+            fleet._solo_program(t.embedding).num_rounds for t in fleet.tenants.values())
+    for i, p in enumerate(tenants):
+        fleet = make()
+        out[f"solo{i}"] = serve(fleet, [fleet.admit_model(cfg, p, guest=FLEET_GUEST,
+                                                          slots=FLEET_SLOTS)])
+
+    def churn(fleet, reqs):
+        for _ in range(3):
+            fleet.step()
+        out["churn_mid"] = [len(r.out) for rs in reqs.values() for r in rs]
+        plan = fleet.evict(1)
+        out["churn_plan"] = (plan.surviving, plan.evicted)
+        tid = fleet.admit_model(cfg, tenants[1], guest=FLEET_GUEST, slots=FLEET_SLOTS)
+        reqs[tid] = [fleet.submit(tid, p, FLEET_NEW) for p in prompts]
+
+    fleet = make()
+    tids = [fleet.admit_model(cfg, p, guest=FLEET_GUEST, slots=FLEET_SLOTS) for p in tenants]
+    out["churn"] = serve(fleet, tids, churn)
+    out["peak_gib"] = (torch.cuda.max_memory_allocated(dev) / 2**30 if dev.type == "cuda"
+                       else float("nan"))
+    out["transport"] = str(dist.get_backend(group))
+    if rank == 0:  # the replay against the expert FFN per destination, in one process
+        out["replay_vs_ffn"] = replay_vs_ffn(*captured["first"])
+    return out
+
+
+def replay_vs_ffn(Xh, got, n_guest, owner, ffns):
+    """A boundary replay's output ``got`` of the host array ``Xh`` against
+    ``guest_expert_ffn`` run per destination device in one process, with
+    the owning tenant's experts there."""
+    import numpy as np
+    import torch
+
+    from repro_torch.models import moe as MOE
+
+    want = np.zeros_like(got)
+    for j in range(Xh.shape[1]):
+        tid, g = owner[j]
+        if tid in ffns:
+            w = MOE.guest_experts(ffns[tid], n_guest[tid], g)
+            want[:, j] = MOE.guest_expert_ffn(torch.from_numpy(Xh[:, j]), *w).numpy()
+    diff = np.abs(got - want)
+    return {"max_abs_err": float(diff.max()), "max_abs_want": float(np.abs(want).max()),
+            "rel_rms": float(np.linalg.norm(got - want) / np.linalg.norm(want)),
+            "shape": list(Xh.shape)}
+
+
+def fleet_phase(dev, mcfg, seed):
+    """Two Mixtral-8x7B tenants at full width, depth cut to FLEET_LAYERS
+    layers each, made on the card from seeds 0 and 1, served as D3(1,2)
+    guests on the D3(2,2) host by 8 ranks sharing the card (gloo, the host
+    as the replay's carrier). Returns its record."""
+    import numpy as np
+    import torch
+
+    from repro_torch.launch.mesh import spawn
+    from repro_torch.models import model as M
+    from repro_torch.models import moe as MOE
+    from repro_torch.serve.fleet import TenantFleet
+
+    t_phase = time.perf_counter()
+    cfg = dataclasses.replace(mcfg, n_layers=FLEET_LAYERS)
+    tenants = [M.init_params(torch.Generator(device=dev).manual_seed(seed + i), cfg, device=dev)
+               for i in range(2)]
+    torch.cuda.synchronize()
+    weight_gb = sum(_nbytes(p) for p in tenants) / 1e9
+    rng = np.random.default_rng(seed)
+    prompts = [rng.integers(1, cfg.vocab, size=rng.integers(3, 9)).astype(np.int32)
+               for _ in range(FLEET_REQUESTS)]
+    before = [_checksum(p) for p in tenants]
+    n_guest = FLEET_GUEST[0] * FLEET_GUEST[1] ** 2
+    C = MOE.guest_capacity(cfg.moe, FLEET_SLOTS)
+    ranks_n = FLEET_HOST[0] * FLEET_HOST[1] ** 2
+    t0 = time.perf_counter()
+    ranks = spawn(fleet_rank, ranks_n, device=dev.type, args=(tenants, cfg, prompts, dev.type))
+    ranks_s = time.perf_counter() - t0
+    torch.cuda.ipc_collect()
+    require([_checksum(p) for p in tenants] == before, "a fleet rank wrote to a tenant's weights")
+
+    arms = ("combined", "time_mux", "solo0", "solo1", "churn")
+    for r, rec in enumerate(ranks):
+        for arm in arms:
+            require(rec[arm]["tokens"] == ranks[0][arm]["tokens"],
+                    f"fleet, rank {r}: the {arm} arm's tokens differ from rank 0's")
+        require(rec["transport"] == "gloo", f"fleet, rank {r}: transport {rec['transport']}")
+    r0 = ranks[0]
+    for arm in arms:
+        require(all(all(d) for d in r0[arm]["done"].values()) or arm == "churn",
+                f"fleet {arm}: requests not answered")
+    for tid in (0, 1):
+        solo = r0[f"solo{tid}"]["tokens"][0]
+        require(all(len(t) == FLEET_NEW for t in solo), f"fleet solo{tid}: {solo}")
+        require(r0["combined"]["tokens"][tid] == solo,
+                f"fleet: tenant {tid}'s combined tokens differ from its solo fleet's")
+        require(r0["time_mux"]["tokens"][tid] == solo,
+                f"fleet: tenant {tid}'s time-mux tokens differ from its solo fleet's")
+    require(r0["churn_plan"] == ((0,), (1,)), f"fleet churn plan {r0['churn_plan']}")
+    require(r0["churn"]["tokens"][0] == r0["solo0"]["tokens"][0],
+            "fleet churn: the survivor's tokens changed across the evict")
+    require(r0["churn"]["tokens"][2] == r0["solo1"]["tokens"][0],
+            "fleet churn: the re-admitted tenant's tokens differ from its solo fleet's")
+    require(not all(r0["churn"]["done"][1]), "fleet churn: the evicted requests finished")
+    require(r0["combined"]["replays"] < r0["time_mux"]["replays"] and
+            r0["combined"]["rounds"] < r0["time_mux"]["rounds"],
+            "fleet: the combined arm replayed no fewer rounds than time-mux")
+    cmp = r0["replay_vs_ffn"]
+    require(cmp["max_abs_err"] <= FLEET_FFN_TOL * (1 + cmp["max_abs_want"]) and
+            cmp["rel_rms"] <= FLEET_FFN_TOL,
+            f"fleet: the replay's expert outputs off guest_expert_ffn per destination: {cmp}")
+    # the launcher's path: the reference fleet in this one process, its
+    # expert FFN on the card's views (no host copy of the experts)
+    shards = MOE.guest_expert_shards
+    host_copies, captured = [], {}
+    MOE.guest_expert_shards = lambda *a: host_copies.append(1) or shards(*a)
+
+    def reference_arm(tenant_params):
+        fleet = TenantFleet(FLEET_HOST, backend="reference", max_seq=FLEET_MAX_SEQ, device=dev)
+        replay = fleet._replay
+
+        def kept_replay(prog, items, Xh):
+            out = replay(prog, items, Xh)
+            if "first" not in captured and len(items) == 2:
+                captured["first"] = (Xh, out, {tid: fleet.tenants[tid].n_guest for tid in items},
+                                     dict(fleet._host_owner()),
+                                     {tid: items[tid][0] for tid in items})
+            return out
+
+        fleet._replay = kept_replay
+        tids = [fleet.admit_model(cfg, p, guest=FLEET_GUEST, slots=FLEET_SLOTS)
+                for p in tenant_params]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        reqs = {tid: [fleet.submit(tid, p, FLEET_NEW) for p in prompts] for tid in tids}
+        fleet.run_to_completion()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        return ({tid: [list(map(int, r.out)) for r in rs] for tid, rs in reqs.items()},
+                {"wall_s": wall, "tokens_out": fleet.tokens_out,
+                 "tokens_per_s": fleet.tokens_out / wall, "replays": fleet.replays,
+                 "rounds": fleet.rounds_replayed})
+
+    try:
+        ref_tokens, reference_rec = reference_arm(tenants)
+        ref_solo = [reference_arm([p])[0][0] for p in tenants]
+    finally:
+        MOE.guest_expert_shards = shards
+    reference_rec["host_expert_copies"] = len(host_copies)
+    reference_rec["replay_vs_ffn"] = replay_vs_ffn(*captured["first"])
+    reference_rec["tokens_equal_torch_dist_combined"] = {
+        tid: [a == b for a, b in zip(ref_tokens[tid], r0["combined"]["tokens"][tid])]
+        for tid in (0, 1)}
+    print(f"fleet: the reference backend on the card (cold): {reference_rec}", flush=True)
+    require(not host_copies, "fleet: the reference backend copied a tenant's experts to the host")
+    for tid in (0, 1):
+        require(ref_tokens[tid] == ref_solo[tid], f"fleet reference: tenant {tid}'s combined "
+                                                  "tokens differ from its solo fleet's")
+    cmp_ref = reference_rec["replay_vs_ffn"]
+    require(cmp_ref["max_abs_err"] <= FLEET_FFN_TOL * (1 + cmp_ref["max_abs_want"]) and
+            cmp_ref["rel_rms"] <= FLEET_FFN_TOL,
+            f"fleet reference: the replay's expert outputs off guest_expert_ffn: {cmp_ref}")
+    arm_rec = {"reference_combined": reference_rec}
+    for arm in arms:
+        recs = [rec[arm] for rec in ranks]
+        wall = max(rec["wall_s"] for rec in recs)
+        arm_rec[arm] = {"wall_s": wall, "tokens_out": recs[0]["tokens_out"],
+                        "tokens_per_s": recs[0]["tokens_out"] / wall, "steps": recs[0]["steps"],
+                        "replays": recs[0]["replays"], "rounds": recs[0]["rounds"],
+                        "boundaries": recs[0]["boundaries"],
+                        "boundary_ms_median_rank_max": max(rec["boundary_ms"] for rec in recs)}
+    for arm in ("combined", "time_mux"):
+        arm_rec[arm]["rounds_a_boundary"] = r0[arm]["rounds_a_boundary"]
+    tenants.clear()
+    return {"run": "fleet", "model": mcfg.name, "tenants": 2, "seeds": [seed, seed + 1],
+            "layers": f"{FLEET_LAYERS} of {mcfg.n_layers} each", "weights_gb": weight_gb,
+            "host": f"D3{FLEET_HOST}", "guest": f"D3{FLEET_GUEST}", "n_guest": n_guest,
+            "E_loc": cfg.moe.num_experts // n_guest, "slots": FLEET_SLOTS, "C": C,
+            "requests_per_tenant": FLEET_REQUESTS, "prompt_lens": [len(p) for p in prompts],
+            "new_tokens": FLEET_NEW,
+            "ranks": ranks_n, "ranks_s": ranks_s, "phase_s": time.perf_counter() - t_phase,
+            "peak_gib_per_rank_max": max(rec["peak_gib"] for rec in ranks),
+            "replay_vs_ffn": cmp, "tol": FLEET_FFN_TOL, "arms": arm_rec,
+            "checks": ["tokens equal on all 8 ranks", "combined == solo", "time_mux == solo",
+                       "reference backend on the card: combined == solo, its replay within "
+                       "tol of guest_expert_ffn, no host copy of an expert",
+                       "survivor bit for bit across the evict", "re-admitted == solo",
+                       "combined replays fewer rounds than time_mux", "weights unchanged"]}
 
 
 def wave_replay_check(dev, time_ms):
@@ -1510,6 +2187,12 @@ def main() -> None:
         print(f"moe_ep: the forward (part b) runs {EP_FORWARD_LAYERS} of the "
               f"{mcfg.n_layers} layers the weights hold", flush=True)
     ep_rec, ep_k4 = ep_phase(dev, mparams, mcfg, SEED)
+    release()
+    if TP_FORWARD_TOKENS != MIXTRAL_TOKENS:
+        print(f"moe_tp: the forward (part b) runs {TP_FORWARD_TOKENS} tokens, cut from "
+              f"{MIXTRAL_TOKENS}: there 16 ranks ran out of the card's memory", flush=True)
+    # ---- 13. the same weights under tensor parallelism, 16 ranks on the card
+    tp_rec, tp_k4 = tp_phase(dev, mparams, mcfg, SEED)
     del mparams
     release()
     ep_rec["card_free_gib_after"] = torch.cuda.mem_get_info()[0] / 2**30
@@ -1521,9 +2204,26 @@ def main() -> None:
     launches["flash_attention"] += ep_k4
     kernels["flash_attention"]["launches_by_path"][f"{mcfg.name} EP forward, all ranks"] = ep_k4
     kernels["flash_attention"]["body_launches"]["wgmma"] += ep_k4
+    tp_rec["card_free_gib_after"] = torch.cuda.mem_get_info()[0] / 2**30
+    emit(tp_rec)
+    if tp_rec["phase_s"] > TP_PHASE_S:
+        print(f"moe_tp: the phase took {tp_rec['phase_s']:.0f} s, past its {TP_PHASE_S} s",
+              flush=True)
+    launches["flash_attention"] += tp_k4
+    kernels["flash_attention"]["launches_by_path"][f"{mcfg.name} TP forward, all ranks"] = tp_k4
+    kernels["flash_attention"]["body_launches"]["wgmma"] += tp_k4
     release()
 
-    # ------------------------ 13. the per-shard all-reduce, 8 ranks on the card
+    # ------- 14. two Mixtral-8x7B tenants as guests of one fleet, 8 ranks on the card
+    fleet_rec = fleet_phase(dev, mcfg, SEED)
+    release()
+    fleet_rec["card_free_gib_after"] = torch.cuda.mem_get_info()[0] / 2**30
+    emit(fleet_rec)
+    if fleet_rec["phase_s"] > FLEET_PHASE_S:
+        print(f"fleet: the phase took {fleet_rec['phase_s']:.0f} s, past its {FLEET_PHASE_S} s",
+              flush=True)
+
+    # ------------------------ 15. the per-shard all-reduce, 8 ranks on the card
     for name, rec in kernels.items():
         rec["launches"] = launches[name]
     kernels["ring_exchange"] = per_shard_phase(dev, SEED)

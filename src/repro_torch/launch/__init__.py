@@ -1,2 +1,2 @@
-"""Launchers: the serving launcher (single-engine mode) and the process
-groups of the per-shard path (``mesh``)."""
+"""Launchers: the serving launcher (single engine or multi-tenant fleet)
+and the process groups of the per-shard path (``mesh``)."""

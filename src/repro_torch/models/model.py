@@ -3,10 +3,10 @@ the loss, and the decode step. All entry points are plain functions of
 (params, batch).
 
 The port of ``repro.models.model`` for the attention models with dense or
-MoE FFNs. Not ported here: MLA with the dense prefix and
-multi-token-prediction head of DeepSeek-V3, ``param_specs`` and
-``cache_specs`` (sharding), and ``decode_step_staged`` (the multi-tenant
-fleet's).
+MoE FFNs, with ``decode_step_staged``, the decode step that pauses at each
+MoE boundary for the multi-tenant fleet. Not ported here: MLA with the
+dense prefix and multi-token-prediction head of DeepSeek-V3 (ROADMAP
+Queue 1 item 2), and ``param_specs`` and ``cache_specs`` (sharding).
 """
 
 from __future__ import annotations
@@ -129,13 +129,29 @@ def decode_step(params, cache, batch, position, cfg: ModelConfig):
 
     batch: {'token': (B,)} or {'embed': (B, d)} (+ mrope positions).
     Returns (logits (B, vocab), cache); the KV caches are updated in place.
+    ``decode_step_staged`` with every MoE boundary answered inline.
     """
+    return T.serve_inline(decode_step_staged(params, cache, batch, position, cfg), cfg)
+
+
+def decode_step_staged(params, cache, batch, position, cfg: ModelConfig):
+    """``decode_step`` as a generator that pauses at every MoE boundary.
+
+    The expert FFNs are not computed inline: ``transformer.stack_decode_staged``
+    yields ``(ffn_params, h2)`` at each MoE member and expects the expert
+    output sent back. Drive it with ``next()`` and ``gen.send(y)``;
+    ``StopIteration.value`` is ``(logits (B, vocab), cache)``. The
+    multi-tenant fleet's engines (``serve.fleet``) decode with it, so that
+    N tenants' expert dispatches share one combined program replay a
+    boundary. The dense prefix of DeepSeek-V3 waits for MLA
+    (``_check_supported``)."""
+    _check_supported(cfg)
     if cfg.embeds_input and "embed" in batch:
         x = batch["embed"][:, None].to(_dtype(cfg.compute_dtype))
     else:
         x = L.embed_apply(params["embed"], batch["token"][:, None]).to(_dtype(cfg.compute_dtype))
-    mrope = batch.get("mrope_positions")
-    x, stack_cache = T.stack_decode(params["stack"], x, cache["stack"], cfg, position, mrope)
+    x, stack_cache = yield from T.stack_decode_staged(params["stack"], x, cache["stack"], cfg,
+                                                      position, batch.get("mrope_positions"))
     h = _norm_f(cfg)(params["final_norm"], x)
     logits = _unembed(params, h, cfg)
     return logits[:, 0], {**cache, "stack": stack_cache}

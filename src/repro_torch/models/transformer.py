@@ -6,10 +6,14 @@ token, cache) forms. The JAX package stacks layers as repeating groups and
 scans them with ``lax.scan`` under ``jax.checkpoint``; here the stack is a
 list with one parameter dict per layer, in the JAX stack's order (group g,
 member mi is layer g·period + mi), walked by a Python loop. There is no
-remat: nothing runs backward yet. A ``moe`` FFN takes
-``moe.moe_apply_auto``: the sparse dispatch of one card, or, with sharding
-rules active (``dist.sharding.set_active``), the expert-parallel path on
-this rank's data shard; its load-balance loss is summed over the stack in train form and dropped in
+remat: nothing runs backward yet. The decode form is a generator that
+pauses at each MoE member (``stack_decode_staged``); ``serve_inline``
+answers it with the FFN computed inline, the multi-tenant fleet with
+one combined replay a boundary. A ``moe``
+FFN takes ``moe.moe_apply_auto``: the sparse dispatch of one card, or,
+with sharding rules active (``dist.sharding.set_active``), the
+expert-parallel or tensor-parallel path on this rank's data shard; its
+load-balance loss is summed over the stack in train form and dropped in
 decode form, as in the JAX package. ``mamba``, ``mlstm`` and ``slstm``
 members raise ``NotImplementedError``, and so does MLA (``models.model``
 refuses its configs).
@@ -95,14 +99,6 @@ def member_decode_mixer(params, x, cache, cfg, mixer, position, mrope_positions)
     return x + mx, cache
 
 
-def member_decode(params, x, cache, cfg, mixer, ffn, position, mrope_positions):
-    x, cache = member_decode_mixer(params, x, cache, cfg, mixer, position, mrope_positions)
-    if ffn != "none":
-        y, _ = _ffn(params["ffn"], _norm(cfg)(params["norm2"], x), cfg, ffn)
-        x = x + y
-    return x, cache
-
-
 def member_cache_init(cfg, mixer, batch, max_seq, dtype, device):
     _check_kinds(mixer, "none")
     return A.gqa_cache_init(cfg, batch, max_seq, dtype, device)
@@ -123,12 +119,44 @@ def stack_train(stack_params, x, cfg, positions, mrope_positions=None, use_kerne
     return x, aux_total
 
 
-def stack_decode(stack_params, x, caches, cfg, position, mrope_positions=None):
+def stack_decode_staged(stack_params, x, caches, cfg, position, mrope_positions=None):
+    """The decode form of the stack, as a generator that pauses at every
+    MoE member: instead of computing the expert FFN inline it yields
+    ``(ffn_params, h2)``, the member's expert weights and its post-norm2
+    hidden, and expects the expert output ``y`` sent back (``gen.send(y)``:
+    a tensor or a NumPy array of h2's shape), which it adds to the residual
+    stream, cast to its dtype. Returns (x, new_caches) through
+    ``StopIteration.value``.
+
+    ``serve_inline`` drives it with each boundary's FFN computed inline
+    (``model.decode_step``); the multi-tenant fleet
+    (``serve.fleet.TenantFleet``) collects N tenants' yields and serves
+    them all with one combined program replay a boundary round."""
+    norm = _norm(cfg)
     new_caches = []
     for params, cache, (mixer, ffn) in zip(stack_params, caches, layer_kinds(cfg)):
-        x, cache = member_decode(params, x, cache, cfg, mixer, ffn, position, mrope_positions)
+        x, cache = member_decode_mixer(params, x, cache, cfg, mixer, position, mrope_positions)
         new_caches.append(cache)
+        if ffn == "moe":
+            y = yield (params["ffn"], norm(params["norm2"], x))
+            x = x + torch.as_tensor(y).to(device=x.device, dtype=x.dtype)
+        elif ffn != "none":
+            x = x + L.mlp_apply(params["ffn"], norm(params["norm2"], x), act=_act(cfg))
     return x, new_caches
+
+
+def serve_inline(staged, cfg):
+    """Run a staged decode (``stack_decode_staged`` or
+    ``model.decode_step_staged``) to its end, answering each MoE boundary
+    with the FFN computed inline (``moe.moe_apply_auto``). Returns the
+    generator's value."""
+    y = None
+    while True:
+        try:
+            ffn_params, h2 = staged.send(y)
+        except StopIteration as stop:
+            return stop.value
+        y = _ffn(ffn_params, h2, cfg, "moe")[0]
 
 
 def stack_cache_init(cfg, batch, max_seq, dtype, device):

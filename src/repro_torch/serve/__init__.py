@@ -1,5 +1,5 @@
-"""Serving substrate: the batched decode engine with continuous batching.
-The multi-tenant fleet waits for a later slice."""
+"""Serving substrate: the batched decode engine with continuous batching,
+and the multi-tenant fleet (``serve.fleet``)."""
 
 from repro_torch.serve.engine import Engine, Request
 

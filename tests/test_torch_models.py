@@ -229,8 +229,8 @@ def _init(arch):
 def _moe_under_rules(shape, mode="xla"):
     """Mixtral smoke's MoE layer on 16 tokens of a rank under active rules
     on a (data, model) mesh of ``shape``: (1, 4) divides its 4 experts (EP,
-    here with the autotuner's ``auto`` mode), (2, 3) does not (TP). Both
-    refuse before any process group is used."""
+    here with the autotuner's ``auto`` mode), which refuses before any
+    process group is used."""
     cfg = get_smoke_config("mixtral-8x7b")
 
     def call():
@@ -242,13 +242,20 @@ def _moe_under_rules(shape, mode="xla"):
     return call
 
 
+def _fleet_report():
+    """The multi-tenant fleet's ``collective_report``: the autotuner's."""
+    from repro_torch.serve.fleet import TenantFleet
+
+    return lambda: TenantFleet((2, 2), device="cpu").collective_report()
+
+
 @pytest.mark.parametrize("call,what", [
     (_moe_under_rules((1, 4), "auto"), "autotuner"),
-    (_moe_under_rules((2, 3)), "tensor-parallel"),
+    (_fleet_report(), "autotuner"),
     (_init("jamba-1.5-large-398b"), "Mamba"), (_init("xlstm-1.3b"), "LSTM"),
     (_init("deepseek-v3-671b"), "ROADMAP")],
-    ids=["moe-ep-auto-autotuner", "moe-tp-tensor-parallel", "jamba-1.5-large-398b-Mamba",
-         "xlstm-1.3b-LSTM", "deepseek-v3-671b-ROADMAP"])
+    ids=["moe-ep-auto-autotuner", "fleet-collective-report-autotuner",
+         "jamba-1.5-large-398b-Mamba", "xlstm-1.3b-LSTM", "deepseek-v3-671b-ROADMAP"])
 def test_unported_members_name_the_roadmap(call, what):
     with pytest.raises(NotImplementedError, match=what) as err:
         call()

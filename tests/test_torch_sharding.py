@@ -124,3 +124,36 @@ def test_the_carrier_is_a_rule_on_the_transport():
     mesh.carrier = torch.device("meta")
     mesh.to_carrier(t)
     assert (mesh.carrier_copies, mesh.carrier_bytes) == (1, 12)
+
+
+@pytest.mark.parametrize("cards,n,transport", [(8, 8, "nccl"), (4, 4, "nccl"), (1, 8, "gloo")])
+def test_rendezvous_names_the_card_to_nccl(monkeypatch, cards, n, transport):
+    """``make_dragonfly_group`` on the card: where every rank has a card of
+    its own, NCCL is told the rank's card through ``device_id`` (torch
+    would otherwise guess it from the rank); where ranks share a card,
+    gloo gets no device. ``init_process_group`` is stubbed: no group is
+    made."""
+    calls = []
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: cards)
+    monkeypatch.setattr(torch.cuda, "set_device", lambda dev: calls.append(("set", dev)))
+    monkeypatch.setattr(LM.dist, "init_process_group",
+                        lambda backend, **kw: calls.append((backend, kw)))
+    monkeypatch.setattr(LM.dist, "barrier", lambda *a, **k: None)
+    rank = n - 1
+    LM.make_dragonfly_group(rank, n, device="cuda", init_method="file:///nonexistent")
+    card = torch.device("cuda", rank % cards)
+    (_, set_dev), (backend, kw) = calls
+    assert set_dev == card and backend == transport
+    assert (kw["rank"], kw["world_size"]) == (rank, n)
+    assert kw.get("device_id") == (card if transport == "nccl" else None)
+
+
+def test_rendezvous_on_the_cpu_passes_no_device(monkeypatch):
+    calls = []
+    monkeypatch.setattr(LM.dist, "init_process_group",
+                        lambda backend, **kw: calls.append((backend, kw)))
+    monkeypatch.setattr(LM.dist, "barrier", lambda *a, **k: None)
+    LM.make_dragonfly_group(2, 8, device="cpu", init_method="file:///nonexistent")
+    (backend, kw), = calls
+    assert backend == "gloo" and "device_id" not in kw
