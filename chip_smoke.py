@@ -1,13 +1,14 @@
 #!/usr/bin/env python3
-"""Drive the port's collective runtime, dense and MoE model paths (one
-card, expert- and tensor-parallel), the multi-tenant fleet and the
+"""Drive the port's collective runtime, dense, MoE and MLA model paths
+(one card, expert- and tensor-parallel), the multi-tenant fleet and the
 per-shard path on one NVIDIA card, end to end.
 
     python3 chip_smoke.py
 
 1. prints the card's name and power limit (``nvidia-smi``);
 2. builds the CUDA kernels from ``src/repro_torch/csrc`` and prints the
-   build time and the compiler's register and spill report;
+   build time and the compiler's register and spill report, kernel by
+   kernel (its mangled name carries the template instance);
 3. holds each kernel against its plain torch version on the card, at the
    shapes the main path gives it: reduce_rounds and combine_rows (with
    and without its fused acc) bit-exact, each of their two bodies (staged,
@@ -78,7 +79,39 @@ per-shard path on one NVIDIA card, end to end.
 10. profiles one prefill forward and one engine step with torch.profiler:
    device time by kernel group (flash attention, matrix products, the
    rest), kernels per call, and the idle share of the wall time;
-11. runs Mixtral-8x7B at its published widths (d 4096, 32 heads, 8 KV
+11. runs DeepSeek-V3 at its published widths (d 7168, 128 heads, MLA with
+   q_lora 1536, kv_lora 512, qk head dim 128 + 64 and v head dim 128, dense
+   d_ff 18432, 256 experts top-8 of d_ff 2048 and 1 shared expert, vocab
+   129280, the MTP head, bf16) with the depth cut from 61 layers to its 3
+   dense-prefix layers and 1 MoE layer, plus the MTP block (all 61 take
+   1.34 TB of bf16 weights; each MoE layer 23.0 GB), random weights from
+   seed 0 made on the card (the init's peak printed), when no other
+   model's weights are resident (allocated GiB printed before and after).
+   a) K4 at MLA's head dims, q and k of 192 and v of 128, v the strided
+   half of the expanded latent as ``mla_train`` hands it over: the wgmma
+   body at the prefill's shape (q, k (1, 4096, 128, 192) bf16, v (1, 4096,
+   128, 128), causal) and a ragged small shape, the mma_sync body in
+   float32 at small shapes, each within ``FLASH_TOL`` of its plain version;
+   its time beside the plain version, SDPA (``is_causal``, v at 128, the
+   dispatcher's choice, and each of its fused backends that takes the
+   shapes; timed only) and its bound, the 4096·4097/2 key pairs × 128 heads
+   × (2·192 + 2·128) operations at the bf16 tensor-core rate (0.695 ms),
+   and each body's shared memory. b) ``forward_train`` and ``loss_fn`` on
+   tokens (1, 4096) from seed 0 (DeepSeek-V3's pre-training length; one
+   sequence, C = 160 an expert): exactly 4 wgmma K4 launches a forward and
+   5 a ``loss_fn`` (the MTP block's), last-token logits, ``ce``, ``mtp``
+   and ``loss`` against the naive passes with step 8's criteria, and the
+   MoE layer's router logits too; its routes with step 12's near-tie
+   criterion (every token's first differing route at a near-tie), its 3 %
+   cap on the share printed, not required: with 256 experts, top-8,
+   bf16 router logits tie exactly at the top for a large share of tokens
+   (the share printed); its ms, tokens/s, device ms by part from
+   torch.profiler (K4, MLA projections, dense FFN, expert products,
+   dispatch and combine, the rest), kernels per call, idle share, the peak
+   GiB of each pass and the capacity's drop share. c) the engine with 4
+   slots, a 128-token cache and 6 requests of 12 new tokens, held like
+   step 9's (a functional check);
+12. runs Mixtral-8x7B at its published widths (d 4096, 32 heads, 8 KV
    heads of 128, 8 experts top-2 of d_ff 14336, vocab 32000, window 4096,
    bf16) with the depth cut from 32 layers to 8 (all 32 layers of bf16
    weights take 93 GB, more than the card's 80 GB), random weights from
@@ -98,7 +131,7 @@ per-shard path on one NVIDIA card, end to end.
    a 128-token cache and 12 new tokens each (the JAX launcher's smoke
    defaults; its rate is a smoke figure, not serving throughput), held
    like step 9's;
-12. runs the same Mixtral-8x7B weights under expert parallelism: 8
+13. runs the same Mixtral-8x7B weights under expert parallelism: 8
    processes share the card on a (data 1, model 8) mesh of processes
    (``launch.mesh.make_mesh``, gloo, the host as the exchanges' carrier;
    the model axis is D3(2,2)), the weights made once in the parent and
@@ -115,12 +148,12 @@ per-shard path on one NVIDIA card, end to end.
    (1, 8192) in the ``dragonfly`` mode with K4 on, exactly 8 ``wgmma``
    launches a rank, rank 0's last-token logits and loss against the
    one-process forward whose MoE layers are ``moe_apply_ep_plain``
-   (step 8's criteria, the route flips as in step 11); its ms, tokens/s
+   (step 8's criteria, the route flips as in step 12); its ms, tokens/s
    and the exchange's share. c) the whole-array wave replay
    ``torch_alltoall_overlapped`` of the all-to-all cell's input on the
    pipelined D3(4,4) program, bit for bit against ``torch_alltoall``,
    both timed;
-13. runs the same Mixtral-8x7B weights under tensor parallelism: 16
+14. runs the same Mixtral-8x7B weights under tensor parallelism: 16
    processes share the card on a (data 1, model 16) mesh, the production
    model axis, where 8 experts do not split and ``moe_apply_auto`` takes
    TP (gloo, the host as the all-reduce's carrier); the EP phase's
@@ -130,7 +163,7 @@ per-shard path on one NVIDIA card, end to end.
    all-reduces of known normals of the partials' shape (8, 2560, 4096)
    bf16 over the model group; the order of each element is read off the
    first 8 (``models.moe.ObservedSumOrder``) and must give the 9th's bits.
-   a) layer 0's MoE on step 12's hidden states (1, 8192, 4096): C_loc
+   a) layer 0's MoE on step 13's hidden states (1, 8192, 4096): C_loc
    2560, a (8, 2560, 4096) bf16 buffer and a 168 MB all-reduce a rank a
    call, held bit for bit against the one-process ``moe_apply_tp_plain``
    summing the 16 bf16 partial outputs in that order (a planted fault,
@@ -149,7 +182,7 @@ per-shard path on one NVIDIA card, end to end.
    logits, the loss, and every layer's routes, drops and router logits;
    every rank's logits the same bits; its ms, tokens/s and the
    all-reduce's share;
-14. serves two Mixtral-8x7B tenants at full width, the depth cut to 2 of
+15. serves two Mixtral-8x7B tenants at full width, the depth cut to 2 of
    32 layers each (6.3 GB of bf16 a tenant), made on the card from seeds
    0 and 1, through ``serve.fleet.TenantFleet`` over ``torch_dist``: 8
    processes share the card as the D3(2,2) host, each tenant a D3(1,2)
@@ -169,7 +202,7 @@ per-shard path on one NVIDIA card, end to end.
    process with the tenants on the card, serves the combined arm's
    tokens without copying an expert to the host; prints tokens/s,
    replays, rounds, ms a boundary and the peak a rank;
-15. runs the per-shard §4 all-reduce: 8 processes share the card in one
+16. runs the per-shard §4 all-reduce: 8 processes share the card in one
    gloo group (``launch.mesh.spawn``, D3(2,2)), each with a 25 MiB bucket
    from the seed plus its rank, and call
    ``CudaFusedBackend().allreduce_shard`` 5 times back to back with fresh
@@ -208,6 +241,10 @@ The cells (layout D3(K, M) has n = K·M² routers):
   MoE TP      the same weights, mesh (1, 16), 16 ranks sharing the card:
               T_loc 8192, C_loc 2560, a (8, 2560, 4096) bf16 buffer and a
               168 MB all-reduce a rank; the forward on the same tokens;
+  MLA prefill DeepSeek-V3, its 3 dense-prefix layers and 1 MoE layer of 61
+              and the MTP block, tokens (1, 4096): C = 160 an expert, a
+              (256, 160, 7168) bf16 dispatch buffer of 587 MB; K4 at
+              (192, 128), 4 launches a forward, 5 a loss_fn;
   fleet       two Mixtral-8x7B tenants of 2 layers each on D3(2,2), 8
               ranks sharing the card, D3(1,2) guests, 3 requests a tenant.
 """
@@ -221,6 +258,7 @@ import statistics
 import subprocess
 import sys
 import time
+import types
 
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOP_PER_S = 67e12
@@ -233,10 +271,14 @@ BLOCK = 512  # matmul: X, the side of each router's block
 PREFILL = (8, 2048)  # TinyLlama-1.1B prefill: batch, tokens (its published context)
 MIXTRAL_LAYERS = 8  # of 32: 8 layers of bf16 weights are 23.7 GB, all 32 are 93 GB
 MIXTRAL_TOKENS = (1, 8192)  # one sequence of twice the window
+DEEPSEEK_LAYERS = 4  # of 61: the 3 dense-prefix layers and 1 MoE layer (23.0 GB each)
+DEEPSEEK_TOKENS = (1, 4096)  # its pre-training length; one sequence (the capacity couples a batch)
 ROUTE_FLIP_MAX = 0.03  # share of (token, layer) routes the kernel and naive passes may differ on
 FIRST_FLIP_GAP_MAX = 0.02  # a token's first differing route must be a near-tie: the kernel
 # pass's router probabilities at ranks k, k + 1 (or k - 1, k) closer than this
 FLASH_TOL = {"torch.bfloat16": 1e-2, "torch.float32": 2e-4}  # K4: rtol = atol = relative rms
+# the model's profiler ranges (record_function): MLA, the dense FFN, the MoE parts
+MODEL_LABELS = ("attn.mla", "ffn.mlp", "moe.dispatch", "moe.experts", "moe.combine")
 LOGIT_MAX_ABS, LOGIT_REL_RMS, LOSS_REL = 0.5, 0.05, 1e-3  # bf16 model-path tolerances
 RANKS = 8  # per-shard phase: D3(2,2), the shape of one 8-GPU node, all on one card here
 CALLS = 5  # back-to-back allreduce_shard calls with fresh data
@@ -1016,6 +1058,15 @@ def _nbytes(tree) -> int:
     return tree.numel() * tree.element_size()
 
 
+def _tensors(tree):
+    """Every tensor of a parameter tree of dicts and lists."""
+    if isinstance(tree, (dict, list, tuple)):
+        for sub in tree.values() if isinstance(tree, dict) else tree:
+            yield from _tensors(sub)
+    else:
+        yield tree
+
+
 def fleet_rank(rank, group, layout, tenants, cfg, prompts, device):
     """One rank of the fleet phase: 8 ranks share the card as the D3(2,2)
     host, every rank driving the same ``TenantFleet`` over ``torch_dist``.
@@ -1378,6 +1429,249 @@ def per_shard_phase(dev, seed):
         bound_by="bytes" if t_bytes >= t_ops else "operations", library_ms=med["copy_ms"])
 
 
+def deepseek_phase(dev, kit):
+    """Step 11: DeepSeek-V3 at its published widths, the depth cut to its 3
+    dense-prefix layers and 1 MoE layer plus the MTP block. ``kit`` holds
+    main's helpers (``time_ms``, ``bound``, ``model_run``, ``logits_close``,
+    ``device_profile``, ``release``, ``Recording``) and the launch counts'
+    names (``names``). Returns (K4's record at MLA's shape, the runs'
+    records, K4's launches in one forward)."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention.flash_attention import (
+        flash_attention, flash_attention_plain, smem_bytes)
+    from repro_torch.models import model as M
+    from repro_torch.models import moe as MOE
+    from repro_torch.serve.engine import Request
+
+    gib = lambda n: n / 2**30
+    print(f"deepseek: {gib(torch.cuda.memory_allocated()):.2f} GiB allocated before the phase",
+          flush=True)
+    full = get_config("deepseek-v3-671b")
+    cfg = dataclasses.replace(full, n_layers=DEEPSEEK_LAYERS)
+    m, H = cfg.mla, cfg.n_heads
+    D, Dv = m.qk_nope_head_dim + m.qk_rope_head_dim, m.v_head_dim
+    B, S = DEEPSEEK_TOKENS
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+
+    def mla_operands(b, sq, sk, h, dtype):
+        """q, k (·, ·, h, 192) and v the strided second half of a
+        (b, sk, h, 256) tensor, as ``mla_train`` hands them to K4."""
+        q = torch.randn(b, sq, h, D, generator=gen, device=dev).to(dtype)
+        k = torch.randn(b, sk, h, D, generator=gen, device=dev).to(dtype)
+        kv = torch.randn(b, sk, h, m.qk_nope_head_dim + Dv, generator=gen, device=dev).to(dtype)
+        return q, k, kv[..., m.qk_nope_head_dim:]
+
+    # a) K4 at MLA's head dims, each body against its plain version
+    checks = []
+    for b_, sq, sk, h, causal, dtype in [
+            (B, S, S, H, True, torch.bfloat16),        # the prefill's shape: wgmma
+            (1, 256, 256, 4, True, torch.float32),     # mma_sync
+            (2, 200, 333, 8, False, torch.float32),    # Sq != Sk, ragged
+            (1, 333, 333, 4, True, torch.bfloat16)]:   # ragged: wgmma
+        q, k, v = mla_operands(b_, sq, sk, h, dtype)
+        zero_counts((flash_attention,))
+        got = flash_attention(q, k, v, causal=causal)
+        bodies = dict(flash_attention.body_launches)
+        want = flash_attention_plain(q, k, v, causal=causal)
+        tol = FLASH_TOL[str(dtype)]
+        ok, err, rel = attention_close(got, want, tol)
+        require(ok and got.shape == (b_, sq, h, Dv),
+                f"flash_attention at (192, 128) off by max {err}, relative rms {rel} at "
+                f"{(b_, sq, sk, h, causal, dtype)}")
+        require(bodies == {"mma_sync": int(dtype == torch.float32),
+                           "wgmma": int(dtype == torch.bfloat16)}, f"bodies {bodies}")
+        checks.append({"q": [b_, sq, h, D], "k": [b_, sk, h, D], "v": [b_, sk, h, Dv],
+                       "causal": causal, "dtype": str(dtype), "tol": tol, "max_abs_err": err,
+                       "rel_rms": rel, "bodies": bodies})
+        if len(checks) == 1:
+            k4_err, qkv = err, (q, k, v)
+        del got, want
+    emit({"check": "flash_attention at MLA's head dims", "cases": checks})
+    q, k, v = qkv
+    pairs = S * (S + 1) // 2 * B
+    b_ms, b_by = kit.bound(2 * (q.numel() + k.numel() + 2 * v.numel()),
+                           pairs * H * (2 * D + 2 * Dv), BF16_FLOP_PER_S)
+    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+    sdpa = lambda: torch.nn.functional.scaled_dot_product_attention(qt, kt, vt, is_causal=True)
+    backends = {}
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+    for name in ("FLASH_ATTENTION", "EFFICIENT_ATTENTION", "CUDNN_ATTENTION"):
+        try:
+            with sdpa_kernel(getattr(SDPBackend, name)):
+                backends[name] = kit.time_ms(sdpa, reps=5)
+        except (RuntimeError, AttributeError) as e:
+            backends[name] = f"refused: {str(e).splitlines()[0][:120]}"
+    k4 = {"q": list(q.shape), "k": list(k.shape), "v": list(v.shape), "v_strides": list(v.stride()),
+          "causal": True, "max_abs_err": k4_err, "key_pairs": pairs,
+          "ms": kit.time_ms(lambda: flash_attention(q, k, v, causal=True), reps=10),
+          "plain_ms": kit.time_ms(lambda: flash_attention_plain(q, k, v, causal=True), reps=3,
+                                  warmup=1),
+          "library_ms": kit.time_ms(sdpa, reps=10), "bound_ms": b_ms, "bound_by": b_by,
+          "library": "SDPA, is_causal, v at 128 (the dispatcher's choice)",
+          "library_backends_ms": backends,
+          "smem_bytes": {body: smem_bytes(D, Dv, body) for body in ("wgmma", "mma_sync")},
+          "padded_v_bound_ms": kit.bound(0, pairs * H * 4 * D, BF16_FLOP_PER_S)[0]}
+    emit({"check": "flash_attention timing, DeepSeek-V3 MLA shape", **k4})
+    del q, k, v, qt, kt, vt, qkv
+    kit.release()
+
+    # b) the weights, made on the card from the seed
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = M.init_params(torch.Generator(device=dev).manual_seed(SEED), cfg, device=dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = sum(t.numel() for t in _tensors(params))
+    weight_gb = _nbytes(params) / 1e9
+    init_peak = gib(torch.cuda.max_memory_allocated())
+    print(f"deepseek-v3-671b: depth cut from {full.n_layers} to {cfg.n_layers} layers "
+          f"({cfg.first_dense_layers} dense-prefix, {cfg.n_layers - cfg.first_dense_layers} MoE) "
+          f"and the MTP block: all {full.n_layers} take {full.param_count() * 2 / 1e12:.2f} TB "
+          f"of bf16 weights; these {n_params / 1e9:.2f} B parameters {weight_gb:.1f} GB, made on "
+          f"the card in {init_s:.1f} s, init peak {init_peak:.2f} GiB; every width is the "
+          "published one", flush=True)
+
+    # c) forward_train and loss_fn with K4, against the naive passes
+    tokens = torch.randint(1, cfg.vocab, DEEPSEEK_TOKENS, device=dev,
+                           generator=torch.Generator(device=dev).manual_seed(SEED))
+    batch = {"tokens": tokens, "labels": tokens}
+    n_attn = cfg.n_layers
+    only_k4 = {name: 0 for name in kit.names} | {"flash_attention": n_attn}
+    torch.cuda.reset_peak_memory_stats()
+    with MOE.recording_routes() as k_routes:
+        (logits, aux, _), counts = kit.model_run(M.forward_train, params, batch, cfg, True)
+    peaks = {"forward": gib(torch.cuda.max_memory_allocated())}
+    bodies = dict(flash_attention.body_launches)
+    require(counts == only_k4, f"deepseek forward_train launched {counts}, expected {only_k4}")
+    require(bodies == {"mma_sync": 0, "wgmma": n_attn}, f"deepseek forward bodies {bodies}")
+    require(len(k_routes) == cfg.n_layers - cfg.first_dense_layers and bool(torch.isfinite(aux)),
+            f"{len(k_routes)} MoE layers routed, aux {float(aux)}")
+    last = logits[:, -1].float()
+    del logits
+    kit.release()
+    torch.cuda.reset_peak_memory_stats()
+    (loss, metrics), counts = kit.model_run(M.loss_fn, params, batch, cfg, True)
+    peaks["loss_fn"] = gib(torch.cuda.max_memory_allocated())
+    loss_k4 = {name: 0 for name in kit.names} | {"flash_attention": n_attn + cfg.mtp_depth}
+    require(counts == loss_k4, f"deepseek loss_fn launched {counts}, expected {loss_k4}")
+    require(dict(flash_attention.body_launches) == {"mma_sync": 0, "wgmma": n_attn + 1},
+            f"deepseek loss_fn bodies {flash_attention.body_launches}")
+    require(set(metrics) == {"ce", "moe_aux", "mtp", "loss"}
+            and all(bool(torch.isfinite(x)) for x in metrics.values()), f"metrics {metrics}")
+    kit.release()
+    torch.cuda.reset_peak_memory_stats()
+    with MOE.recording_routes() as n_routes:
+        (naive, _, _), counts = kit.model_run(M.forward_train, params, batch, cfg, False)
+    peaks["naive forward"] = gib(torch.cuda.max_memory_allocated())
+    require(counts["flash_attention"] == 0, "the naive deepseek forward launched flash_attention")
+    naive_last = naive[:, -1].float()
+    del naive
+    kit.release()
+    naive_metrics = M.loss_fn(params, batch, cfg, False)[1]
+    kit.release()
+    err, rel = kit.logits_close(last, naive_last, "deepseek: kernel vs naive forward")
+    metric_rel = {key: abs(float(metrics[key]) - float(naive_metrics[key]))
+                  / abs(float(naive_metrics[key])) for key in ("ce", "mtp", "loss")}
+    require(all(r <= LOSS_REL for r in metric_rel.values()),
+            f"deepseek ce, mtp, loss against the naive pass: {metrics} vs {naive_metrics}")
+    flips = route_flips(k_routes, n_routes, cfg.moe.top_k)
+    # The routes' noise: the router logits of the two passes, held to step 8's
+    # criteria, and how many tokens sit on an exact tie of bf16 router logits
+    # within their top k + 1 (the stable sort then orders by expert id).
+    k_lg, n_lg = (torch.cat([lg.float() for _, _, lg in routes]) for routes in (k_routes, n_routes))
+    flips["router_logits_vs_naive"] = dict(zip(("max_abs_err", "rel_rms"), kit.logits_close(
+        k_lg, n_lg, "deepseek: the MoE layers' router logits, kernel vs naive")))
+    top = k_lg.sort(-1, descending=True)[0][:, :cfg.moe.top_k + 1]
+    flips["exact_tie_share"] = {
+        "at rank k, k + 1": float((top[:, -2] == top[:, -1]).float().mean()),
+        "within the top k + 1": float((top.diff(dim=-1) == 0).any(-1).float().mean())}
+    kept = [keep for _, keep, _ in k_routes]
+    drop_share = sum(int((~keep).sum()) for keep in kept) / sum(keep.numel() for keep in kept)
+    del k_routes, n_routes, kept, last, naive_last, k_lg, n_lg, top
+    kit.release()
+    fwd_ms = kit.time_ms(lambda: M.forward_train(params, batch, cfg, True), reps=3, warmup=1)
+    prof = kit.device_profile(lambda: M.forward_train(params, batch, cfg, True), fwd_ms,
+                              labels=MODEL_LABELS, top_ops=12)
+    lab, k4_ms = prof["device_ms_by_label"], prof["device_ms_by_group"].get("flash_attention", 0.0)
+    if lab["attn.mla"] and lab["moe.experts"]:  # kernels were traced back to their torch ops
+        parts = {"flash_attention (K4)": k4_ms,
+                 "MLA projections (attn.mla without K4)": lab["attn.mla"] - k4_ms,
+                 "dense FFN (ffn.mlp)": lab["ffn.mlp"],
+                 "expert products (moe.experts)": lab["moe.experts"],
+                 "dispatch and combine (router included)": lab["moe.dispatch"]
+                 + lab["moe.combine"]}
+        parts["the rest (shared expert, unembedding, norms, MTP glue)"] = \
+            prof["device_ms"] - sum(parts.values())
+        prof["device_ms_by_part"] = parts
+    else:
+        prof["device_ms_by_part"] = "not measured: the profiler tied no kernel to a torch op"
+    runs = [{"run": "prefill", "model": cfg.name,
+             "layers": f"{cfg.n_layers} of {full.n_layers} ({cfg.first_dense_layers} dense "
+                       f"prefix, {cfg.n_layers - cfg.first_dense_layers} MoE) + MTP",
+             "tokens": list(DEEPSEEK_TOKENS), "params": n_params,
+             "weight_gb": weight_gb, "init_s": init_s, "init_peak_gib": init_peak,
+             "launches": {"forward_train": n_attn, "loss_fn": n_attn + cfg.mtp_depth},
+             "ms": fwd_ms, "tokens_per_s": B * S / fwd_ms * 1e3, "peak_gib": peaks,
+             "metrics": {key: float(val) for key, val in metrics.items()},
+             "naive_metrics": {key: float(val) for key, val in naive_metrics.items()},
+             "metric_rel_vs_naive": metric_rel,
+             "last_logits_vs_naive": {"max_abs_err": err, "rel_rms": rel},
+             "capacity": MOE.capacity(cfg, B * S), "dropped_share": drop_share,
+             "route_flips": flips, "profile": prof}]
+    emit(runs[-1])
+    del loss, metrics, naive_metrics, aux, batch, tokens
+    kit.release()
+
+    # d) the engine: 4 slots, a 128-token cache, 6 requests of 12 new tokens
+    rng = np.random.default_rng(SEED)
+    reqs = [Request(rid=i, prompt=rng.integers(1, cfg.vocab, size=rng.integers(3, 9))
+                    .astype(np.int32), max_new_tokens=12) for i in range(6)]
+    torch.cuda.reset_peak_memory_stats()
+    eng = kit.Recording(cfg, params, batch_slots=4, max_seq=128, device=dev)
+    eng.trace = []
+    pending = list(reqs)
+    t0 = time.perf_counter()
+    while pending or eng.slot_req:
+        while pending and eng.free_slots:
+            eng.admit(pending.pop(0))
+        eng.step()
+    torch.cuda.synchronize()
+    serve_s = time.perf_counter() - t0
+    require(all(r.done and len(r.out) == 12 for r in reqs) and eng.tokens_out == 72,
+            f"deepseek requests not answered: {[(r.rid, r.done, len(r.out)) for r in reqs]}")
+    p0 = reqs[0].prompt
+    step_logits = next(out[0] for pos, out in eng.trace if pos[0] == len(p0) - 1)
+    prefill = M.forward_train(params, {"tokens": torch.from_numpy(p0).to(dev)[None]}, cfg, True)[0]
+    serve_err, serve_rel = kit.logits_close(torch.from_numpy(step_logits).to(dev), prefill[0, -1],
+                                            "deepseek decode vs prefill logits")
+    runs.append({"run": "serve (smoke)", "model": cfg.name, "layers": cfg.n_layers, "slots": 4,
+                 "max_seq": 128, "requests": len(reqs),
+                 "prompt_lens": [len(r.prompt) for r in reqs], "steps": eng.steps_run,
+                 "tokens": eng.tokens_out, "s": serve_s,
+                 "smoke_tokens_per_s": eng.tokens_out / serve_s,
+                 "peak_gib": gib(torch.cuda.max_memory_allocated()),
+                 "decode_vs_prefill_logits": {"max_abs_err": serve_err, "rel_rms": serve_rel}})
+    emit(runs[-1])
+    del eng, params, prefill
+    kit.release()
+    print(f"deepseek: {gib(torch.cuda.memory_allocated()):.2f} GiB allocated after the phase",
+          flush=True)
+    # Step 12's near-tie criterion holds as it is; its 3 % cap on the share is
+    # Mixtral's (top-2 of 8) and is printed here, not required: with 256
+    # experts, top-8, bf16 router logits tie exactly at the top for a large
+    # share of tokens, and any noise reorders those (PERF.md §6).
+    require((flips["first_gap_max"] or 0) < FIRST_FLIP_GAP_MAX,
+            f"deepseek: a token's route first differs between the kernel and naive passes "
+            f"away from a near-tie: {flips}")
+    print(f"deepseek: {flips['share']:.4%} of tokens' routes differ in order between the kernel "
+          f"and naive passes, {flips['set_share']:.4%} as sets (step 12's cap for Mixtral: "
+          f"{ROUTE_FLIP_MAX:.0%})", flush=True)
+    return k4, runs, n_attn
+
+
 def main() -> None:
     import torch
 
@@ -1467,6 +1761,9 @@ def main() -> None:
     print(f"build: {time.perf_counter() - t0:.1f} s for {', '.join(build.SOURCES)}", flush=True)
     for name, log in logs.items():
         for line in log.splitlines():
+            if "Compiling entry function" in line:  # the kernel (template instance) below
+                entry = line.split("'")[1]
+                print(f"  {name}: {entry}", flush=True)
             if "registers" in line or "spill" in line:
                 print(f"  {name}: {line.strip()}", flush=True)
 
@@ -1995,10 +2292,11 @@ def main() -> None:
         """Device time per call by kernel group, from torch.profiler, beside
         a wall time taken without the profiler; the idle share is the part
         of the wall time with no kernel running (None where the profiler
-        saw no device time). With ``labels``, also the device time of the
-        kernels launched inside each ``record_function`` range of that
-        name (the ranges' own device spans are not kernels and are left
-        out of the groups); with ``top_ops``, the device time of the kernels
+        saw no device time). The device spans of the port's profiler ranges
+        (``MODEL_LABELS``) are not kernels and are left out of the groups.
+        With ``labels``, also the device time of the kernels launched
+        inside each ``record_function`` range of that name; with
+        ``top_ops``, the device time of the kernels
         each torch op launches itself, for the ops with the most."""
         from torch.profiler import ProfilerActivity, profile
 
@@ -2010,7 +2308,7 @@ def main() -> None:
             torch.cuda.synchronize()
         groups, n_kernels = {}, 0
         for e in prof.key_averages():
-            if e.device_type != torch.autograd.DeviceType.CUDA or e.key in labels:
+            if e.device_type != torch.autograd.DeviceType.CUDA or e.key in MODEL_LABELS:
                 continue
             name = e.key.lower()
             group = ("flash_attention" if "flash_attention" in name else
@@ -2047,21 +2345,26 @@ def main() -> None:
     del params, eng, batch
     release()
 
-    # ----------------- 11. Mixtral-8x7B at full width, the depth cut to 8 layers
+    # -------- 11. DeepSeek-V3 at full width, the depth cut to 3 dense + 1 MoE layers
+    kit = types.SimpleNamespace(time_ms=time_ms, bound=bound, model_run=model_run,
+                                logits_close=logits_close, device_profile=device_profile,
+                                release=release, Recording=Recording, names=list(launches))
+    ds_k4, ds_runs, ds_launches = deepseek_phase(dev, kit)
+    runs.extend(ds_runs)
+    launches["flash_attention"] += ds_launches
+    kernels["flash_attention"]["mla_shape"] = ds_k4
+    kernels["flash_attention"]["launches_by_path"] = {
+        f"{cfg.name} prefill": cfg.n_layers, "deepseek-v3-671b prefill": ds_launches}
+    kernels["flash_attention"]["body_launches"]["wgmma"] += ds_launches
+
+    # ----------------- 12. Mixtral-8x7B at full width, the depth cut to 8 layers
     t0 = time.perf_counter()
     mparams = M.init_params(torch.Generator(device=dev).manual_seed(SEED), mcfg, device=dev)
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
 
-    def tensors(tree):
-        if isinstance(tree, torch.Tensor):
-            yield tree
-            return
-        for sub in tree.values() if isinstance(tree, dict) else tree:
-            yield from tensors(sub)
-
-    n_params = sum(t.numel() for t in tensors(mparams))
-    weight_gb = sum(t.numel() * t.element_size() for t in tensors(mparams)) / 1e9
+    n_params = sum(t.numel() for t in _tensors(mparams))
+    weight_gb = _nbytes(mparams) / 1e9
     print(f"mixtral-8x7b: depth cut from {full_mcfg.n_layers} to {mcfg.n_layers} layers: all "
           f"{full_mcfg.n_layers} take {full_mcfg.param_count() * 2 / 1e9:.1f} GB of bf16 "
           f"weights, more than the card holds; {mcfg.n_layers} layers: {n_params / 1e9:.2f} B "
@@ -2125,8 +2428,7 @@ def main() -> None:
         mprof["device_ms_by_part"] = "not measured: the profiler tied no kernel to a torch op"
     C_m = MOE.capacity(mcfg, T_m)
     launches["flash_attention"] += m_launches
-    kernels["flash_attention"]["launches_by_path"] = {
-        f"{cfg.name} prefill": cfg.n_layers, f"{mcfg.name} prefill": m_launches}
+    kernels["flash_attention"]["launches_by_path"][f"{mcfg.name} prefill"] = m_launches
     kernels["flash_attention"]["body_launches"] = {
         body: kernels["flash_attention"]["body_launches"][body] + m_bodies[body]
         for body in m_bodies}
@@ -2182,7 +2484,7 @@ def main() -> None:
             f"mixtral: {flip_share:.4%} of (token, layer) routes differ between the kernel and "
             f"naive passes, or one first differs away from a near-tie: {flips}")
 
-    # ----------- 12. Mixtral-8x7B under expert parallelism, 8 ranks on the card
+    # ----------- 13. Mixtral-8x7B under expert parallelism, 8 ranks on the card
     if EP_FORWARD_LAYERS < mcfg.n_layers:
         print(f"moe_ep: the forward (part b) runs {EP_FORWARD_LAYERS} of the "
               f"{mcfg.n_layers} layers the weights hold", flush=True)
@@ -2191,7 +2493,7 @@ def main() -> None:
     if TP_FORWARD_TOKENS != MIXTRAL_TOKENS:
         print(f"moe_tp: the forward (part b) runs {TP_FORWARD_TOKENS} tokens, cut from "
               f"{MIXTRAL_TOKENS}: there 16 ranks ran out of the card's memory", flush=True)
-    # ---- 13. the same weights under tensor parallelism, 16 ranks on the card
+    # ---- 14. the same weights under tensor parallelism, 16 ranks on the card
     tp_rec, tp_k4 = tp_phase(dev, mparams, mcfg, SEED)
     del mparams
     release()
@@ -2214,7 +2516,7 @@ def main() -> None:
     kernels["flash_attention"]["body_launches"]["wgmma"] += tp_k4
     release()
 
-    # ------- 14. two Mixtral-8x7B tenants as guests of one fleet, 8 ranks on the card
+    # ------- 15. two Mixtral-8x7B tenants as guests of one fleet, 8 ranks on the card
     fleet_rec = fleet_phase(dev, mcfg, SEED)
     release()
     fleet_rec["card_free_gib_after"] = torch.cuda.mem_get_info()[0] / 2**30
@@ -2223,7 +2525,7 @@ def main() -> None:
         print(f"fleet: the phase took {fleet_rec['phase_s']:.0f} s, past its {FLEET_PHASE_S} s",
               flush=True)
 
-    # ------------------------ 15. the per-shard all-reduce, 8 ranks on the card
+    # ------------------------ 16. the per-shard all-reduce, 8 ranks on the card
     for name, rec in kernels.items():
         rec["launches"] = launches[name]
     kernels["ring_exchange"] = per_shard_phase(dev, SEED)
@@ -2233,7 +2535,7 @@ def main() -> None:
             "plain_ms", "bound_ms", "bound_by", "library_ms")
     extra = ("body", "body_launches", "acc_launches", "body_ms", "combine_hook_ms",
              "combine_hook_bound_ms", "ffma_bound_ms", "tf32x3_route_bound_ms",
-             "launches_by_path", "mixtral_shape")
+             "launches_by_path", "mixtral_shape", "mla_shape")
     print(card, flush=True)
     emit({"kernels": [{key: rec[key] for key in keys + extra if key in rec or key in keys}
                       for rec in kernels.values()]})

@@ -15,8 +15,12 @@
 // tile would add exp(-1e30 - m) = 0 to a row that has seen a key, and 0
 // (masked weights) to one that has not.
 //
-// Layout: q (B, Sq, Hq, D), k/v (B, Sk, Hkv, D), o (B, Sq, Hq, D), each
-// with its own strides and contiguous rows of D. Query head h reads KV
+// Layout: q (B, Sq, Hq, D), k (B, Sk, Hkv, D), v (B, Sk, Hkv, Dv), o
+// (B, Sq, Hq, Dv), each with its own strides and contiguous rows. Dv is
+// D for the GQA configs (64, 96, 128) and 128 at MLA's D = 192: the JAX
+// package pads V to 192 with zeros and slices the output back, and zero
+// columns of V touch neither m nor l, so reading V at its own width gives
+// the same 128 columns with a third less P V work. Query head h reads KV
 // head h / (Hq / Hkv) in place, so the GQA repeat is never built (it would
 // move G = 8 times the K/V bytes at TinyLlama-1.1B). The TPU's grid runs in
 // order and carries m, l and acc in scratch from one key tile to the next;
@@ -35,11 +39,12 @@
 //   work items (batch, head, 128-row q tile) heaviest first. Two consumer
 //   warpgroups own 64 query rows each; a producer warpgroup gives its
 //   registers to them (setmaxnreg) and its first thread loads Q into one
-//   of two slots (the next item's Q lands during this one) and 128-key K
-//   and V tiles through a ring of 3 (D = 64) or 2 stages in shared memory:
-//   TMA over a 4D tensor map of each strided (B, S, H, D) operand (encoded
-//   on the host per call, passed as a __grid_constant__), mbarriers for
-//   full and empty slots, K and V apart so S = Q Kᵀ starts before V lands.
+//   of two slots (the next item's Q lands during this one; at D = 192 one
+//   slot, handed back once the item's last scores are in, see Cfg) and
+//   128-key K and V tiles through a ring of 3 (D = 64) or 2 stages in
+//   shared memory: TMA over a 4D tensor map of each strided (B, S, H, D)
+//   operand (encoded on the host per call, passed as a
+//   __grid_constant__), mbarriers for full and empty slots, K and V apart so S = Q Kᵀ starts before V lands.
 //   S = Q Kᵀ is a wgmma with both operands K-major in shared memory; O +=
 //   P V a wgmma with P from registers (the S accumulators rounded to bf16,
 //   FlashAttention-2's register reuse) and V MN-major in shared memory (the
@@ -48,10 +53,11 @@
 //   tensor cores; the two warpgroups take turns to issue (named barriers),
 //   so one's softmax overlaps the other's products (FlashAttention-3's
 //   schedule). Tiles land in the 128-byte swizzle, 64 columns of D wide;
-//   D = 128 takes two such column blocks and D = 96 too, the second
-//   zero-filled by TMA past D (Q Kᵀ runs only D/16 steps; the zero columns
-//   of P V are not stored). Only tiles that cross the causal diagonal, the
-//   window's edge or the end of the keys evaluate the mask; softmax runs
+//   D = 128 takes two such column blocks, D = 192 three, and D = 96 two,
+//   the second zero-filled by TMA past D (Q Kᵀ runs only D/16 steps; the
+//   zero columns of P V are not stored); V takes the blocks of its own
+//   Dv. Only tiles that cross the causal diagonal, the window's edge or
+//   the end of the keys evaluate the mask; softmax runs
 //   in the log2 domain (scale · log2 e folded into one FFMA, ex2.approx),
 //   masked scores -inf against a finite running max, so masked weights are
 //   exactly 0. Rows past Sq are computed on zero-filled Q and not stored.
@@ -145,19 +151,22 @@ __device__ __forceinline__ void load_tile(bf16* hi, bf16* lo, const float* src, 
   }
 }
 
-template <int D>
+// D: the head dim of q and k, Dv: of v and o.
+template <int D, int Dv>
 __global__ void __launch_bounds__(kThreads) flash_attention_kernel(const Params p) {
-  constexpr int kStride = D + 8;           // bf16 per shared row; 16-byte aligned, no bank conflicts
+  constexpr int kStride = D + 8;    // bf16 per shared row of Q, K; 16-byte aligned, no bank conflicts
+  constexpr int kStrideV = Dv + 8;  // and of V
   constexpr int kTile = kBlockK * kStride;
-  constexpr int kSteps = D / 16;  // k-steps of Q Kᵀ
-  constexpr int kDTiles = D / 8;  // n-tiles of P V
-  static_assert(kBlockQ == kBlockK, "Q and K/V tiles share one shared-memory shape");
+  constexpr int kTileV = kBlockK * kStrideV;
+  constexpr int kSteps = D / 16;   // k-steps of Q Kᵀ
+  constexpr int kDTiles = Dv / 8;  // n-tiles of P V
+  static_assert(kBlockQ == kBlockK, "Q and K tiles share one shared-memory shape");
 
   extern __shared__ __align__(16) unsigned char smem_raw[];
   bf16* const q_hi = reinterpret_cast<bf16*>(smem_raw);
   bf16* const k_hi = q_hi + kTile;
   bf16* const v_hi = k_hi + kTile;
-  bf16* const q_lo = v_hi + kTile;
+  bf16* const q_lo = v_hi + kTileV;
   bf16* const k_lo = q_lo + kTile;
   bf16* const v_lo = k_lo + kTile;
 
@@ -204,7 +213,7 @@ __global__ void __launch_bounds__(kThreads) flash_attention_kernel(const Params 
   for (int k0 = k_begin; k0 < k_end; k0 += kBlockK) {
     __syncthreads();  // every warp is done with the previous K/V tile
     load_tile<D, kBlockK>(k_hi, k_lo, k, p.k_s, k0, p.sk);
-    load_tile<D, kBlockK>(v_hi, v_lo, v, p.v_s, k0, p.sk);
+    load_tile<Dv, kBlockK>(v_hi, v_lo, v, p.v_s, k0, p.sk);
     __syncthreads();
 
     // S = Q Kᵀ: B[d][key] = K[key][d], so a B fragment is two bf16 pairs
@@ -286,7 +295,7 @@ __global__ void __launch_bounds__(kThreads) flash_attention_kernel(const Params 
       }
 #pragma unroll
       for (int nd = 0; nd < kDTiles; nd += 2) {
-        const int off = (16 * j + (mi & 1) * 8 + mr) * kStride + (nd + (mi >> 1)) * 8;
+        const int off = (16 * j + (mi & 1) * 8 + mr) * kStrideV + (nd + (mi >> 1)) * 8;
         uint32_t vb[4];
         ldmatrix_x4_trans(vb, v_hi + off);
         uint32_t vl[4];
@@ -321,25 +330,21 @@ __global__ void __launch_bounds__(kThreads) flash_attention_kernel(const Params 
   }
 }
 
-template <int D>
+// q, k, v: hi and lo
+template <int D, int Dv>
+constexpr int smem_bytes() {
+  return (4 * kBlockK * (D + 8) + 2 * kBlockK * (Dv + 8)) * static_cast<int>(sizeof(bf16));
+}
+
+template <int D, int Dv>
 int launch(const Params& p, int batch, cudaStream_t stream) {
-  constexpr int kTile = kBlockK * (D + 8);
-  const int smem = 6 * kTile * static_cast<int>(sizeof(bf16));  // q, k, v: hi and lo
-  cudaError_t err = cudaFuncSetAttribute(flash_attention_kernel<D>,
+  constexpr int smem = smem_bytes<D, Dv>();
+  cudaError_t err = cudaFuncSetAttribute(flash_attention_kernel<D, Dv>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid(static_cast<unsigned>(batch) * p.hq, (p.sq + kBlockQ - 1) / kBlockQ);
-  flash_attention_kernel<D><<<grid, kThreads, smem, stream>>>(p);
+  flash_attention_kernel<D, Dv><<<grid, kThreads, smem, stream>>>(p);
   return static_cast<int>(cudaGetLastError());
-}
-
-int launch_d(const Params& p, int batch, int d, cudaStream_t stream) {
-  switch (d) {
-    case 64: return launch<64>(p, batch, stream);
-    case 96: return launch<96>(p, batch, stream);
-    case 128: return launch<128>(p, batch, stream);
-    default: return static_cast<int>(cudaErrorInvalidValue);
-  }
 }
 
 
@@ -355,21 +360,33 @@ constexpr int kBQ = 64 * kW;              // query rows per work item
 constexpr int kConsumers = 128 * kW;
 constexpr int kThreads = kConsumers + 128;  // and a producer warpgroup (one thread issues)
 constexpr int kConsumerRegs = 240;          // 128·24 + 256·240 <= 65536
+constexpr int kMaxSmem = 232448;            // the most shared memory a block may take
 static_assert(kBQ == kBK, "Q, K and V tiles share one shared-memory shape");
 
-template <int D>
+// D: the head dim of q and k, Dv: of v and o. A tile is one 64-column block
+// (a region) per 64 columns of its head dim, D = 96 padded to 128 with
+// zeros. Two Q slots let the next work item's Q load during this one; at
+// D = 192 (MLA) two slots and a two-stage ring would take 256 KB, so that
+// instance keeps one slot and hands it back as soon as its last scores are
+// in (208 KB).
+template <int D, int Dv>
 struct Cfg {
-  static constexpr int kRegions = D == 64 ? 1 : 2;  // 64-column blocks; D = 96 pads to 128 with zeros
+  static constexpr int kRegions = (D + 63) / 64;    // of a Q or K tile
+  static constexpr int kRegionsV = (Dv + 63) / 64;  // of a V tile
   static constexpr int kTile = kRegions * kRegion;
+  static constexpr int kTileV = kRegionsV * kRegion;
   static constexpr int kStages = D == 64 ? 3 : 2;
-  // two Q slots (the next work item's Q loads during this one), the K/V ring, barriers
-  static constexpr int kSmem = kTile * (2 + 2 * kStages) + 8 * (4 + 3 * kStages) + 1024;
+  static constexpr int kQSlots = D == 192 ? 1 : 2;
+  // the Q slots, the K and V rings, the barriers, the 1024-byte alignment
+  static constexpr int kSmem = kTile * kQSlots + (kTile + kTileV) * kStages +
+                               8 * (2 * kQSlots + 3 * kStages) + 1024;
+  static_assert(kSmem <= kMaxSmem, "the tiles do not fit in a block's shared memory");
 };
 
 struct Out {
   void* o;
   long long o_b, o_s, o_h;
-  int batch, sq, sk, hq, group, d;
+  int batch, sq, sk, hq, group, dv;
   int causal, window;
   float scale_log2;  // scale · log2(e): scores live in the log2 domain
 };
@@ -455,25 +472,27 @@ __device__ __forceinline__ void softmax(float (&sc)[64], float (&m)[2], float (&
 // in the grid order of the mma.sync body, heaviest causal q tiles first,
 // item i, i + gridDim.x, ...; the producer loads the next item's Q and
 // first K/V tiles while the consumers finish the current one.
-template <int D>
+template <int D, int Dv>
 __global__ void __launch_bounds__(kThreads, 1)
 flash_attention_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
                              const __grid_constant__ CUtensorMap map_k,
                              const __grid_constant__ CUtensorMap map_v, const Out p) {
-  using C = Cfg<D>;
-  constexpr int S = C::kStages, R = C::kRegions;
+  using C = Cfg<D, Dv>;
+  constexpr int S = C::kStages, R = C::kRegions, RV = C::kRegionsV, Q = C::kQSlots;
   extern __shared__ uint8_t smem_raw[];
   uint8_t* const smem = reinterpret_cast<uint8_t*>(
       (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~static_cast<uintptr_t>(1023));
-  uint64_t* const bars = reinterpret_cast<uint64_t*>(smem + C::kTile * (2 + 2 * S));
+  uint8_t* const k_ring = smem + C::kTile * Q;
+  uint8_t* const v_ring = k_ring + C::kTile * S;
+  uint64_t* const bars = reinterpret_cast<uint64_t*>(v_ring + C::kTileV * S);
   uint64_t* const q_full = bars;
-  uint64_t* const q_empty = bars + 2;
-  uint64_t* const k_full = bars + 4;
-  uint64_t* const v_full = bars + 4 + S;
-  uint64_t* const empty = bars + 4 + 2 * S;
+  uint64_t* const q_empty = bars + Q;
+  uint64_t* const k_full = bars + 2 * Q;
+  uint64_t* const v_full = bars + 2 * Q + S;
+  uint64_t* const empty = bars + 2 * Q + 2 * S;
   auto q_tile = [&](int i) { return smem + C::kTile * i; };
-  auto k_tile = [&](int s) { return smem + C::kTile * (2 + s); };
-  auto v_tile = [&](int s) { return smem + C::kTile * (2 + S + s); };
+  auto k_tile = [&](int s) { return k_ring + C::kTile * s; };
+  auto v_tile = [&](int s) { return v_ring + C::kTileV * s; };
 
   const int n_qt = (p.sq + kBQ - 1) / kBQ, bh_n = p.batch * p.hq;
   const int n_items = n_qt * bh_n;
@@ -488,7 +507,7 @@ flash_attention_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
 
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   if (threadIdx.x == 0) {
-    for (int i = 0; i < 2; ++i) {
+    for (int i = 0; i < Q; ++i) {
       hopper::mbar_init(&q_full[i], 1);
       hopper::mbar_init(&q_empty[i], kConsumers / 32);
     }
@@ -508,8 +527,8 @@ flash_attention_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
       for (int item = blockIdx.x; item < n_items; item += gridDim.x, ++n) {
         const int bh = item % bh_n, q0 = (n_qt - 1 - item / bh_n) * kBQ;
         const int b = bh / p.hq, h = bh % p.hq, hk = h / p.group;
-        const int qs = n % 2;
-        hopper::mbar_wait(&q_empty[qs], ((n / 2) & 1) ^ 1);
+        const int qs = n % Q;
+        hopper::mbar_wait(&q_empty[qs], ((n / Q) & 1) ^ 1);
         hopper::mbar_expect_tx(&q_full[qs], C::kTile);
         for (int r = 0; r < R; ++r)
           hopper::tma_load_4d(q_tile(qs) + r * kRegion, &map_q, &q_full[qs], 64 * r, h, q0, b);
@@ -521,8 +540,8 @@ flash_attention_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
           hopper::mbar_expect_tx(&k_full[s], C::kTile);
           for (int r = 0; r < R; ++r)
             hopper::tma_load_4d(k_tile(s) + r * kRegion, &map_k, &k_full[s], 64 * r, hk, k0, b);
-          hopper::mbar_expect_tx(&v_full[s], C::kTile);
-          for (int r = 0; r < R; ++r)
+          hopper::mbar_expect_tx(&v_full[s], C::kTileV);
+          for (int r = 0; r < RV; ++r)
             hopper::tma_load_4d(v_tile(s) + r * kRegion, &map_v, &v_full[s], 64 * r, hk, k0, b);
         }
       }
@@ -532,7 +551,7 @@ flash_attention_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
 
   hopper::regs_inc<kConsumerRegs>();
   const int wgi = warp / 4, w = warp % 4, g = lane / 4, t = lane % 4;
-  float o[R][32];
+  float o[RV][32];
   float m[2], l[2], alpha[2];
   float sc[64];
   uint32_t pa[kBK / 16][4];
@@ -561,12 +580,12 @@ flash_attention_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
     const int b = bh / p.hq, h = bh % p.hq;
     const int qw0 = q0 + 64 * wgi;      // first query row of this warpgroup
     const int row0 = qw0 + 16 * w + g;  // this thread's rows: row0 (e < 2), row0 + 8 (e >= 2)
-    const int qs = n % 2;
+    const int qs = n % Q;
     const uint8_t* const q_wg = q_tile(qs) + 64 * wgi * 128;
     int k_begin, n_tiles;
     key_range(q0, k_begin, n_tiles);
 #pragma unroll
-    for (int r = 0; r < R; ++r)
+    for (int r = 0; r < RV; ++r)
 #pragma unroll
       for (int i = 0; i < 32; ++i) o[r][i] = 0.f;
     m[0] = m[1] = -1e30f;  // finite, so masked scores (-inf) give exp2 = 0
@@ -575,7 +594,12 @@ flash_attention_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
     // The products of tile it + 1 overlap the softmax of tile it: Q K_{it+1}ᵀ
     // and P_it V_it are issued together, the scores are waited for, and their
     // softmax runs while P V is still on the tensor cores.
-    hopper::mbar_wait(&q_full[qs], (n / 2) & 1);
+    // With one Q slot, the slot goes back once the item's last scores are in:
+    // the next item's Q then loads during this one's last P V and store.
+    auto release_q = [&](bool last) {
+      if (Q == 1 && last) arrive(&q_empty[qs]);
+    };
+    hopper::mbar_wait(&q_full[qs], (n / Q) & 1);
     if (n_tiles > 0) {
       const int s = tile % S;
       hopper::mbar_wait(&k_full[s], (tile / S) & 1);
@@ -584,6 +608,7 @@ flash_attention_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
       your_turn();
       hopper::wgmma_wait<0>();
       hopper::fence_regs(sc);
+      release_q(n_tiles == 1);
       softmax(sc, m, l, alpha, p, k_begin, qw0, row0, t);
       pack_p();
     }
@@ -593,18 +618,19 @@ flash_attention_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
       hopper::mbar_wait(&v_full[prev], ((cur - 1) / S) & 1);
       my_turn();
       issue_qk<D>(sc, q_wg, k_tile(s));
-      issue_pv<R>(o, pa, v_tile(prev));
+      issue_pv<RV>(o, pa, v_tile(prev));
       your_turn();
       hopper::wgmma_wait<1>();  // the scores; P V may still run
       hopper::fence_regs(sc);
+      release_q(it == n_tiles - 1);
       softmax(sc, m, l, alpha, p, k_begin + it * kBK, qw0, row0, t);
       hopper::wgmma_wait<0>();
 #pragma unroll
-      for (int r = 0; r < R; ++r) hopper::fence_regs(o[r]);
+      for (int r = 0; r < RV; ++r) hopper::fence_regs(o[r]);
       hopper::fence_regs(pa);
       arrive(&empty[prev]);
 #pragma unroll
-      for (int r = 0; r < R; ++r)
+      for (int r = 0; r < RV; ++r)
 #pragma unroll
         for (int i = 0; i < 32; ++i) o[r][i] *= alpha[(i % 4) / 2];
       pack_p();
@@ -613,15 +639,15 @@ flash_attention_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
       const int cur = tile + n_tiles - 1, last = cur % S;
       hopper::mbar_wait(&v_full[last], (cur / S) & 1);
       my_turn();
-      issue_pv<R>(o, pa, v_tile(last));
+      issue_pv<RV>(o, pa, v_tile(last));
       your_turn();
       hopper::wgmma_wait<0>();
 #pragma unroll
-      for (int r = 0; r < R; ++r) hopper::fence_regs(o[r]);
+      for (int r = 0; r < RV; ++r) hopper::fence_regs(o[r]);
       hopper::fence_regs(pa);
       arrive(&empty[last]);
     }
-    arrive(&q_empty[qs]);
+    if (Q == 2 || n_tiles == 0) arrive(&q_empty[qs]);
     tile += n_tiles;
 
     // Row sums across the quad, l == 0 -> 1, and the store of rows < sq.
@@ -638,11 +664,11 @@ flash_attention_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
       if (qp >= p.sq) continue;
       bf16* const row = out + qp * p.o_s;
 #pragma unroll
-      for (int r = 0; r < R; ++r)
+      for (int r = 0; r < RV; ++r)
 #pragma unroll
         for (int j = 0; j < 8; ++j) {
           const int col = 64 * r + 8 * j + 2 * t;
-          if (col < p.d)
+          if (col < p.dv)
             *reinterpret_cast<uint32_t*>(row + col) =
                 pack(o[r][4 * j + 2 * half] * l[half], o[r][4 * j + 2 * half + 1] * l[half]);
         }
@@ -662,21 +688,21 @@ inline bool map_bshd(CUtensorMap* map, const void* base, int batch, int seq, int
   return hopper::encode_map(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, base, dims, strides, box);
 }
 
-template <int D>
+template <int D, int Dv>
 int launch(const void* q, const void* k, const void* v, const Out& p, int batch, int hkv,
            const long long (&st)[9], cudaStream_t stream) {
   CUtensorMap mq, mk, mv;
-  using C = Cfg<D>;
+  using C = Cfg<D, Dv>;
   if (!map_bshd(&mq, q, batch, p.sq, p.hq, D, st[0], st[1], st[2]) ||
       !map_bshd(&mk, k, batch, p.sk, hkv, D, st[3], st[4], st[5]) ||
-      !map_bshd(&mv, v, batch, p.sk, hkv, D, st[6], st[7], st[8]))
+      !map_bshd(&mv, v, batch, p.sk, hkv, Dv, st[6], st[7], st[8]))
     return static_cast<int>(cudaErrorInvalidValue);
-  cudaError_t err = cudaFuncSetAttribute(flash_attention_wgmma_kernel<D>,
+  cudaError_t err = cudaFuncSetAttribute(flash_attention_wgmma_kernel<D, Dv>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, C::kSmem);
   if (err != cudaSuccess) return static_cast<int>(err);
   const long long items = static_cast<long long>(batch) * p.hq * ((p.sq + kBQ - 1) / kBQ);
   const int grid = static_cast<int>(items < hopper::sm_count() ? items : hopper::sm_count());
-  flash_attention_wgmma_kernel<D><<<grid, kThreads, C::kSmem, stream>>>(mq, mk, mv, p);
+  flash_attention_wgmma_kernel<D, Dv><<<grid, kThreads, C::kSmem, stream>>>(mq, mk, mv, p);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -684,13 +710,27 @@ int launch(const void* q, const void* k, const void* v, const Out& p, int batch,
 
 }  // namespace
 
-// q (batch, sq, hq, d), k/v (batch, sk, hkv, d), o (batch, sq, hq, d), each
-// given by (batch, seq, head) strides in elements with unit stride over d;
-// rows 16-byte aligned. d in {64, 96, 128}; hkv divides hq; sk >= 1.
-// window 0: none. dtype 0: float32, 1: bfloat16. body 0: mma.sync (float32
-// only), 1: wgmma (bf16 only).
+// The (head dim of q and k, of v) pairs both bodies take: the GQA configs'
+// 64, 96 and 128, and MLA's (192, 128).
+#define FLASH_PAIRS(X) X(64, 64) X(96, 96) X(128, 128) X(192, 128)
+
+// The dynamic shared memory, in bytes, one block of a body (0: mma.sync,
+// 1: wgmma) takes at a (d, dv) pair; -1 where either is not supported.
+extern "C" int flash_attention_smem_bytes(int d, int dv, int body) {
+#define SMEM(D, DV) \
+  if (d == D && dv == DV) return body == 1 ? wg::Cfg<D, DV>::kSmem : body == 0 ? smem_bytes<D, DV>() : -1;
+  FLASH_PAIRS(SMEM)
+#undef SMEM
+  return -1;
+}
+
+// q (batch, sq, hq, d), k (batch, sk, hkv, d), v (batch, sk, hkv, dv), o
+// (batch, sq, hq, dv), each given by (batch, seq, head) strides in elements
+// with unit stride over its head dim; rows 16-byte aligned. (d, dv) a pair
+// of FLASH_PAIRS; hkv divides hq; sk >= 1. window 0: none. dtype 0: float32,
+// 1: bfloat16. body 0: mma.sync (float32 only), 1: wgmma (bf16 only).
 extern "C" int flash_attention_launch(const void* q, const void* k, const void* v, void* o,
-                                      int batch, int sq, int sk, int hq, int hkv, int d,
+                                      int batch, int sq, int sk, int hq, int hkv, int d, int dv,
                                       long long q_b, long long q_s, long long q_h,
                                       long long k_b, long long k_s, long long k_h,
                                       long long v_b, long long v_s, long long v_h,
@@ -700,19 +740,22 @@ extern "C" int flash_attention_launch(const void* q, const void* k, const void* 
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (body == 1) {
     if (dtype != 1 || sk < 1) return static_cast<int>(cudaErrorInvalidValue);
-    const wg::Out p{o, o_b, o_s, o_h, batch, sq, sk, hq, hq / hkv, d, causal, window,
+    const wg::Out p{o, o_b, o_s, o_h, batch, sq, sk, hq, hq / hkv, dv, causal, window,
                     scale * 1.4426950408889634f};
     const long long st[9] = {q_b, q_s, q_h, k_b, k_s, k_h, v_b, v_s, v_h};
-    switch (d) {
-      case 64: return wg::launch<64>(q, k, v, p, batch, hkv, st, s);
-      case 96: return wg::launch<96>(q, k, v, p, batch, hkv, st, s);
-      case 128: return wg::launch<128>(q, k, v, p, batch, hkv, st, s);
-      default: return static_cast<int>(cudaErrorInvalidValue);
-    }
+#define WG_LAUNCH(D, DV) \
+  if (d == D && dv == DV) return wg::launch<D, DV>(q, k, v, p, batch, hkv, st, s);
+    FLASH_PAIRS(WG_LAUNCH)
+#undef WG_LAUNCH
+    return static_cast<int>(cudaErrorInvalidValue);
   }
   if (body != 0) return static_cast<int>(cudaErrorInvalidValue);
   Params p{q, k, v, o, sq, sk, hq, hq / hkv, q_b, q_s, q_h, k_b, k_s, k_h,
            v_b, v_s, v_h, o_b, o_s, o_h, causal, window, scale};
   if (dtype != 0) return static_cast<int>(cudaErrorInvalidValue);
-  return launch_d(p, batch, d, s);
+#define LAUNCH(D, DV) \
+  if (d == D && dv == DV) return launch<D, DV>(p, batch, s);
+  FLASH_PAIRS(LAUNCH)
+#undef LAUNCH
+  return static_cast<int>(cudaErrorInvalidValue);
 }

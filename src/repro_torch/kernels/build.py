@@ -44,8 +44,9 @@ SIGNATURES = {
         "block_matmul_launch": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     },
     "flash_attention": {
-        "flash_attention_launch": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, *[_LL] * 12,
+        "flash_attention_launch": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, *[_LL] * 12,
                                    _I, _I, _F, _I, _I, _P],
+        "flash_attention_smem_bytes": [_I, _I, _I],
     },
     "ring_exchange": {
         "ring_handle_bytes": [],

@@ -1,11 +1,16 @@
 """Flash attention: online-softmax tiled attention with float32 m, l and acc.
 
 Used by the prefill and eval-loss forward (``models.attention.gqa_train``
-through ``ops.gqa_attention``). It takes the model's layout, q (B, Sq, Hq,
-D) and k/v (B, Sk, Hkv, D) -> (B, Sq, Hq, D), where query head h reads KV
-head h // (Hq // Hkv) in place: the GQA ``repeat`` of the JAX wrapper is
-never materialised. (The JAX kernel's own (BH, S, D) layout is this one
-with a single head.)
+and ``mla_train`` through ``ops.gqa_attention``). It takes the model's
+layout, q (B, Sq, Hq, D), k (B, Sk, Hkv, D) and v (B, Sk, Hkv, Dv) ->
+(B, Sq, Hq, Dv), where query head h reads KV head h // (Hq // Hkv) in
+place: the GQA ``repeat`` of the JAX wrapper is never materialised. (The
+JAX kernel's own (BH, S, D) layout is this one with a single head.) The
+value head dim Dv is D for the GQA configs and 128 at MLA's D = 192
+(DeepSeek-V3): the JAX package pads V to 192 with zeros for its kernel and
+slices the output back; zero columns of V change neither m nor l, so
+reading V at its own width gives the same columns. The scale is 1/sqrt(D),
+of q's head dim.
 
 Kernel: ``csrc/flash_attention.cu`` (a block per (batch·head, q tile) at a
 time, a loop over key tiles inside it; it says what bounds it on the H100).
@@ -57,9 +62,10 @@ from repro_torch.kernels import build
 NEG_INF = -1e30
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 BODIES = {"mma_sync": 0, "wgmma": 1}
-# the GQA configs' head_dim: 64 TinyLlama-1.1B, MusicGen; 96 Phi-3-mini;
-# 128 OLMo-1B, Llama 3, Mixtral, Qwen2-VL, Jamba
-HEAD_DIMS = (64, 96, 128)
+# (head_dim of q and k, of v) pairs the kernel takes: the GQA configs'
+# 64 (TinyLlama-1.1B, MusicGen), 96 (Phi-3-mini) and 128 (OLMo-1B, Llama 3,
+# Mixtral, Qwen2-VL, Jamba), and MLA's (192, 128) (DeepSeek-V3)
+HEAD_DIM_PAIRS = ((64, 64), (96, 96), (128, 128), (192, 128))
 
 
 def _check(q, k, v, window):
@@ -67,10 +73,11 @@ def _check(q, k, v, window):
         raise ValueError(f"flash_attention takes (B, S, H, D) operands, got "
                          f"{tuple(q.shape)}, {tuple(k.shape)}, {tuple(v.shape)}")
     B, Sq, Hq, D = q.shape
-    if (k.shape != v.shape or k.shape[0] != B or k.shape[3] != D
+    if (k.shape[:3] != v.shape[:3] or k.shape[0] != B or k.shape[3] != D
             or k.shape[2] == 0 or Hq % k.shape[2] != 0):
         raise ValueError(f"flash_attention: q {tuple(q.shape)} does not fit k {tuple(k.shape)}"
-                         f" and v {tuple(v.shape)} (KV heads must divide the query heads)")
+                         f" and v {tuple(v.shape)} (k and v agree but in their head dim, k's"
+                         " is q's, and the KV heads divide the query heads)")
     if window is not None and window < 1:
         raise ValueError(f"flash_attention: window must be at least 1, got {window}")
 
@@ -88,17 +95,17 @@ def _key_tiles(q0: int, rows: int, Sk: int, bk: int, causal: bool, window: int |
 
 
 def _plain_bh(q, k, v, causal, window, scale, bq, bk):
-    """The recurrence on (BH, Sq, D) q and (BH, Sk, D) k/v."""
-    BH, Sq, D = q.shape
-    Sk = k.shape[1]
-    out = torch.empty_like(q)
+    """The recurrence on (BH, Sq, D) q, (BH, Sk, D) k and (BH, Sk, Dv) v."""
+    BH, Sq, _ = q.shape
+    Sk, Dv = k.shape[1], v.shape[2]
+    out = torch.empty((BH, Sq, Dv), dtype=q.dtype, device=q.device)
     for q0 in range(0, Sq, bq):
         qt = q[:, q0:q0 + bq].float()
         rows = qt.shape[1]
         q_pos = torch.arange(q0, q0 + rows, device=q.device)[:, None]
         m = torch.full((BH, rows, 1), NEG_INF, dtype=torch.float32, device=q.device)
         l = torch.zeros((BH, rows, 1), dtype=torch.float32, device=q.device)
-        acc = torch.zeros((BH, rows, D), dtype=torch.float32, device=q.device)
+        acc = torch.zeros((BH, rows, Dv), dtype=torch.float32, device=q.device)
         for k0 in _key_tiles(q0, rows, Sk, bk, causal, window):
             kt, vt = k[:, k0:k0 + bk], v[:, k0:k0 + bk]
             s = torch.einsum("bqd,bkd->bqk", qt, kt.float()) * scale
@@ -122,22 +129,22 @@ def _plain_bh(q, k, v, causal, window, scale, bq, bk):
 
 def flash_attention_plain(q, k, v, *, causal: bool = True, window: int | None = None,
                           scale: float | None = None, bq: int = 256, bk: int = 256):
-    """The kernel's plain torch version (module docstring); bq and bk are the
-    JAX kernel's tile sizes."""
+    """The kernel's plain torch version (module docstring), at any value
+    head dim; bq and bk are the JAX kernel's tile sizes."""
     _check(q, k, v, window)
     B, Sq, Hq, D = q.shape
-    Hkv = k.shape[2]
+    Hkv, Dv = k.shape[2], v.shape[3]
     if scale is None:
         scale = 1.0 / (D ** 0.5)
 
-    def heads_first(t, rep):  # (B, S, H, D) -> (B·H·rep, S, D)
+    def heads_first(t, rep):  # (B, S, H, d) -> (B·H·rep, S, d)
         t = t.repeat_interleave(rep, dim=2) if rep > 1 else t
-        return t.transpose(1, 2).reshape(-1, t.shape[1], D)
+        return t.transpose(1, 2).reshape(-1, t.shape[1], t.shape[3])
 
     G = Hq // Hkv
     o = _plain_bh(heads_first(q, 1), heads_first(k, G), heads_first(v, G),
                   causal, window, scale, bq, bk)
-    return o.reshape(B, Hq, Sq, D).transpose(1, 2)
+    return o.reshape(B, Hq, Sq, Dv).transpose(1, 2)
 
 
 def refuse_grad(q, k, v) -> None:
@@ -157,31 +164,33 @@ def body_for(dtype: torch.dtype) -> str:
 def flash_attention(q, k, v, *, causal: bool = True, window: int | None = None,
                     scale: float | None = None) -> torch.Tensor:
     """Attention in the (B, S, H, D) layout (module docstring), bf16 or
-    float32 in and out, head_dim in ``HEAD_DIMS``; scale defaults to
-    1/sqrt(D). Each operand's rows must be contiguous and 16-byte aligned.
+    float32 in and out, (D, Dv) in ``HEAD_DIM_PAIRS``; scale defaults to
+    1/sqrt(D). Each operand's rows must be contiguous and 16-byte aligned
+    (v may be a strided view, as MLA's is).
     The body follows ``body_for``. Every launch adds one to
     ``flash_attention.launches`` and to its body's entry of
     ``flash_attention.body_launches``."""
     if q.device.type == "cpu" and k.device.type == "cpu" and v.device.type == "cpu":
         return flash_attention_plain(q, k, v, causal=causal, window=window, scale=scale)
+    _check(q, k, v, window)
+    B, Sq, Hq, D = q.shape
+    Sk, Hkv, Dv = k.shape[1], k.shape[2], v.shape[3]
+    if (D, Dv) not in HEAD_DIM_PAIRS:
+        raise ValueError(f"flash_attention takes (head_dim, value head_dim) in "
+                         f"{HEAD_DIM_PAIRS}, got {(D, Dv)}")
     if q.device.type != "cuda" or k.device != q.device or v.device != q.device:
         raise ValueError(f"flash_attention takes CPU or same-card CUDA tensors, got "
                          f"{q.device}, {k.device} and {v.device}")
-    _check(q, k, v, window)
     refuse_grad(q, k, v)
     if q.dtype not in _DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
         raise TypeError(f"flash_attention takes float32 or bfloat16 operands of one dtype, "
                         f"got {q.dtype}, {k.dtype} and {v.dtype}")
-    B, Sq, Hq, D = q.shape
-    Sk, Hkv = k.shape[1], k.shape[2]
-    if D not in HEAD_DIMS:
-        raise ValueError(f"flash_attention takes head_dim in {HEAD_DIMS}, got {D}")
     per16 = 16 // q.element_size()
     for t in (q, k, v):
         if t.stride(3) != 1 or any(s % per16 for s in t.stride()[:3]) or t.data_ptr() % 16:
             raise ValueError("flash_attention takes operands whose rows are contiguous "
                              "and 16-byte aligned")
-    out = torch.empty((B, Sq, Hq, D), dtype=q.dtype, device=q.device)
+    out = torch.empty((B, Sq, Hq, Dv), dtype=q.dtype, device=q.device)
     if out.numel() == 0:
         return out
     if Sk == 0:
@@ -193,7 +202,7 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int | None = None,
     with torch.cuda.device(q.device):
         err = lib.flash_attention_launch(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-            B, Sq, Sk, Hq, Hkv, D,
+            B, Sq, Sk, Hq, Hkv, D, Dv,
             *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *out.stride()[:3],
             int(causal), 0 if window is None else int(window), ctypes.c_float(scale),
             _DTYPES[q.dtype], BODIES[body], torch.cuda.current_stream().cuda_stream)
@@ -205,3 +214,9 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int | None = None,
 
 flash_attention.launches = 0
 flash_attention.body_launches = dict.fromkeys(BODIES, 0)
+
+
+def smem_bytes(d: int, dv: int, body: str) -> int:
+    """The dynamic shared memory one block of ``body`` takes at (d, dv),
+    as the kernel's source sizes it (-1 for a pair it does not take)."""
+    return build.load("flash_attention").flash_attention_smem_bytes(d, dv, BODIES[body])

@@ -39,7 +39,8 @@ def _naive_4d(q, k, v, causal, window, scale):
 def gqa_attention_impl(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                        causal: bool = True, window: int | None = None,
                        impl: str = "kernel") -> torch.Tensor:
-    """q (B, Sq, Hq, D), k/v (B, Sk, Hkv, D) -> (B, Sq, Hq, D)."""
+    """q (B, Sq, Hq, D), k (B, Sk, Hkv, D), v (B, Sk, Hkv, Dv) -> (B, Sq, Hq, Dv);
+    the scale is 1/sqrt(D)."""
     Hq, D = q.shape[2], q.shape[3]
     Hkv = k.shape[2]
     if Hq % Hkv:

@@ -15,10 +15,11 @@ import torch.nn.functional as F
 
 def truncated_normal(gen: torch.Generator, shape, dtype, scale, device):
     """``scale`` times a standard normal truncated to [-2, 2], drawn in
-    float32 and cast to ``dtype``."""
+    float32, scaled in place (one float32 copy, not two, of a 256-expert
+    stack) and cast to ``dtype``."""
     t = torch.empty(shape, dtype=torch.float32, device=device)
     torch.nn.init.trunc_normal_(t, 0.0, 1.0, -2.0, 2.0, generator=gen)
-    return (scale * t).to(dtype)
+    return t.mul_(scale).to(dtype)
 
 
 # ----------------------------------------------------------------- norms

@@ -1,12 +1,15 @@
-"""Language model wrapper: embedding -> main stack -> final norm -> logits,
-the loss, and the decode step. All entry points are plain functions of
-(params, batch).
+"""Language model wrapper: embedding -> (dense prefix) -> main stack ->
+final norm -> logits, plus the DeepSeek-style MTP head, the loss, and the
+decode step. All entry points are plain functions of (params, batch).
 
-The port of ``repro.models.model`` for the attention models with dense or
-MoE FFNs, with ``decode_step_staged``, the decode step that pauses at each
-MoE boundary for the multi-tenant fleet. Not ported here: MLA with the
-dense prefix and multi-token-prediction head of DeepSeek-V3 (ROADMAP
-Queue 1 item 2), and ``param_specs`` and ``cache_specs`` (sharding).
+The port of ``repro.models.model`` for the attention models (GQA or MLA)
+with dense or MoE FFNs, with ``decode_step_staged``, the decode step that
+pauses at each MoE boundary for the multi-tenant fleet. DeepSeek-V3's
+dense prefix (``first_dense_layers``) is ``params["prefix"]``, a list of
+per-layer dicts like the stack (the JAX package stacks it in a
+one-tuple), and its multi-token-prediction head ``params["mtp"]`` is
+``{"proj", "norm", "block"}``, the block one dense member. Not ported
+here: ``param_specs`` and ``cache_specs`` (sharding).
 """
 
 from __future__ import annotations
@@ -30,13 +33,6 @@ def _device(device) -> torch.device:
     return device
 
 
-def _check_supported(cfg: ModelConfig) -> None:
-    if cfg.attention == "mla" or cfg.first_dense_layers or cfg.mtp_depth:
-        raise NotImplementedError(
-            "MLA, the dense prefix and the MTP head (DeepSeek-V3) are not ported yet: "
-            "ROADMAP Queue 1 item 2")
-
-
 # ------------------------------------------------------------------ init
 def init_params(key, cfg: ModelConfig, device="cuda"):
     """Random parameters at the JAX package's scales (truncated normal on
@@ -44,7 +40,6 @@ def init_params(key, cfg: ModelConfig, device="cuda"):
     the numbers differ from ``jax.random``'s (carry JAX parameters across
     with ``models.convert.params_from_jax``). Runs on the card unless
     ``device="cpu"`` is given, and raises where there is no card."""
-    _check_supported(cfg)
     device = _device(device)
     gen = key if isinstance(key, torch.Generator) else \
         torch.Generator(device=device).manual_seed(int(key))
@@ -57,6 +52,16 @@ def init_params(key, cfg: ModelConfig, device="cuda"):
     if not cfg.tie_embeddings:
         p["unembed"] = {"w": L.truncated_normal(gen, (cfg.d_model, cfg.vocab), dt,
                                                 cfg.d_model ** -0.5, device)}
+    if cfg.first_dense_layers:
+        p["prefix"] = [T.member_init(gen, cfg, "attn", "mlp", dt, device)
+                       for _ in range(cfg.first_dense_layers)]
+    if cfg.mtp_depth:
+        d = cfg.d_model
+        p["mtp"] = {
+            "proj": L.truncated_normal(gen, (2 * d, d), dt, (2 * d) ** -0.5, device),
+            "norm": L.make_norm(cfg.norm, d, dt, device)[0],
+            "block": T.member_init(gen, cfg, "attn", "mlp", dt, device),
+        }
     return p
 
 
@@ -76,9 +81,10 @@ def _embed_inputs(params, batch, cfg):
 def forward_train(params, batch, cfg: ModelConfig, use_kernel: bool = True):
     """-> (logits (B, S, vocab), aux_loss, hidden (B, S, d)). ``aux_loss``
     is the float32 sum of the MoE layers' load-balance losses (zero
-    without MoE layers)."""
-    _check_supported(cfg)
+    without MoE layers); the dense prefix runs before the stack."""
     x, positions, mrope = _embed_inputs(params, batch, cfg)
+    for member in params.get("prefix", []):  # dense members: their aux is 0
+        x = T.member_train(member, x, cfg, "attn", "mlp", positions, mrope, use_kernel)[0]
     x, aux = T.stack_train(params["stack"], x, cfg, positions, mrope, use_kernel)
     h = _norm_f(cfg)(params["final_norm"], x)
     logits = _unembed(params, h, cfg)
@@ -93,6 +99,21 @@ def _unembed(params, h, cfg):
     if cfg.tie_embeddings:
         return L.unembed_apply(params["embed"], h)
     return h @ params["unembed"]["w"]
+
+
+def mtp_logits(params, h, batch, cfg, use_kernel=True):
+    """DeepSeek MTP: predict token t+2 from [h_t ; emb(token_{t+1})]
+    through one extra block sharing the embedding and unembedding; the
+    last position sees token 0."""
+    tokens = batch["tokens"]
+    B, S = tokens.shape
+    nxt = torch.cat([tokens[:, 1:], tokens.new_zeros((B, 1))], dim=1)
+    e = L.embed_apply(params["embed"], nxt).to(h.dtype)
+    z = torch.cat([_norm_f(cfg)(params["mtp"]["norm"], h), e], dim=-1) @ params["mtp"]["proj"]
+    positions = torch.arange(S, dtype=torch.int32, device=h.device).expand(B, S)
+    z = T.member_train(params["mtp"]["block"], z, cfg, "attn", "mlp", positions, None,
+                       use_kernel)[0]
+    return _unembed(params, z, cfg)
 
 
 def softmax_xent(logits, labels, valid=None):
@@ -113,15 +134,24 @@ def loss_fn(params, batch, cfg: ModelConfig, use_kernel: bool = True):
     if cfg.moe is not None:
         loss = loss + cfg.moe.aux_loss_weight * aux
         metrics["moe_aux"] = aux
+    if cfg.mtp_depth and "tokens" in batch:
+        ml = mtp_logits(params, h, batch, cfg, use_kernel)
+        mtp_loss = softmax_xent(ml[:, :-2], labels[:, 2:])
+        loss = loss + 0.3 * mtp_loss
+        metrics["mtp"] = mtp_loss
     metrics["loss"] = loss
     return loss, metrics
 
 
 # ---------------------------------------------------------------- decode
 def init_cache(cfg: ModelConfig, batch: int, max_seq: int, dtype=None, device="cuda"):
-    _check_supported(cfg)
     dt = dtype or _dtype(cfg.compute_dtype)
-    return {"stack": T.stack_cache_init(cfg, batch, max_seq, dt, _device(device))}
+    device = _device(device)
+    cache = {"stack": T.stack_cache_init(cfg, batch, max_seq, dt, device)}
+    if cfg.first_dense_layers:
+        cache["prefix"] = [T.member_cache_init(cfg, "attn", batch, max_seq, dt, device)
+                           for _ in range(cfg.first_dense_layers)]
+    return cache
 
 
 def decode_step(params, cache, batch, position, cfg: ModelConfig):
@@ -143,15 +173,17 @@ def decode_step_staged(params, cache, batch, position, cfg: ModelConfig):
     ``StopIteration.value`` is ``(logits (B, vocab), cache)``. The
     multi-tenant fleet's engines (``serve.fleet``) decode with it, so that
     N tenants' expert dispatches share one combined program replay a
-    boundary. The dense prefix of DeepSeek-V3 waits for MLA
-    (``_check_supported``)."""
-    _check_supported(cfg)
+    boundary. The dense prefix (DeepSeek-V3) has no MoE member and runs
+    first, inline."""
     if cfg.embeds_input and "embed" in batch:
         x = batch["embed"][:, None].to(_dtype(cfg.compute_dtype))
     else:
         x = L.embed_apply(params["embed"], batch["token"][:, None]).to(_dtype(cfg.compute_dtype))
+    mrope = batch.get("mrope_positions")
+    for member, member_cache in zip(params.get("prefix", []), cache.get("prefix", [])):
+        x = T.member_decode(member, x, member_cache, cfg, "attn", "mlp", position, mrope)[0]
     x, stack_cache = yield from T.stack_decode_staged(params["stack"], x, cache["stack"], cfg,
-                                                      position, batch.get("mrope_positions"))
+                                                      position, mrope)
     h = _norm_f(cfg)(params["final_norm"], x)
     logits = _unembed(params, h, cfg)
     return logits[:, 0], {**cache, "stack": stack_cache}

@@ -1,8 +1,9 @@
 """Composable decoder: blocks = mixer + optional FFN, pre-norm residual.
 
-The port of ``repro.models.transformer`` for ``attn`` mixers with dense
-``mlp`` or ``moe`` FFNs, in the train (full sequence) and decode (one
-token, cache) forms. The JAX package stacks layers as repeating groups and
+The port of ``repro.models.transformer`` for ``attn`` mixers (GQA, or MLA
+where ``cfg.attention == "mla"``) with dense ``mlp`` or ``moe`` FFNs, in
+the train (full sequence) and decode (one token, cache) forms. The JAX
+package stacks layers as repeating groups and
 scans them with ``lax.scan`` under ``jax.checkpoint``; here the stack is a
 list with one parameter dict per layer, in the JAX stack's order (group g,
 member mi is layer g·period + mi), walked by a Python loop. There is no
@@ -15,14 +16,14 @@ with sharding rules active (``dist.sharding.set_active``), the
 expert-parallel or tensor-parallel path on this rank's data shard; its
 load-balance loss is summed over the stack in train form and dropped in
 decode form, as in the JAX package. ``mamba``, ``mlstm`` and ``slstm``
-members raise ``NotImplementedError``, and so does MLA (``models.model``
-refuses its configs).
+members raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
+from torch.autograd.profiler import record_function
 
 from repro_torch.models import attention as A
 from repro_torch.models import layers as L
@@ -51,7 +52,7 @@ def layer_kinds(cfg) -> list[tuple[str, str]]:
 def member_init(gen, cfg, mixer: str, ffn: str, dtype, device):
     _check_kinds(mixer, ffn)
     p = {"norm1": L.make_norm(cfg.norm, cfg.d_model, dtype, device)[0]}
-    p["mixer"] = A.gqa_init(gen, cfg, dtype, device)
+    p["mixer"] = (A.mla_init if cfg.attention == "mla" else A.gqa_init)(gen, cfg, dtype, device)
     if ffn != "none":
         p["norm2"] = L.make_norm(cfg.norm, cfg.d_model, dtype, device)[0]
         p["ffn"] = MOE.moe_init(gen, cfg, dtype, device) if ffn == "moe" else L.mlp_init(
@@ -68,10 +69,12 @@ def _act(cfg):
 
 
 def _ffn(params, h2, cfg, ffn):
-    """(y, aux) of the member's FFN on its post-norm2 hidden."""
+    """(y, aux) of the member's FFN on its post-norm2 hidden; a dense FFN
+    runs under the profiler label ``ffn.mlp``."""
     if ffn == "moe":
         return MOE.moe_apply_auto(params, h2, cfg)
-    return L.mlp_apply(params, h2, act=_act(cfg)), None
+    with record_function("ffn.mlp"):
+        return L.mlp_apply(params, h2, act=_act(cfg)), None
 
 
 def member_train(params, x, cfg, mixer, ffn, positions, mrope_positions, use_kernel):
@@ -80,7 +83,10 @@ def member_train(params, x, cfg, mixer, ffn, positions, mrope_positions, use_ker
     _check_kinds(mixer, ffn)
     norm = _norm(cfg)
     h = norm(params["norm1"], x)
-    x = x + A.gqa_train(params["mixer"], h, cfg, positions, mrope_positions, use_kernel)
+    if cfg.attention == "mla":
+        x = x + A.mla_train(params["mixer"], h, cfg, positions, use_kernel=use_kernel)
+    else:
+        x = x + A.gqa_train(params["mixer"], h, cfg, positions, mrope_positions, use_kernel)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     if ffn != "none":
         y, moe_aux = _ffn(params["ffn"], norm(params["norm2"], x), cfg, ffn)
@@ -95,12 +101,25 @@ def member_decode_mixer(params, x, cache, cfg, mixer, position, mrope_positions)
     Returns (x, cache) — the FFN half (if any) applies on top."""
     _check_kinds(mixer, "none")
     h = _norm(cfg)(params["norm1"], x)
-    mx, cache = A.gqa_decode(params["mixer"], h, cache, cfg, position, mrope_positions)
+    if cfg.attention == "mla":
+        mx, cache = A.mla_decode(params["mixer"], h, cache, cfg, position)
+    else:
+        mx, cache = A.gqa_decode(params["mixer"], h, cache, cfg, position, mrope_positions)
     return x + mx, cache
+
+
+def member_decode(params, x, cache, cfg, mixer, ffn, position, mrope_positions):
+    """One decode member with its FFN computed inline. Returns (x, cache)."""
+    x, cache = member_decode_mixer(params, x, cache, cfg, mixer, position, mrope_positions)
+    if ffn != "none":
+        x = x + _ffn(params["ffn"], _norm(cfg)(params["norm2"], x), cfg, ffn)[0]
+    return x, cache
 
 
 def member_cache_init(cfg, mixer, batch, max_seq, dtype, device):
     _check_kinds(mixer, "none")
+    if cfg.attention == "mla":
+        return A.mla_cache_init(cfg, batch, max_seq, dtype, device)
     return A.gqa_cache_init(cfg, batch, max_seq, dtype, device)
 
 
@@ -141,7 +160,7 @@ def stack_decode_staged(stack_params, x, caches, cfg, position, mrope_positions=
             y = yield (params["ffn"], norm(params["norm2"], x))
             x = x + torch.as_tensor(y).to(device=x.device, dtype=x.dtype)
         elif ffn != "none":
-            x = x + L.mlp_apply(params["ffn"], norm(params["norm2"], x), act=_act(cfg))
+            x = x + _ffn(params["ffn"], norm(params["norm2"], x), cfg, ffn)[0]
     return x, new_caches
 
 

@@ -625,6 +625,72 @@ def test_flash_attention_kernel_refuses_autograd(cuda):
     assert flash_attention.launches == before + 1 and not out.requires_grad
 
 
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=str)
+@pytest.mark.parametrize("b,sq,sk,hq,hkv,causal", [
+    (2, 128, 128, 4, 4, True),
+    (1, 300, 300, 8, 8, True),      # Sq, Sk off the tiles
+    (1, 100, 333, 4, 2, False),     # Sq != Sk, grouped KV heads
+    (2, 1024, 1024, 32, 32, True),  # 512 work items: each wgmma block reuses its one Q slot
+    (1, 1, 200, 4, 4, True),        # one query row
+], ids=str)
+def test_flash_attention_mla_head_dims_match_plain(cuda, dtype, b, sq, sk, hq, hkv, causal):
+    """K4 at MLA's head dims, q and k of 192 and v of 128, in both bodies
+    (the wgmma body for bf16, mma_sync for float32), against its plain
+    version; v is the strided second half of a (B, S, H, 256) tensor, as
+    ``models.attention.mla_train`` hands it over, and is read in place.
+    The scale is 1/sqrt(192). Tolerances as in the other K4 tests."""
+    rng = np.random.default_rng(12)
+    q, k, kv = (torch.from_numpy(rng.standard_normal(s).astype(np.float32)).to(cuda, dtype)
+                for s in [(b, sq, hq, 192), (b, sk, hkv, 192), (b, sk, hkv, 256)])
+    v = kv[..., 128:]
+    assert not v.is_contiguous()
+    flash_attention.body_launches = dict.fromkeys(flash_attention.body_launches, 0)
+    got = flash_attention(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    body = "wgmma" if dtype == torch.bfloat16 else "mma_sync"
+    assert flash_attention.body_launches[body] == 1 and got.shape == (b, sq, hq, 128)
+    want = flash_attention_plain(q, k, v.contiguous(), causal=causal)
+    tol = 1e-2 if dtype == torch.bfloat16 else 2e-4
+    np.testing.assert_allclose(got.float().cpu().numpy(), want.float().cpu().numpy(),
+                               rtol=tol, atol=tol)
+    assert float((got.float() - want.float()).norm() / want.float().norm()) <= 1e-2
+    # the JAX package's route: v padded to 192 with zeros, the output sliced back
+    padded = torch.nn.functional.pad(v, (0, 64))
+    np.testing.assert_allclose(
+        flash_attention_plain(q, k, padded, causal=causal)[..., :128].float().cpu().numpy(),
+        want.float().cpu().numpy(), rtol=1e-6, atol=1e-6)
+
+
+@pytest.mark.gpu
+def test_flash_attention_shared_memory_layouts(cuda):
+    """The GQA instances keep their layouts (two Q slots, a 3- or 2-stage
+    ring of K and V tiles of one size); MLA's (192, 128) takes one Q slot,
+    K over three 64-column regions and V over two, and fits a block."""
+    from repro_torch.kernels.flash_attention.flash_attention import smem_bytes
+
+    region, bars = 128 * 128, lambda q, s: 8 * (2 * q + 3 * s) + 1024
+    assert smem_bytes(64, 64, "wgmma") == region * (2 + 2 * 3) + bars(2, 3)
+    for d in (96, 128):
+        assert smem_bytes(d, d, "wgmma") == 2 * region * (2 + 2 * 2) + bars(2, 2)
+    assert smem_bytes(192, 128, "wgmma") == 3 * region + 2 * (3 + 2) * region + bars(1, 2)
+    assert smem_bytes(192, 128, "wgmma") <= 232448
+    for d, dv in ((64, 64), (96, 96), (128, 128), (192, 128)):
+        assert smem_bytes(d, dv, "mma_sync") == (4 * 64 * (d + 8) + 2 * 64 * (dv + 8)) * 2
+    assert smem_bytes(192, 192, "wgmma") == -1 and smem_bytes(128, 64, "mma_sync") == -1
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("d,dv", [(192, 192), (128, 64), (192, 64)], ids=str)
+def test_flash_attention_kernel_refuses_other_head_dim_pairs(cuda, d, dv):
+    q = torch.zeros((1, 64, 2, d), device=cuda, dtype=torch.bfloat16)
+    v = torch.zeros((1, 64, 2, dv), device=cuda, dtype=torch.bfloat16)
+    before = flash_attention.launches
+    with pytest.raises(ValueError, match="head_dim"):
+        flash_attention(q, q, v)
+    assert flash_attention.launches == before
+
+
 # ------------------------------------------------- card: K5, the ring exchange
 def _k5_rank(rank, group, layout):
     """One rank of the K5 check: per dtype and shape, three calls with fresh

@@ -165,10 +165,10 @@ def test_forward_and_loss_match(arch, use_kernel):
     assert metrics["ce"] is tloss
 
 
-@pytest.mark.parametrize("arch", ["tinyllama-1.1b", "olmo-1b", "mixtral-8x7b"])
+@pytest.mark.parametrize("arch", ["tinyllama-1.1b", "olmo-1b", "mixtral-8x7b", "deepseek-v3-671b"])
 def test_kernel_and_naive_forwards_agree(arch):
     cfg = get_smoke_config(arch)
-    if cfg.moe is not None:  # the sliding window of mixtral, on a dense stack
+    if cfg.moe is not None:  # mixtral's window and deepseek's MLA, on dense stacks
         cfg = dataclasses.replace(cfg, moe=None, family="dense")
     params = TM.init_params(1, cfg, device="cpu")
     batch = {"tokens": torch.from_numpy(
@@ -178,10 +178,11 @@ def test_kernel_and_naive_forwards_agree(arch):
     close(a, b, MODEL_TOL)
 
 
-@pytest.mark.parametrize("arch", ["tinyllama-1.1b", "olmo-1b", "qwen2-vl-7b"])
+@pytest.mark.parametrize("arch", ["tinyllama-1.1b", "olmo-1b", "qwen2-vl-7b", "deepseek-v3-671b"])
 def test_decode_steps_match(arch):
-    """Several decode steps at per-slot positions, the KV cache carried
-    from step to step on both sides."""
+    """Several decode steps at per-slot positions, the KV cache (MLA's
+    latent cache, and the dense prefix's) carried from step to step on
+    both sides."""
     cfg, jp, tp = both(arch, seed=2)
     B, max_seq = 3, 16
     jc = JM.init_cache(j_smoke(arch), B, max_seq, dtype=jnp.float32)
@@ -202,10 +203,14 @@ def test_decode_steps_match(arch):
         tlog, tc = TM.decode_step(tp, tc, tb, torch.from_numpy(pos.copy()), cfg)
         close(tlog, jlog, MODEL_TOL)
         pos = pos + 1
-    (jcache,) = jc["stack"]  # one member per group: layer l is group l
-    for layer, tcache in enumerate(tc["stack"]):
-        close(tcache["k"], jcache["k"][layer], MODEL_TOL)
-        close(tcache["v"], jcache["v"][layer], MODEL_TOL)
+    assert set(tc) == set(jc)
+    for part in tc:  # one member per group: layer l is group l
+        (jcache,) = jc[part]
+        for layer, tcache in enumerate(tc[part]):
+            assert set(tcache) == set(jcache) == ({"c_kv", "k_rope"} if cfg.attention == "mla"
+                                                  else {"k", "v"})
+            for key in tcache:
+                close(tcache[key], jcache[key][layer], MODEL_TOL)
 
 
 def test_decode_matches_the_forward_at_the_last_prompt_token():
@@ -252,10 +257,9 @@ def _fleet_report():
 @pytest.mark.parametrize("call,what", [
     (_moe_under_rules((1, 4), "auto"), "autotuner"),
     (_fleet_report(), "autotuner"),
-    (_init("jamba-1.5-large-398b"), "Mamba"), (_init("xlstm-1.3b"), "LSTM"),
-    (_init("deepseek-v3-671b"), "ROADMAP")],
+    (_init("jamba-1.5-large-398b"), "Mamba"), (_init("xlstm-1.3b"), "LSTM")],
     ids=["moe-ep-auto-autotuner", "fleet-collective-report-autotuner",
-         "jamba-1.5-large-398b-Mamba", "xlstm-1.3b-LSTM", "deepseek-v3-671b-ROADMAP"])
+         "jamba-1.5-large-398b-Mamba", "xlstm-1.3b-LSTM"])
 def test_unported_members_name_the_roadmap(call, what):
     with pytest.raises(NotImplementedError, match=what) as err:
         call()
