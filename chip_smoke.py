@@ -40,6 +40,21 @@ per-shard path on one NVIDIA card, end to end.
    989 TFLOP/s bf16 for flash attention; combine_rows' hook (with acc)
    beside its own bound, three passes of the buffer
    (``combine_hook_ms``, ``combine_hook_bound_ms``);
+6b. measures the autotuner's seeds on the card (``BANDWIDTH``: one 25 MiB
+   ``copy_``, best of 20; ``T_KERNEL``: one K2 launch at (16, 64), 200 back
+   to back) and prints them on a line of their own beside the constants in
+   ``runtime/autotune.py``; then ``get_backend("auto")`` with a measuring
+   tuner on a cache in a temporary directory decides each collective at
+   its cell's bytes (the matmul at X = ``AUTO_MATMUL_BLOCK`` = 128, not
+   512: its ``sendrecv`` candidate, the NumPy trace interpreter, would move
+   16 times the bytes there), timing every candidate one process can run
+   (``fused``, ``cuda_fused``, ``sendrecv``): per key every candidate's
+   measured µs beside its analytic seed, the decision and the wall time it
+   took; a second call of each (a memo hit) with the launch counts set to
+   0, holding them to the decision (``cuda_fused``: 1 K1 for the
+   all-reduce, 32 K2 and 16 K3 for the matmul; otherwise none) and every
+   result bit for bit to the plain path; a second tuner on the same file
+   decides every key from the cache, its timer made to raise;
 7. holds flash attention (K4) against its plain version on the card: at
    TinyLlama-1.1B's prefill shape (q (8, 2048, 32, 64) bf16, k/v
    (8, 2048, 4, 64), causal), at small shapes with head_dim 64, 96
@@ -144,7 +159,14 @@ per-shard path on one NVIDIA card, end to end.
    ``moe_apply_ep_plain``, the aux equal; per mode the wall ms of a call
    of all ranks (median of 3 after a warm-up), the exchange, expert-FFN
    and all-gather ms (``moe.timing_parts``), the carrier's copies and
-   bytes, the drops and the peak. b) ``forward_train`` on tokens
+   bytes, the drops and the peak; then the layer with
+   ``moe_collectives="auto"``: the decision measured on the 8 ranks
+   together (each on a measuring tuner of its own cache file), the same on
+   every rank, the output the bits of the fixed mode it names (not
+   ``xla``'s: the fused mode sums in another order), the measured µs per
+   candidate beside each mode's wall ms, a second call timed (a memo
+   hit), and ``Engine.collective_report()`` under those rules (measured
+   and the same on every rank). b) ``forward_train`` on tokens
    (1, 8192) in the ``dragonfly`` mode with K4 on, exactly 8 ``wgmma``
    launches a rank, rank 0's last-token logits and loss against the
    one-process forward whose MoE layers are ``moe_apply_ep_plain``
@@ -195,8 +217,10 @@ per-shard path on one NVIDIA card, end to end.
    every tenant's tokens against its solo fleet's, the combined tokens
    against the time-multiplexed ones, the survivor across the evict, all
    8 ranks against each other, fewer replayed rounds combined than
-   time-multiplexed, and the first combined boundary's replay output
-   against ``guest_expert_ffn`` run per destination in one process
+   time-multiplexed, ``collective_report()`` after the combined arm on
+   every rank (measured, the same decision on all 8, fewer combined rounds
+   than time-multiplexed; printed), and the first combined boundary's
+   replay output against ``guest_expert_ffn`` run per destination in one process
    (rtol = atol = 1e-4 and relative rms 1e-4: float32 products batched
    otherwise); then the launcher's path, the ``reference`` backend in one
    process with the tenants on the card, serves the combined arm's
@@ -257,6 +281,7 @@ import pathlib
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 import types
 
@@ -299,6 +324,10 @@ FLEET_LAYERS = 2  # of Mixtral's 32, per tenant: 6.3 GB of bf16 weights each
 FLEET_SLOTS, FLEET_REQUESTS, FLEET_NEW, FLEET_MAX_SEQ = 2, 3, 8, 32
 FLEET_FFN_TOL = 1e-4  # float32 expert FFN, the replay's wave batches against one batch
 FLEET_PHASE_S = 300  # the fleet phase's time budget
+AUTO_MATMUL_BLOCK = 128  # the autotuner's matmul key: X = 128, not the cell's 512. Its sendrecv
+# candidate, the NumPy trace interpreter, replays 2.7–2.9 s a call at X = 128 (the autotune line),
+# X = 512 has 16 times the bytes and 64 times the block products, and the tuner times 4 calls
+AUTO_PHASE_S = 240  # the global-site autotuner step's time budget
 
 
 def require(cond: bool, what: str) -> None:
@@ -351,6 +380,56 @@ def zero_counts(wrappers) -> None:
             fn.body_launches = dict.fromkeys(fn.body_launches, 0)
         if hasattr(fn, "acc_launches"):
             fn.acc_launches = 0
+
+
+def timing_decisions(tuner) -> list:
+    """Wrap ``tuner.decide`` so that each call's wall seconds are appended
+    to the returned list (a memo hit's too)."""
+    seconds, real = [], tuner.decide
+
+    def timed(*args, **kw):
+        t0 = time.perf_counter()
+        dec = real(*args, **kw)
+        seconds.append(time.perf_counter() - t0)
+        return dec
+
+    tuner.decide = timed
+    return seconds
+
+
+def autotune_seeds(dev, time_ms) -> dict:
+    """The autotuner's measured seeds on this card: ``BANDWIDTH``, bytes a
+    second of one 25 MiB device-to-device ``copy_`` (best of 20, CUDA
+    events), and ``T_KERNEL``, seconds of one K2 (``combine_rows``) launch
+    on (16, 64) float32 rows of grid (2, 2)'s first combine group, 200
+    launches back to back (median of 5)."""
+    import torch
+
+    from repro_torch.dist import collectives as dc
+    from repro_torch.runtime import optimize as opt
+    from repro_torch.runtime.backends import cuda_fused as cf
+
+    src = torch.randn(BUCKET, device=dev)
+    dst = torch.empty_like(src)
+    for _ in range(3):
+        dst.copy_(src)
+    best = float("inf")
+    for _ in range(20):
+        start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        dst.copy_(src)
+        stop.record()
+        stop.synchronize()
+        best = min(best, start.elapsed_time(stop))
+    prog = dc.matmul_program(2, 2, optimized=True)
+    tabs = next(t for kind, _, t in opt.matmul_tables(prog) if kind == "combine")
+    tc = opt.to_device_tables(tabs, dev)
+    tc["packed"] = cf.pack_tables(tc["gather"], tc["mask"])
+    val = torch.randn(prog.n, 64, device=dev)
+    launch_ms = time_ms(lambda: cf.combine_rows(val, tc["gather"], tc["mask"], packed=tc["packed"]),
+                        reps=5, warmup=3, calls=200)
+    return {"BANDWIDTH": BUCKET * 4 / (best * 1e-3), "copy_bytes": BUCKET * 4, "copy_ms": best,
+            "T_KERNEL": launch_ms * 1e-3, "k2_rows": [prog.n, 64]}
 
 
 def per_shard_rank(rank, group, layout, seed):
@@ -448,7 +527,7 @@ def per_shard_rank(rank, group, layout, seed):
             "wait_ms": statistics.median(wait_ms)}
 
 
-def ep_rank(rank, group, layout, mparams, cfg, x, tokens, want_y, layers_b):
+def ep_rank(rank, group, layout, mparams, cfg, x, tokens, want_y, layers_b, tune_dir):
     """One rank of the EP phase, on a (1, 8) mesh of processes sharing the
     card. ``mparams`` are the parent's weights, shared through CUDA IPC:
     the rank takes its expert of every layer as a view and writes to none.
@@ -458,6 +537,12 @@ def ep_rank(rank, group, layout, mparams, cfg, x, tokens, want_y, layers_b):
        routes are kept (and held against the one-process ``want_y`` and
        between the modes here), then EP_CALLS timed calls (from a barrier
        to the device's end), then one call under ``moe.timing_parts``;
+       then the layer with ``moe_collectives="auto"`` on a measuring tuner
+       of its own cache file in ``tune_dir`` (the decision measured on the
+       model group and agreed by all ranks, each decision's wall time
+       kept), its output held against the named mode's, a second call (a
+       memo hit) timed, and ``Engine.collective_report()`` under the
+       ``auto`` rules;
     b) ``forward_train`` with K4 on ``tokens`` in the ``dragonfly`` mode over
        ``layers_b`` layers, its K4 launches counted, then ``loss_fn``, one
        forward under ``timing_parts`` and one timed forward.
@@ -470,6 +555,8 @@ def ep_rank(rank, group, layout, mparams, cfg, x, tokens, want_y, layers_b):
     from repro_torch.launch.mesh import make_mesh
     from repro_torch.models import model as M
     from repro_torch.models import moe as MOE
+    from repro_torch.runtime import autotune as AT
+    from repro_torch.serve.engine import Engine
 
     dev = x.device
     mesh = make_mesh(EP_MESH, ("data", "model"), device=dev.type)
@@ -517,6 +604,28 @@ def ep_rank(rank, group, layout, mparams, cfg, x, tokens, want_y, layers_b):
         layer["modes"][mode] = {"first_ms": first_ms, "call_ms": times, "parts": dict(parts),
                                 "carrier_per_call": copies, "dropped": int((~keep).sum()),
                                 "entries": keep.numel(), "peak_gib": peak_gib()}
+    # a') the autotuner's pick, agreed by every rank, then a memo hit
+    tuner = AT.Autotuner(cache_path=pathlib.Path(tune_dir) / f"ep-{rank}.json", device=dev)
+    decide_s = timing_decisions(tuner)
+    AT.set_autotuner(tuner)
+    SH.set_active(SH.ShardRules(moe_collectives="auto"), mesh)
+    (y_auto, aux_auto), first_ms = wall_ms(lambda: MOE.moe_apply_auto(ffn0, x, cfg))
+    dec = tuner.decisions[-1]
+    mode = AT.EP_MODE[dec.strategy]
+    (y_memo, _), memo_ms = wall_ms(lambda: MOE.moe_apply_auto(ffn0, x, cfg))
+    memo_hit = len(tuner.decisions) == 1 and len(decide_s) == 2
+    report = Engine(cfg, params, 4, 128, device=dev).collective_report()
+    AT.set_autotuner(None)
+    same = [torch.equal(y.view(torch.int16), outs[mode][0].view(torch.int16))
+            for y in (y_auto, y_memo)]
+    layer["auto"] = {"key": str(dec.key), "strategy": dec.strategy, "source": dec.source,
+                     "mode": mode, "measured_us": dec.measured_us, "analytic_us": dec.analytic_us,
+                     "decide_ms": decide_s[0] * 1e3, "memo_decide_ms": decide_s[1] * 1e3,
+                     "first_call_ms": first_ms, "memo_call_ms": memo_ms, "memo_hit": memo_hit,
+                     "bits_equal_named_mode": all(same),
+                     "aux_equal_named_mode": float(aux_auto) == float(outs[mode][1]),
+                     "engine_report": report}
+    del y_auto, y_memo
     xla_y = outs["xla"][0]
     layer["bit_identical_to_xla"] = {
         mode: bool(torch.equal(outs[mode][0].view(torch.int16), xla_y.view(torch.int16)))
@@ -607,8 +716,9 @@ def ep_phase(dev, mparams, mcfg, seed):
 
     build.build_all()  # the ranks only load the libraries
     t0 = time.perf_counter()
-    ranks = spawn(ep_rank, ranks_n, device="cuda",
-                  args=(mparams, mcfg, x, tokens, want_y, EP_FORWARD_LAYERS))
+    with tempfile.TemporaryDirectory(prefix="autotune-ep-") as tune_dir:
+        ranks = spawn(ep_rank, ranks_n, device="cuda",
+                      args=(mparams, mcfg, x, tokens, want_y, EP_FORWARD_LAYERS, tune_dir))
     ranks_s = time.perf_counter() - t0
     torch.cuda.ipc_collect()  # free what the ranks released of the shared tensors
     require(_checksum(mparams) == before, "a rank wrote to the shared weights")
@@ -626,6 +736,19 @@ def ep_phase(dev, mparams, mcfg, seed):
                         f"relative rms {rel}")
         require(len(set(rec["aux"].values())) == 1, f"EP layer, rank {r}: aux {rec['aux']}")
     require(all(rec["aux"] == lay[0]["aux"] for rec in lay), "EP layer: aux differs between ranks")
+    autos = [rec["auto"] for rec in lay]
+    for r, a in enumerate(autos):
+        require((a["key"], a["strategy"], a["source"], a["measured_us"]) == (
+            autos[0]["key"], autos[0]["strategy"], "measured", autos[0]["measured_us"]),
+            f"EP auto, rank {r}: decided {a['strategy']} ({a['source']}), rank 0 "
+            f"{autos[0]['strategy']}")
+        require(a["bits_equal_named_mode"] and a["aux_equal_named_mode"] and a["memo_hit"],
+                f"EP auto, rank {r}: not the bits of {a['mode']}, or no memo hit: {a}")
+        rep = a["engine_report"]
+        require(rep["status"] == "ok" and rep["source"] == "measured" and
+                (rep["strategy"], rep["measured_us"]) == (
+                    autos[0]["engine_report"]["strategy"], autos[0]["engine_report"]["measured_us"]),
+                f"EP auto, rank {r}: Engine.collective_report {rep}")
     aux_rel = abs(lay[0]["aux"]["xla"] - float(want_aux)) / abs(float(want_aux))
     require(aux_rel < 1e-5, f"EP layer aux {lay[0]['aux']['xla']} vs plain {float(want_aux)}")
     modes = {}
@@ -653,7 +776,18 @@ def ep_phase(dev, mparams, mcfg, seed):
                  "fused_vs_xla": {"max_abs_err": max(rec["fused_vs_xla"][1] for rec in lay),
                                   "rel_rms": max(rec["fused_vs_xla"][2] for rec in lay)},
                  "tol": FLASH_TOL[str(x.dtype)], "aux": lay[0]["aux"]["xla"],
-                 "plain_aux": float(want_aux), "modes": modes}
+                 "plain_aux": float(want_aux), "modes": modes,
+                 "auto": {"key": autos[0]["key"], "strategy": autos[0]["strategy"],
+                          "mode": autos[0]["mode"], "ranks_agree": len(autos),
+                          "measured_us": autos[0]["measured_us"],
+                          "mode_call_ms": {m: modes[m]["call_ms"] for m in EP_MODES},
+                          "analytic_us": autos[0]["analytic_us"],
+                          "decide_ms_max_rank": max(a["decide_ms"] for a in autos),
+                          "first_call_ms_max_rank": max(a["first_call_ms"] for a in autos),
+                          "memo_call_ms_max_rank": max(a["memo_call_ms"] for a in autos),
+                          "memo_decide_ms_max_rank": max(a["memo_decide_ms"] for a in autos),
+                          "bits_equal_named_mode": True,
+                          "engine_report": autos[0]["engine_report"]}}
 
     # b) the model forward
     mod = [r["model"] for r in ranks]
@@ -1067,13 +1201,15 @@ def _tensors(tree):
         yield tree
 
 
-def fleet_rank(rank, group, layout, tenants, cfg, prompts, device):
+def fleet_rank(rank, group, layout, tenants, cfg, prompts, device, tune_dir):
     """One rank of the fleet phase: 8 ranks share the card as the D3(2,2)
     host, every rank driving the same ``TenantFleet`` over ``torch_dist``.
     ``tenants`` are the parent's weights, shared through CUDA IPC. Runs
     the combined arm, each tenant alone, the time-multiplexed arm and the
     churn drill (evict tenant 1 mid-traffic, then re-admit it), each from
-    a barrier, after an untimed warm-up of both tenants; rank 0 also holds
+    a barrier, after an untimed warm-up of both tenants; after the combined
+    arm, ``collective_report()`` on a measuring tuner of the rank's own
+    cache file in ``tune_dir`` (timed); rank 0 also holds
     the first combined boundary's replay output against
     ``guest_expert_ffn`` run per destination in this one process. Returns
     host data."""
@@ -1081,10 +1217,13 @@ def fleet_rank(rank, group, layout, tenants, cfg, prompts, device):
     import torch.distributed as dist
 
     from repro_torch.launch.mesh import rank_device
+    from repro_torch.runtime import autotune as AT
     from repro_torch.serve.fleet import TenantFleet
 
     dev = rank_device(rank, device)
     captured = {}
+    AT.set_autotuner(AT.Autotuner(cache_path=pathlib.Path(tune_dir) / f"fleet-{rank}.json",
+                                  device=dev))
 
     def sync():
         if dev.type == "cuda":
@@ -1144,6 +1283,10 @@ def fleet_rank(rank, group, layout, tenants, cfg, prompts, device):
         out[arm] = serve(fleet, tids)
         out[arm]["rounds_a_boundary"] = fleet.program().num_rounds if combined else sum(
             fleet._solo_program(t.embedding).num_rounds for t in fleet.tenants.values())
+        if combined:
+            t0 = time.perf_counter()
+            out["report"] = fleet.collective_report()
+            out["report_s"] = time.perf_counter() - t0
     for i, p in enumerate(tenants):
         fleet = make()
         out[f"solo{i}"] = serve(fleet, [fleet.admit_model(cfg, p, guest=FLEET_GUEST,
@@ -1217,7 +1360,9 @@ def fleet_phase(dev, mcfg, seed):
     C = MOE.guest_capacity(cfg.moe, FLEET_SLOTS)
     ranks_n = FLEET_HOST[0] * FLEET_HOST[1] ** 2
     t0 = time.perf_counter()
-    ranks = spawn(fleet_rank, ranks_n, device=dev.type, args=(tenants, cfg, prompts, dev.type))
+    with tempfile.TemporaryDirectory(prefix="autotune-fleet-") as tune_dir:
+        ranks = spawn(fleet_rank, ranks_n, device=dev.type,
+                      args=(tenants, cfg, prompts, dev.type, tune_dir))
     ranks_s = time.perf_counter() - t0
     torch.cuda.ipc_collect()
     require([_checksum(p) for p in tenants] == before, "a fleet rank wrote to a tenant's weights")
@@ -1248,6 +1393,15 @@ def fleet_phase(dev, mcfg, seed):
     require(r0["combined"]["replays"] < r0["time_mux"]["replays"] and
             r0["combined"]["rounds"] < r0["time_mux"]["rounds"],
             "fleet: the combined arm replayed no fewer rounds than time-mux")
+    report = r0["report"]
+    for r, rec in enumerate(ranks):
+        require((rec["report"]["key"], rec["report"]["strategy"], rec["report"]["measured_us"]) ==
+                (report["key"], report["strategy"], report["measured_us"]),
+                f"fleet, rank {r}: collective_report {rec['report']} differs from rank 0's")
+    require(report["source"] == "measured" and
+            report["combined_rounds"] < report["time_mux_rounds"],
+            f"fleet: collective_report {report}")
+    print(f"fleet: collective_report on every rank: {json.dumps(report)}", flush=True)
     cmp = r0["replay_vs_ffn"]
     require(cmp["max_abs_err"] <= FLEET_FFN_TOL * (1 + cmp["max_abs_want"]) and
             cmp["rel_rms"] <= FLEET_FFN_TOL,
@@ -1324,11 +1478,14 @@ def fleet_phase(dev, mcfg, seed):
             "ranks": ranks_n, "ranks_s": ranks_s, "phase_s": time.perf_counter() - t_phase,
             "peak_gib_per_rank_max": max(rec["peak_gib"] for rec in ranks),
             "replay_vs_ffn": cmp, "tol": FLEET_FFN_TOL, "arms": arm_rec,
+            "collective_report": {**report, "ranks_agree": ranks_n,
+                                  "report_s_max_rank": max(rec["report_s"] for rec in ranks)},
             "checks": ["tokens equal on all 8 ranks", "combined == solo", "time_mux == solo",
                        "reference backend on the card: combined == solo, its replay within "
                        "tol of guest_expert_ffn, no host copy of an expert",
                        "survivor bit for bit across the evict", "re-admitted == solo",
-                       "combined replays fewer rounds than time_mux", "weights unchanged"]}
+                       "combined replays fewer rounds than time_mux", "weights unchanged",
+                       "collective_report measured and the same on all 8 ranks"]}
 
 
 def wave_replay_check(dev, time_ms):
@@ -2041,6 +2198,105 @@ def main() -> None:
                     f"run_{coll} ({form}) differs from the NumPy reference")
         emit({"reference": coll, "shape": [list(a.shape) for a in args], "forms": ["optimized", "plain"],
               "bit_exact": True})
+
+    # ------------------ 6b. the autotuner at the global site, the cells' own bytes
+    # get_backend("auto") with a measuring tuner on a cache in a temporary
+    # directory decides each collective on its first call (timed), then runs
+    # it once more with the launch counts set to 0 (a memo hit); every result
+    # the plain path's bits. A second tuner on the same file then decides
+    # each key from the cache, with the timer made to raise.
+    from repro_torch.runtime import autotune as AT
+    from repro_torch.runtime.backends.auto import AutoBackend
+
+    seeds = autotune_seeds(dev, time_ms)
+    print(f"autotune seeds: {json.dumps(seeds)} ({card}; the constants in "
+          f"runtime/autotune.py: BANDWIDTH {AT.BANDWIDTH}, T_KERNEL {AT.T_KERNEL})", flush=True)
+    t_auto = time.perf_counter()
+    tune_dir = tempfile.TemporaryDirectory(prefix="autotune-")
+    cache = pathlib.Path(tune_dir.name) / "autotune_cache.json"
+    tuner = AT.Autotuner(cache_path=cache, device=dev)
+    decide_s = timing_decisions(tuner)
+    auto = get_backend("auto", tuner=tuner)
+    N_auto = MatmulGrid(4, 4).n * AUTO_MATMUL_BLOCK
+    agen = torch.Generator(device=dev).manual_seed(SEED + 6)  # leaves gen's stream as it was
+    auto_inputs = {
+        "alltoall": lambda: (torch.randn((n, n, CHUNK), generator=agen, device=dev),),
+        "allreduce": lambda: (torch.randn((n, F), generator=agen, device=dev),),
+        "broadcast": lambda: (torch.randn((n, F), generator=agen, device=dev),),
+        "matmul": lambda: tuple(torch.randint(-4, 5, (N_auto, N_auto), generator=agen,
+                                              device=dev).float() for _ in range(2)),
+    }
+    auto_args, auto_rows = {}, []
+    for coll in ("alltoall", "allreduce", "broadcast", "matmul"):
+        args = auto_args[coll] = auto_inputs[coll]()
+        n_dec = len(decide_s)
+        t0 = time.perf_counter()
+        first = getattr(auto, f"run_{coll}")(*args, progs[coll])
+        torch.cuda.synchronize()
+        first_s = time.perf_counter() - t0
+        dec = tuner.decisions[-1]
+        require(dec.source == "measured" and len(decide_s) == n_dec + 1,
+                f"auto {coll}: the first call's decision is {dec.source}")
+        ran = AutoBackend._global_strategy(dec)
+        zero_counts(counters)
+        got = getattr(auto, f"run_{coll}")(*args, progs[coll])
+        torch.cuda.synchronize()
+        counts = {fn.__name__: fn.launches for fn in counters}
+        want_counts = expected[coll] if ran == "cuda_fused" else {}
+        require(counts == {name: want_counts.get(name, 0) for name in counts},
+                f"auto run_{coll} under {ran} launched {counts}, expected {want_counts}")
+        require(len(tuner.decisions) == len(auto_rows) + 1 and len(decide_s) == n_dec + 2,
+                f"auto {coll}: the second call was no memo hit")
+        for name, count in counts.items():
+            launches[name] += count
+        want = plain[coll](*args)
+        require(same_bits(got, want) and same_bits(first, want),
+                f"auto run_{coll} ({ran}) differs from the plain torch path")
+        row = {"autotune": "global", "run": coll, "shape": [list(t.shape) for t in args],
+               "key": str(dec.key), "strategy": dec.strategy, "ran": ran, "source": dec.source,
+               "measured_us": dec.measured_us, "analytic_us": dec.analytic_us,
+               "decide_s": decide_s[n_dec], "first_call_s": first_s, "memo_decide_s": decide_s[-1],
+               "launches": counts, "bit_exact_vs_plain": True,
+               **({"combine_rows_bodies": dict(cf.combine_rows.body_launches),
+                   "block_matmul_bodies": dict(block_matmul.body_launches)}
+                  if ran == "cuda_fused" and coll == "matmul" else {}),
+               **({"reduce_rounds_bodies": dict(cf.reduce_rounds.body_launches)}
+                  if ran == "cuda_fused" and coll == "allreduce" else {})}
+        auto_rows.append(row)
+        emit(row)
+        del first, got, want
+        release()
+    real_time_us = AT._time_us
+
+    def no_timing(*_a, **_k):
+        raise AssertionError("a tuner warm from the cache timed a candidate")
+
+    AT._time_us = no_timing
+    try:
+        warm = AT.Autotuner(cache_path=cache, device=dev)
+        auto_warm = get_backend("auto", tuner=warm)
+        for coll, row in zip(auto_args, auto_rows):
+            got = getattr(auto_warm, f"run_{coll}")(*auto_args[coll], progs[coll])
+            dec = warm.decisions[-1]
+            require((str(dec.key), dec.strategy, dec.source) == (row["key"], row["strategy"], "cache"),
+                    f"the warm tuner decided {coll} as {dec.key} -> {dec.strategy} ({dec.source})")
+            require(same_bits(got, plain[coll](*auto_args[coll])), f"warm auto run_{coll} differs")
+            del got
+    finally:
+        AT._time_us = real_time_us
+    del auto_args
+    tune_dir.cleanup()
+    release()
+    auto_rec = {"run": "autotune_global", "card": card, "cache_device": AT.device_tag(dev),
+                "matmul_block": AUTO_MATMUL_BLOCK, "seeds": seeds,
+                "decisions": {row["run"]: {k: row[k] for k in ("key", "strategy", "ran", "decide_s")}
+                              for row in auto_rows},
+                "warm_tuner": "every key from the cache, nothing timed",
+                "phase_s": time.perf_counter() - t_auto}
+    emit(auto_rec)
+    if auto_rec["phase_s"] > AUTO_PHASE_S:
+        print(f"autotune: the global step took {auto_rec['phase_s']:.0f} s, past its "
+              f"{AUTO_PHASE_S} s", flush=True)
 
     # ------------------------- 7. flash attention against its plain version
     B, S = PREFILL

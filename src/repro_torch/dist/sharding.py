@@ -47,7 +47,8 @@ class ShardRules:
     # "xla" (the native all-to-all) | "dragonfly" (§3 program on
     # torch_dist) | "dragonfly_overlap" (same program, start_step order)
     # | "dragonfly_overlap_fused" (dispatch + expert FFN + combine as ONE
-    #   wave pipeline) | "auto" (the autotuner's pick; not ported yet)
+    #   wave pipeline) | "auto" (the autotuner's pick, resolved once per
+    #   key before any exchange and agreed by every rank of the mesh)
     moe_collectives: str = "xla"
     model_axis_size: int = 16
     data_axis_size: int = 16

@@ -15,9 +15,10 @@ each boundary's expert FFN computed where the tenants' weights lie:
     PYTHONPATH=src python -m repro_torch.launch.serve --arch mixtral-8x7b \
         --tenants 2 --device cpu
 
-Its last line gives the combined and time-multiplexed round counts of the
-seated tenant set; the autotuner's decision, which the JAX launcher adds,
-waits for the autotuner (ROADMAP Queue 1 item 3).
+Its last line gives the autotuner's combined-site decision for the seated
+tenant set, with its combined and time-multiplexed round counts, as the
+JAX launcher's does (the cache: ``REPRO_TORCH_AUTOTUNE_CACHE``, by default
+``build/autotune_cache.json``).
 """
 
 from __future__ import annotations
@@ -100,8 +101,11 @@ def _serve_fleet(cfg, args):
     print(f"fleet steps: {fleet.steps_run}, replays: {fleet.replays}, "
           f"rounds: {fleet.rounds_replayed}, wall: {dt:.2f}s, tokens: {fleet.tokens_out}, "
           f"tokens/s: {fleet.tokens_out / max(dt, 1e-9):.1f}")
-    solo = sum(fleet._solo_program(t.embedding).num_rounds for t in fleet.tenants.values())
-    print(f"rounds a boundary: combined={fleet.program().num_rounds} vs time_mux={solo}")
+    report = fleet.collective_report()
+    print(f"combined-site decision: {report.get('key')} -> "
+          f"{report.get('strategy')} ({report.get('source')}); "
+          f"rounds combined={report.get('combined_rounds')} "
+          f"vs time_mux={report.get('time_mux_rounds')}")
     return fleet.steps_run
 
 

@@ -30,8 +30,10 @@ all-to-all), ``dragonfly`` and ``dragonfly_overlap`` (the §3 program on
 pipeline). Its semantics differ from the sparse path's, as in the
 reference: ``C_loc = max(8, int(cf·T_loc·k/E))`` rounded up to 8, and the
 combine accumulates in the activation dtype. ``moe_apply_ep_plain`` is its
-one-process counterpart, for checks. The ``auto`` strategy waits for the
-autotuner: ``moe_apply_ep`` names its ROADMAP item.
+one-process counterpart, for checks. ``moe_collectives="auto"`` asks the
+autotuner (``runtime.autotune``) for one of the four at the top of each
+call, before any exchange, keyed as the reference keys it; every rank of
+the mesh gets the same mode.
 
 The tensor-parallel path ``moe_apply_tp`` (experts replicated, each rank
 holding its slice of every expert's ff dim) routes the rank's whole data
@@ -300,12 +302,9 @@ def _combine(back, r: _Routes, T: int) -> torch.Tensor:
 
 
 def _check_ep_mode(mode: str) -> None:
-    if mode == "auto":
-        raise NotImplementedError(
-            "moe_collectives='auto' needs the autotuner (runtime/autotune.py), which is not "
-            "ported yet: ROADMAP Queue 1 item 3")
-    if mode not in EP_MODES:
-        raise ValueError(f"unknown moe_collectives {mode!r}; expected one of {EP_MODES}")
+    if mode not in EP_MODES + ("auto",):
+        raise ValueError(f"unknown moe_collectives {mode!r}; expected one of "
+                         f"{EP_MODES + ('auto',)}")
 
 
 #: the dim of each expert stack that the TP-experts rule shards
@@ -320,6 +319,28 @@ def local_experts(params, rules, coords, sizes):
     return {key: w[SH.local_slices(rules.expert(w.shape, EXPERT_FF_DIM[key], E), w.shape,
                                    coords, sizes)] if key in EXPERT_FF_DIM else w
             for key, w in params.items()}
+
+
+def ep_auto_mode(cfg, T_loc: int, dtype, mesh, group) -> str:
+    """The fixed mode the autotuner picks for ``moe_apply_ep``'s exchanges:
+    the dispatch/combine all-to-all over the model axis' D3 view, keyed on
+    the per-destination buffer bytes at the capacity bound and the expert
+    FFN's ``moe_compute_us``, as the reference keys it. Measured on the
+    model-axis ``group`` (its buffers on the mesh's carrier) and agreed by
+    every rank of the mesh (the world: ``make_mesh`` lays the world out);
+    the memo makes later calls a lookup."""
+    from repro_torch.runtime import autotune
+
+    m = cfg.moe
+    n_model = dist.get_world_size(group)
+    E_loc = m.num_experts // n_model
+    c_loc = ep_capacity(cfg, T_loc)
+    chunk = E_loc * c_loc * cfg.d_model * torch.empty((), dtype=dtype).element_size()
+    dec = autotune.get_autotuner(mesh.device).decide(
+        "alltoall", autotune.layout_for(n_model), chunk, dtype=dtype, site="shard",
+        compute_us=autotune.moe_compute_us(E_loc, c_loc, n_model, cfg.d_model, m.d_ff_expert),
+        group=group, carrier=mesh.carrier, agree_over=dist.group.WORLD)
+    return autotune.EP_MODE[dec.strategy]
 
 
 def moe_apply_ep(params, x, cfg):
@@ -341,7 +362,10 @@ def moe_apply_ep(params, x, cfg):
     Exchanges travel on the mesh's carrier device (the host for gloo, the
     card for NCCL), moved there and back explicitly and counted by the
     mesh; the expert products run on the rank's device. In the fused mode
-    the compute takes each wave's arrivals to the device once."""
+    the compute takes each wave's arrivals to the device once.
+
+    ``moe_collectives="auto"`` resolves to a fixed mode first
+    (``ep_auto_mode``), on every rank of the mesh together."""
     from repro_torch.dist.collectives import (dragonfly_all_to_all,
                                               dragonfly_all_to_all_compute, native_all_to_all)
     from repro_torch.dist.mesh import dragonfly_layout
@@ -374,6 +398,8 @@ def moe_apply_ep(params, x, cfg):
     C = ep_capacity(cfg, T_loc)
     group = mesh.group(rules.tensor_axis)
     layout = dragonfly_layout(n_model)
+    if mode == "auto":
+        mode = ep_auto_mode(cfg, T_loc, x.dtype, mesh, group)
     with record_function("moe.dispatch"):
         r = _route(xt, params["router"], cfg, C)
         if _ROUTES is not None:

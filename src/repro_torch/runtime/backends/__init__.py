@@ -32,6 +32,11 @@ Registered backends:
     ``program.n`` ranks (``overlap``/``overlap_fused`` orders, the
     wave-pipelined ``alltoall_compute``), plus the whole-array ``run_*``
     wrappers every rank calls with the same global array.
+  * ``auto`` — asks the autotuner (``runtime.autotune``) for the cheapest
+    of the strategies above at each call site and delegates to it; its
+    whole-array ``run_*`` run in one process on its ``device`` (the card
+    unless ``"cpu"`` is given), its per-shard methods on a process group,
+    whose ranks agree on every decision.
 
 Emulated (``runtime.rewrite.emulate``) and combined (``runtime.combine``)
 programs are ordinary programs with ``active_devices`` set: every backend
@@ -65,12 +70,19 @@ def _load_torch_dist():
     return TorchDistBackend
 
 
+def _load_auto():
+    from repro_torch.runtime.backends.auto import AutoBackend
+
+    return AutoBackend
+
+
 #: name -> lazy class loader (lazy so importing the registry loads no backend).
 _REGISTRY = {
     "reference": _load_reference,
     "cuda_fused": _load_cuda_fused,
     "sendrecv": _load_sendrecv,
     "torch_dist": _load_torch_dist,
+    "auto": _load_auto,
 }
 
 

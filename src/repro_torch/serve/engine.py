@@ -6,8 +6,8 @@ The port of ``repro.serve.engine``. The engine drives ``decode_step``;
 prefill feeds prompt tokens through the same cached path (functionally
 exact), and the admit / co-advance / commit logic is the JAX engine's line
 for line. It runs on the card unless ``device="cpu"`` is given, and raises
-where there is no card. The multi-tenant fleet and ``collective_report``
-(the autotuner's) wait for later slices.
+where there is no card. ``collective_report`` gives the autotuner's
+decision for the engine's MoE dispatch site.
 """
 
 from __future__ import annotations
@@ -128,3 +128,33 @@ class Engine:
             if not self.slot_req:
                 break
             self.step()
+
+    # ---------------------------------------------------------- reporting
+    def collective_report(self, rules=None, tuner=None) -> dict:
+        """What the price-driven autotuner picks for this engine's MoE
+        dispatch site (the §3 all-to-all boundary): chosen strategy, its
+        source (measured/cache/analytic/forced), and the paper's priced
+        rounds. ``rules`` defaults to the active sharding rules, whose
+        mesh's model-axis group then measures the decision, agreed by every
+        rank of the mesh (each calls this, as each calls ``moe_apply_ep``);
+        given rules, or a mesh without groups, rank analytically. An
+        unsharded engine (single device, no launcher) reports n/a.
+        ``tuner`` defaults to the process-wide one."""
+        import torch.distributed as dist
+
+        from repro_torch.dist import sharding as SH
+        from repro_torch.runtime import autotune
+
+        where = {}
+        if rules is None:
+            act = SH.active()
+            if act is not None:
+                rules, mesh = act
+                if rules.tensor_axis in mesh.groups:
+                    where = {"group": mesh.group(rules.tensor_axis), "carrier": mesh.carrier,
+                             "agree_over": dist.group.WORLD}
+        if rules is None:
+            return {"status": "n/a", "reason": "no active sharding rules"}
+        return autotune.moe_site_report(
+            self.cfg, rules, n_tokens=self.slots,
+            tuner=tuner or autotune.get_autotuner(self.device), **where)

@@ -46,8 +46,9 @@ gets the whole result. The exchanges travel on the group's carrier
 
 All seated tenants share the dispatch chunk signature (E_loc, C, d,
 d_ff_expert): one combined replay moves one host-shaped array. Guest
-shapes and layer counts may differ. ``collective_report`` needs the
-autotuner and raises, naming its ROADMAP item.
+shapes and layer counts may differ. ``collective_report`` gives the
+autotuner's combined-site decision for the seated tenant set; over
+``torch_dist`` every rank of the group gets the same one.
 """
 
 from __future__ import annotations
@@ -457,8 +458,43 @@ class TenantFleet:
 
     # ------------------------------------------------------------- reporting
     def collective_report(self, tuner=None) -> dict:
-        """The combined-site autotuner decision for this tenant set: it
-        needs the autotuner, which is not ported yet."""
-        raise NotImplementedError(
-            "TenantFleet.collective_report needs the autotuner (runtime/autotune.py), which is "
-            "not ported yet: ROADMAP Queue 1 item 3")
+        """The combined-site autotuner decision for this tenant set plus
+        the fleet's replay evidence: combined vs time-muxed round counts
+        and the replays issued so far. Over ``torch_dist`` every rank of
+        the fleet's group calls it and gets the same decision (its timings
+        agreed over the group). ``tuner`` defaults to the process-wide
+        one."""
+        from repro_torch.runtime import autotune
+
+        embs = self._embeddings()
+        if not embs:
+            return {"status": "n/a", "reason": "no tenants seated"}
+        t0 = next(iter(self.tenants.values()))
+        E_loc, C, d = t0.sig[:3]
+        nbytes = E_loc * C * d * 4
+        tuner = tuner or autotune.get_autotuner(self.device)
+        where = {}
+        if getattr(self.backend, "name", "") == "torch_dist":
+            import torch.distributed as dist
+
+            from repro_torch.launch.mesh import carrier_device
+
+            group = dist.group.WORLD if self.group is None else self.group
+            where = {"group": group,
+                     "carrier": carrier_device(str(dist.get_backend(group)), self.device)}
+        dec = tuner.decide_combined("alltoall", embs, nbytes=nbytes, dtype="float32", **where)
+        comb = self.program()
+        mux_rounds = sum(self._solo_program(e).num_rounds for e in embs)
+        return {
+            "status": "ok",
+            "tenants": len(embs),
+            "key": str(dec.key),
+            "strategy": dec.strategy,
+            "source": dec.source,
+            "combined_rounds": comb.num_rounds,
+            "time_mux_rounds": int(mux_rounds),
+            "replays": self.replays,
+            "rounds_replayed": self.rounds_replayed,
+            "analytic_us": {k: round(v, 1) for k, v in dec.analytic_us.items()},
+            "measured_us": {k: round(v, 1) for k, v in dec.measured_us.items()},
+        }

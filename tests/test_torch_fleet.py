@@ -15,15 +15,18 @@
   replayed rounds and tokens out: every case of
   ``tests/test_serve_fleet.py`` (the combined arm against each tenant
   served alone, the time-multiplexed arm, the evict and re-admit drill,
-  failure eviction, queued requests, the release of the last tenant),
-  except the autotuner's decision, which raises here.
+  failure eviction, queued requests, the release of the last tenant);
+  its ``collective_report`` gives the JAX fleet's key, analytic strategy
+  and round counts.
 * A ``"torch_dist"`` fleet on 8 gloo ranks (spawned once for the module
   through ``launch.mesh.spawn``; every rank drives the same fleet) serves
   the combined, time-multiplexed and churn cases and each tenant alone:
   the same tokens on every rank, equal to its own solo fleet's and to the
   ``"reference"`` fleet's. Greedy decoding turns float32 logits into
   token ids, so the float order of torch's and NumPy's expert FFN does
-  not show at these sizes; the ids are compared exactly.
+  not show at these sizes; the ids are compared exactly. Every rank
+  calls ``collective_report`` and gets one measured decision, agreed over
+  the group.
 
 The module imports no jax at its top: the ranks import it.
 """
@@ -43,6 +46,7 @@ from repro_torch.launch import mesh as LM
 from repro_torch.models import model as TM
 from repro_torch.models import moe as TMOE
 from repro_torch.models.convert import params_from_jax
+from repro_torch.runtime import autotune as TA
 from repro_torch.serve.fleet import TenantFleet
 
 from test_torch_moe_ep import assert_bits, flatten, unflatten
@@ -165,6 +169,15 @@ def run_rank(rank, group, layout, params_path):
 
     out = run_drills(make, cfg, params, DIST_DRILLS)
     out["transport"] = str(torch.distributed.get_backend(group))
+    fleet = make()
+    for p in params[:2]:
+        fleet.admit_model(cfg, p, guest=(1, 2), slots=2)
+    root = pathlib.Path(params_path).parent
+    out["report"] = fleet.collective_report(
+        tuner=TA.Autotuner(cache_path=root / f"fleet-{rank}.json", device="cpu"))
+    out["report_wrote"] = (root / f"fleet-{rank}.json").exists()
+    out["report_analytic"] = fleet.collective_report(tuner=TA.Autotuner(
+        cache_path=root / f"fleet-a-{rank}.json", mode="analytic", device="cpu"))
     return out
 
 
@@ -425,15 +438,20 @@ def test_admission_refusals_match_the_reference(weights):
     assert msgs[0] == msgs[1]
 
 
-def test_fleet_refusals_of_the_port(weights):
-    """``collective_report`` names the autotuner's ROADMAP item; the fleet
-    runs on the card unless asked for the CPU; a backend is named."""
+def test_fleet_refusals_of_the_port(weights, tmp_path):
+    """``collective_report`` gives the autotuner's measured combined-site
+    decision (n/a with no tenant seated); the fleet runs on the card unless
+    asked for the CPU; a backend is named."""
     _, _, tps = weights
     fleet = TenantFleet((2, 2), max_seq=32, device="cpu")
+    tuner = TA.Autotuner(cache_path=tmp_path / "c.json", device="cpu")
+    assert fleet.collective_report(tuner=tuner)["status"] == "n/a"
     fleet.admit_model(get_smoke_config(ARCH), tps[0], guest=(1, 2), slots=2)
-    with pytest.raises(NotImplementedError, match="autotuner") as err:
-        fleet.collective_report()
-    assert "ROADMAP Queue 1 item 3" in str(err.value)
+    report = fleet.collective_report(tuner=tuner)
+    assert report["status"] == "ok" and report["source"] == "measured"
+    assert report["strategy"] in ("combined", "time_mux") and report["tenants"] == 1
+    assert set(report["measured_us"]) == {"combined", "time_mux"}
+    assert report["key"].endswith("|combined|emu|g1xD3(1,2)")
     with pytest.raises(ValueError, match="unknown fleet backend"):
         TenantFleet((2, 2), backend="jax", device="cpu")
     if not torch.cuda.is_available():
@@ -445,14 +463,15 @@ def test_fleet_refusals_of_the_port(weights):
 def test_fleet_launcher_matches_the_jax_launcher(mux, tmp_path):
     """``launch.serve --tenants 2`` of both packages on Mixtral smoke: the
     same requests completed, steps, replays, replayed rounds and tokens,
-    and the same round counts a boundary. (The JAX launcher's autotuner
-    keeps its cache in a temporary file.)"""
+    and the same round counts a boundary on the combined-site decision
+    line. (Each launcher's autotuner keeps its cache in a temporary file.)"""
     outs = []
     for pkg, extra in (("repro", []), ("repro_torch", ["--device", "cpu"])):
         cmd = [sys.executable, "-m", f"{pkg}.launch.serve", "--arch", ARCH, "--tenants", "2",
                *(["--time-mux"] if mux else []), *extra]
         env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), JAX_PLATFORMS="cpu",
-                   REPRO_AUTOTUNE_CACHE=str(tmp_path / "autotune_cache.json"))
+                   REPRO_AUTOTUNE_CACHE=str(tmp_path / "autotune_cache.json"),
+                   REPRO_TORCH_AUTOTUNE_CACHE=str(tmp_path / "torch_autotune_cache.json"))
         proc = subprocess.run(cmd, env=env, capture_output=True, text=True, timeout=300)
         assert proc.returncode == 0, proc.stderr
         lines = proc.stdout.splitlines()
@@ -463,3 +482,33 @@ def test_fleet_launcher_matches_the_jax_launcher(mux, tmp_path):
                      + [part for part in stats.split(", ") if part.startswith("tokens:")],
                      rounds[rounds.index("combined="):]))
     assert outs[0] == outs[1]
+
+
+def test_torch_dist_fleet_report_agrees_and_is_the_references(dist_ranks, weights, tmp_path):
+    """Every rank of the ``torch_dist`` fleet calls ``collective_report``:
+    one measured decision on all 8 (the same times, the slowest rank's),
+    written by the first rank only, and the JAX fleet's key, analytic
+    strategy and round counts for the same two tenants."""
+    from repro.configs import get_smoke_config as j_smoke
+    from repro.runtime import autotune as JA
+    from repro.serve.fleet import TenantFleet as JFleet
+
+    jps, _, _ = weights
+    jfleet = JFleet((2, 2), max_seq=32)
+    for p in jps[:2]:
+        jfleet.admit_model(j_smoke(ARCH), p, guest=(1, 2), slots=2)
+    want = jfleet.collective_report(tuner=JA.Autotuner(cache_path=tmp_path / "j.json",
+                                                       mode="analytic"))
+    first = dist_ranks[0]["report"]
+    assert first["source"] == "measured" and set(first["measured_us"]) == {"combined",
+                                                                            "time_mux"}
+    for r, rank in enumerate(dist_ranks):
+        got = rank["report"]
+        assert (got["strategy"], got["measured_us"]) == (first["strategy"],
+                                                         first["measured_us"])
+        assert rank["report_wrote"] == (r == 0)
+        for report in (got, rank["report_analytic"]):
+            for field in ("status", "tenants", "key", "combined_rounds", "time_mux_rounds"):
+                assert report[field] == want[field], field
+        assert rank["report_analytic"]["strategy"] == want["strategy"]
+    assert first["combined_rounds"] < first["time_mux_rounds"]

@@ -24,12 +24,9 @@ from repro.models import layers as JL
 from repro.models import model as JM
 
 from repro_torch.configs import ARCH_IDS, get_config, get_smoke_config
-from repro_torch.dist import sharding as SH
-from repro_torch.launch.mesh import ProcessMesh
 from repro_torch.models import layers as TL
 from repro_torch.models import model as TM
 from repro_torch.models.convert import params_from_jax
-from repro_torch.models.moe import moe_apply_auto
 
 LAYER_TOL = 1e-5
 MODEL_TOL = 1e-4
@@ -231,35 +228,9 @@ def _init(arch):
     return lambda: TM.init_params(0, get_smoke_config(arch), device="cpu")
 
 
-def _moe_under_rules(shape, mode="xla"):
-    """Mixtral smoke's MoE layer on 16 tokens of a rank under active rules
-    on a (data, model) mesh of ``shape``: (1, 4) divides its 4 experts (EP,
-    here with the autotuner's ``auto`` mode), which refuses before any
-    process group is used."""
-    cfg = get_smoke_config("mixtral-8x7b")
-
-    def call():
-        SH.set_active(SH.ShardRules(moe_collectives=mode), ProcessMesh(("data", "model"), shape))
-        try:
-            return moe_apply_auto({}, torch.zeros(2, 8, cfg.d_model), cfg)
-        finally:
-            SH.clear_active()
-    return call
-
-
-def _fleet_report():
-    """The multi-tenant fleet's ``collective_report``: the autotuner's."""
-    from repro_torch.serve.fleet import TenantFleet
-
-    return lambda: TenantFleet((2, 2), device="cpu").collective_report()
-
-
 @pytest.mark.parametrize("call,what", [
-    (_moe_under_rules((1, 4), "auto"), "autotuner"),
-    (_fleet_report(), "autotuner"),
     (_init("jamba-1.5-large-398b"), "Mamba"), (_init("xlstm-1.3b"), "LSTM")],
-    ids=["moe-ep-auto-autotuner", "fleet-collective-report-autotuner",
-         "jamba-1.5-large-398b-Mamba", "xlstm-1.3b-LSTM"])
+    ids=["jamba-1.5-large-398b-Mamba", "xlstm-1.3b-LSTM"])
 def test_unported_members_name_the_roadmap(call, what):
     with pytest.raises(NotImplementedError, match=what) as err:
         call()

@@ -31,9 +31,21 @@ within float32 rounding (the ``pmean`` sums in another order). The
 routes are held exactly: the same expert ids and the same dropped
 (token, k) entries. The module imports no jax (the JAX side imports it in
 ``jax_main``), so the ranks, which import it, start quickly.
+
+The autotuner's ``auto`` mode runs on the same ranks (``AUTO_CASE``): its
+decision is measured on the model groups and agreed by all 8 ranks, even
+with rank ``SKEWED_RANK``'s own timings skewed, and its output is the bits
+of the fixed mode it names, within LAYER_TOL of the reference's same
+mode. A cold key decided while one rank alone holds a cache file ends
+under a group timeout of ``AGREE_TIMEOUT_S`` with one decision on every
+rank, and ``Engine.collective_report`` under the active rules gives the
+reference's key, analytic strategy and rounds (the port's seeds set to
+the reference's values there, ``JAX seeds`` below).
 """
 
 import dataclasses
+import datetime
+import json
 import os
 import pathlib
 import subprocess
@@ -50,6 +62,8 @@ from repro_torch.launch import mesh as LM
 from repro_torch.models import model as TM
 from repro_torch.models import moe as TMOE
 from repro_torch.models.convert import params_from_jax
+from repro_torch.runtime import autotune as TA
+from repro_torch.serve.engine import Engine
 
 TESTS = pathlib.Path(__file__).resolve().parent
 SRC = TESTS.parent / "src"
@@ -73,6 +87,13 @@ MODEL_TOKENS = (2, 40)  # 40 tokens: the smoke config's window of 32 binds
 #: the JAX side's two subprocesses: (writes the weights, the parts it runs)
 JAX_PARTS = ((False, ("mesh24",)), (True, ("mesh18", "drop", "model")))
 SEP = ":"
+AUTO_CASE = "mesh24"  # the case the ``auto`` mode runs on: the reference ran all four modes
+SKEWED_RANK = 3  # its own timings: the first candidate (native) slow, the rest instant
+SKEW_US = 1e9
+AGREE_TIMEOUT_S = 60  # the group timeout of the cold-key agreement cases
+SPLIT_KEY = ("alltoall", 2, 2, 4096, "float32", "shard")  # D3(2,2): all 8 ranks
+SPLIT_CACHED = "overlap"  # the strategy the one rank's cache file records
+ENGINE_SLOTS = 4
 
 
 def case_cfg(cfg, name):
@@ -146,9 +167,82 @@ def _data_shard(a, coords, n_data):
     return a[dc * B // n_data:(dc + 1) * B // n_data]
 
 
-def run_rank(rank, group, layout, params_path):
-    """Every case in every mode on this rank, and the model under rules.
+def run_auto(rank, mesh, params, x, cfg, root: pathlib.Path):
+    """``moe_collectives="auto"`` on this rank, twice (the second call a
+    memo hit), with a measuring tuner of its own cache file; on
+    SKEWED_RANK ``_time_us`` reports SKEW_US for the first candidate and 0
+    for the rest, though it still runs every timed call."""
+    tuner = TA.Autotuner(cache_path=root / f"auto-{rank}.json", device="cpu")
+    TA.set_autotuner(tuner)
+    real = TA._time_us
+    seen = []
+
+    def skewed(fn, *args, **kw):
+        seen.append(real(fn, *args, **kw))
+        return SKEW_US if len(seen) == 1 else 0.0
+
+    if rank == SKEWED_RANK:
+        TA._time_us = skewed
+    try:
+        SH.set_active(SH.ShardRules(moe_collectives="auto"), mesh)
+        y, aux = TMOE.moe_apply_ep(params, x, cfg)
+        n = len(tuner.decisions)
+        y2, _ = TMOE.moe_apply_ep(params, x, cfg)
+        memo_hit = len(tuner.decisions) == n
+    finally:
+        TA._time_us = real
+        TA.set_autotuner(None)
+    dec = tuner.decisions[-1]
+    return {"strategy": dec.strategy, "source": dec.source, "key": str(dec.key),
+            "measured_us": dict(dec.measured_us), "y": y.numpy(), "aux": aux.numpy(),
+            "y2": y2.numpy(), "memo_hit": memo_hit, "decisions": len(tuner.decisions),
+            "skewed_calls": len(seen), "wrote": (root / f"auto-{rank}.json").exists()}
+
+
+def run_split_cache(rank, root: pathlib.Path):
+    """A cold D3(2,2) shard key decided by all 8 ranks over a group with a
+    timeout of its own, while one rank alone (3, then 0) holds a cache
+    file recording SPLIT_CACHED for it. Returns {holder: (strategy,
+    source, measured µs)}."""
+    g = torch.distributed.new_group(list(range(8)),
+                                    timeout=datetime.timedelta(seconds=AGREE_TIMEOUT_S))
+    key = str(TA.TuneKey(*SPLIT_KEY))
+    out = {}
+    for holder in (SKEWED_RANK, 0):
+        path = root / f"split-{holder}-{rank}.json"
+        if rank == holder:
+            path.write_text(json.dumps({"schema": TA.SCHEMA_VERSION, "device": "cpu", "entries": {
+                key: {"strategy": SPLIT_CACHED, "measured_us": {SPLIT_CACHED: 1.0}}}}))
+        tuner = TA.Autotuner(cache_path=path, device="cpu")
+        d = tuner.decide("alltoall", TA.layout_for(8), SPLIT_KEY[3], site="shard", group=g)
+        out[holder] = (d.strategy, d.source, dict(d.measured_us))
+    return out
+
+
+def run_reports(rank, cfg, tp, jax_seeds, root: pathlib.Path):
+    """``Engine.collective_report`` under the active rules: analytic with
+    the port's seeds set to the reference's (restored after), and measured
+    on the model groups, agreed by every rank."""
+    eng = Engine(cfg, tp, batch_slots=ENGINE_SLOTS, max_seq=16, device="cpu")
+    kept = {name: getattr(TA, name) for name in jax_seeds}
+    try:
+        for name, value in jax_seeds.items():
+            setattr(TA, name, value)
+        analytic = eng.collective_report(tuner=TA.Autotuner(
+            cache_path=root / f"report-a-{rank}.json", mode="analytic", device="cpu"))
+    finally:
+        for name, value in kept.items():
+            setattr(TA, name, value)
+    measured = eng.collective_report(tuner=TA.Autotuner(
+        cache_path=root / f"report-m-{rank}.json", device="cpu"))
+    return {"analytic": analytic, "measured": measured}
+
+
+def run_rank(rank, group, layout, params_path, jax_seeds):
+    """Every case in every mode on this rank, the ``auto`` mode and its
+    agreement cases, and the model under rules with the engine's report.
     Returns host data."""
+    root = pathlib.Path(params_path).parent
     with np.load(params_path) as f:
         flat = dict(f)
     base = get_smoke_config(ARCH)
@@ -165,6 +259,8 @@ def run_rank(rank, group, layout, params_path):
                 y, aux = TMOE.moe_apply_ep(params, x, cfg)
             (idx, keep, _), = routes
             res[mode] = (y.numpy(), aux.numpy(), idx.numpy(), keep.numpy())
+        if name == AUTO_CASE:
+            res["auto"] = run_auto(rank, mesh, params, x, cfg, root)
         # the expert stacks already cut to this rank's rows, through
         # moe_apply_auto, which takes the EP path under these rules
         cut = TMOE.local_experts(params, SH.active()[0], mesh.coords, mesh.sizes)
@@ -192,7 +288,9 @@ def run_rank(rank, group, layout, params_path):
         out["model"][mode] = {"logits": logits.numpy(), "aux": aux.numpy(),
                               "loss": loss.numpy(), "ce": metrics["ce"].numpy(),
                               "experts_held": tp["stack"][0]["ffn"]["w_in"].shape[0]}
+    out["reports"] = run_reports(rank, cfg, tp, jax_seeds, root)
     SH.clear_active()
+    out["split_cache"] = run_split_cache(rank, root)
     try:
         LM.make_production_mesh(device="cpu")
         out["production"] = None
@@ -299,9 +397,14 @@ def runs(tmp_path_factory):
                               env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
                               text=True)
              for i, (writes, parts) in enumerate(JAX_PARTS)]
+    from repro.runtime import autotune as JA
+
+    jax_seeds = {name: getattr(JA, "T_XLA" if name == "T_NATIVE" else name)
+                 for name in ("T_W", "BANDWIDTH", "T_DISPATCH", "T_GROUP", "T_KERNEL",
+                              "T_NATIVE", "T_TRACE_OP", "COMPUTE_RATE")}
     try:
         wait_for(params, procs[[w for w, _ in JAX_PARTS].index(True)])
-        ranks = LM.spawn(run_rank, 8, device="cpu", args=(str(params),))
+        ranks = LM.spawn(run_rank, 8, device="cpu", args=(str(params), jax_seeds))
     finally:
         logs = [proc.communicate(timeout=900)[0] for proc in procs]
     ref = {}
@@ -462,13 +565,94 @@ def test_production_mesh_refuses_a_world_of_eight(runs):
         assert "needs 256 ranks" in res["production"] and "has 8" in res["production"]
 
 
-def test_auto_mode_names_the_autotuner_item():
-    """``moe_collectives='auto'`` raises before any group is used."""
-    cfg = get_smoke_config(ARCH)
-    SH.set_active(SH.ShardRules(moe_collectives="auto"), LM.ProcessMesh(("data", "model"), (2, 4)))
-    try:
-        with pytest.raises(NotImplementedError, match="autotuner") as err:
-            TMOE.moe_apply_ep({}, torch.zeros(1, 8, cfg.d_model), cfg)
-        assert "ROADMAP Queue 1 item 3" in str(err.value)
-    finally:
-        SH.clear_active()
+# ------------------------------------------------------- the auto mode
+def test_auto_decision_is_the_same_on_every_rank(runs):
+    """One decision on all 8 ranks, measured once (the second call is a
+    memo hit), keyed as the reference keys it, with every rank's times the
+    MAX over the ranks: SKEWED_RANK's slow first candidate reached every
+    rank, while its instant others did not win there. Only the first rank
+    of the mesh wrote its cache file."""
+    ranks, _, _ = runs
+    autos = [res["cases"][AUTO_CASE]["auto"] for res in ranks]
+    first = autos[0]
+    assert first["source"] == "measured" and first["strategy"] in TA.EP_MODE
+    assert set(first["measured_us"]) == {"native", "loop", "overlap", "overlap_fused"}
+    assert first["measured_us"]["native"] == SKEW_US and first["strategy"] != "native"
+    for r, a in enumerate(autos):
+        assert (a["strategy"], a["source"], a["key"]) == (
+            first["strategy"], first["source"], first["key"]), r
+        assert a["measured_us"] == first["measured_us"], r
+        assert a["memo_hit"] and a["decisions"] == 1
+        assert a["wrote"] == (r == 0)
+    assert autos[SKEWED_RANK]["skewed_calls"] == 4
+    cfg = case_cfg(get_smoke_config(ARCH), AUTO_CASE)
+    m, (n_data, n_model) = cfg.moe, CASES[AUTO_CASE][0]
+    B, S = CASES[AUTO_CASE][3]
+    t_loc = B * S // (n_data * n_model)
+    c_loc = TMOE.ep_capacity(cfg, t_loc)
+    want = TA.TuneKey("alltoall", n_model, 1, TA.bucket_bytes(
+        m.num_experts // n_model * c_loc * cfg.d_model * 4), "float32", "shard",
+        TA.bucket_compute_us(TA.moe_compute_us(m.num_experts // n_model, c_loc, n_model,
+                                               cfg.d_model, m.d_ff_expert)))
+    assert first["key"] == str(want)
+
+
+def test_auto_output_is_the_named_fixed_modes(runs):
+    """The ``auto`` output and aux are the bits of the fixed mode the
+    decision names, on every rank and in both calls, and within LAYER_TOL
+    of the reference's ``moe_apply_ep`` in that mode."""
+    ranks, ref, _ = runs
+    mode = TA.EP_MODE[ranks[0]["cases"][AUTO_CASE]["auto"]["strategy"]]
+    for res in ranks:
+        r = res["cases"][AUTO_CASE]
+        assert_bits(r["auto"]["y"], r[mode][0])
+        assert_bits(r["auto"]["y2"], r[mode][0])
+        assert_bits(r["auto"]["aux"], r[mode][1])
+    n_data, n_model = CASES[AUTO_CASE][0]
+    y = np.concatenate([ranks[dc * n_model]["cases"][AUTO_CASE]["auto"]["y"]
+                        for dc in range(n_data)])
+    close(y, ref[f"{AUTO_CASE}{SEP}{mode}{SEP}y"], LAYER_TOL)
+
+
+@pytest.mark.parametrize("holder", [SKEWED_RANK, 0])
+def test_cold_key_with_one_cache_file_agrees(runs, holder):
+    """One rank holds a cache file, the others none: all 8 end (under their
+    group's timeout) with one decision. The first rank's view decides:
+    its file's entry where it holds one, else every rank measures."""
+    ranks, _, _ = runs
+    got = [res["split_cache"][holder] for res in ranks]
+    assert all(g == got[0] for g in got)
+    strategy, source, measured = got[0]
+    if holder == 0:
+        assert (strategy, source) == (SPLIT_CACHED, "cache")
+    else:
+        assert source == "measured" and set(measured) == {
+            "native", "loop", "overlap", "overlap_fused"}
+
+
+def test_engine_collective_report_is_the_references(runs, tmp_path):
+    """``Engine.collective_report`` under the active (2, 4) rules: the
+    reference engine's key, strategy, rounds and hops (analytic, the
+    reference's seeds), and measured on the model groups, one decision on
+    every rank."""
+    from repro.configs import get_smoke_config as j_smoke
+    from repro.dist.sharding import ShardRules as JRules
+    from repro.runtime import autotune as JA
+    from repro.serve.engine import Engine as JEngine
+
+    ranks, _, _ = runs
+    n_data, n_model = MODEL_MESH
+    want = JEngine(j_smoke(ARCH), None, ENGINE_SLOTS, 16).collective_report(
+        rules=JRules(model_axis_size=n_model, data_axis_size=n_data),
+        tuner=JA.Autotuner(cache_path=tmp_path / "j.json", mode="analytic"))
+    for res in ranks:
+        got = res["reports"]["analytic"]
+        for field in ("status", "topology", "key", "source", "rounds", "priced_hops",
+                      "moe_collectives"):
+            assert got[field] == want[field], field
+        assert got["strategy"] == TA.RENAMED.get(want["strategy"], want["strategy"])
+    measured = [res["reports"]["measured"] for res in ranks]
+    assert measured[0]["source"] == "measured" and measured[0]["key"] == want["key"]
+    for got in measured:
+        assert (got["strategy"], got["measured_us"]) == (measured[0]["strategy"],
+                                                         measured[0]["measured_us"])

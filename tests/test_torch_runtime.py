@@ -92,11 +92,14 @@ def jax_matmul_recipe(jo):
 
 # ------------------------------------------------------------- registry
 def test_registry_holds_reference_and_cuda_fused():
-    assert available_backends() == ("reference", "cuda_fused", "sendrecv", "torch_dist")
+    from repro_torch.runtime.backends.auto import AutoBackend
+
+    assert available_backends() == ("reference", "cuda_fused", "sendrecv", "torch_dist", "auto")
     assert isinstance(get_backend("cuda_fused", device="cpu"), CudaFusedBackend)
     assert isinstance(get_backend("reference"), TRef)
     assert isinstance(get_backend("sendrecv"), SendRecvBackend)
-    with pytest.raises(ValueError, match="reference, cuda_fused, sendrecv, torch_dist"):
+    assert isinstance(get_backend("auto", device="cpu"), AutoBackend)
+    with pytest.raises(ValueError, match="reference, cuda_fused, sendrecv, torch_dist, auto"):
         get_backend("pallas_fused")
 
 
