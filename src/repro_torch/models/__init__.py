@@ -1,7 +1,8 @@
 """Model zoo: the composable decoder of the JAX package, on torch. It
-carries the attention models (GQA, sliding window, M-RoPE) with gated or
-GELU MLPs or a single-card MoE FFN (``models.moe``); MLA, Mamba and xLSTM
-members raise ``NotImplementedError``."""
+carries every arch of the registry: attention members (GQA with sliding
+window or M-RoPE, and DeepSeek-V3's MLA), Mamba members (``models.mamba``)
+and mLSTM / sLSTM members (``models.xlstm``), with gated or GELU MLPs or
+an MoE FFN (``models.moe``)."""
 
 from repro_torch.models.model import (
     init_params,

@@ -2,9 +2,10 @@
 final norm -> logits, plus the DeepSeek-style MTP head, the loss, and the
 decode step. All entry points are plain functions of (params, batch).
 
-The port of ``repro.models.model`` for the attention models (GQA or MLA)
-with dense or MoE FFNs, with ``decode_step_staged``, the decode step that
-pauses at each MoE boundary for the multi-tenant fleet. DeepSeek-V3's
+The port of ``repro.models.model`` for every arch of the registry (GQA,
+MLA, Mamba and xLSTM members with dense, MoE or no FFNs), with
+``decode_step_staged``, the decode step that pauses at each MoE boundary
+for the multi-tenant fleet. DeepSeek-V3's
 dense prefix (``first_dense_layers``) is ``params["prefix"]``, a list of
 per-layer dicts like the stack (the JAX package stacks it in a
 one-tuple), and its multi-token-prediction head ``params["mtp"]`` is
@@ -158,7 +159,8 @@ def decode_step(params, cache, batch, position, cfg: ModelConfig):
     """One token for the whole batch at ``position`` (an int or (B,) tensor).
 
     batch: {'token': (B,)} or {'embed': (B, d)} (+ mrope positions).
-    Returns (logits (B, vocab), cache); the KV caches are updated in place.
+    Returns (logits (B, vocab), cache): the KV caches are updated in place,
+    the recurrent states (Mamba, mLSTM, sLSTM) come back as new tensors.
     ``decode_step_staged`` with every MoE boundary answered inline.
     """
     return T.serve_inline(decode_step_staged(params, cache, batch, position, cfg), cfg)

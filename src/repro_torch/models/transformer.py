@@ -1,22 +1,23 @@
 """Composable decoder: blocks = mixer + optional FFN, pre-norm residual.
 
-The port of ``repro.models.transformer`` for ``attn`` mixers (GQA, or MLA
-where ``cfg.attention == "mla"``) with dense ``mlp`` or ``moe`` FFNs, in
-the train (full sequence) and decode (one token, cache) forms. The JAX
-package stacks layers as repeating groups and
-scans them with ``lax.scan`` under ``jax.checkpoint``; here the stack is a
-list with one parameter dict per layer, in the JAX stack's order (group g,
-member mi is layer g·period + mi), walked by a Python loop. There is no
-remat: nothing runs backward yet. The decode form is a generator that
-pauses at each MoE member (``stack_decode_staged``); ``serve_inline``
-answers it with the FFN computed inline, the multi-tenant fleet with
-one combined replay a boundary. A ``moe``
-FFN takes ``moe.moe_apply_auto``: the sparse dispatch of one card, or,
-with sharding rules active (``dist.sharding.set_active``), the
-expert-parallel or tensor-parallel path on this rank's data shard; its
-load-balance loss is summed over the stack in train form and dropped in
-decode form, as in the JAX package. ``mamba``, ``mlstm`` and ``slstm``
-members raise ``NotImplementedError``.
+The port of ``repro.models.transformer``: ``attn`` mixers (GQA, or MLA
+where ``cfg.attention == "mla"``), ``mamba`` (``models.mamba``) and
+``mlstm`` / ``slstm`` (``models.xlstm``), with dense ``mlp``, ``moe`` or no
+FFN, in the train (full sequence) and decode (one token, cache or
+recurrent state) forms. The JAX package stacks layers as repeating groups
+and scans them with ``lax.scan`` under ``jax.checkpoint``; here the stack
+is a list with one parameter dict per layer, in the JAX stack's order
+(group g, member mi is layer g·period + mi), walked by a Python loop.
+There is no remat: nothing runs backward yet. The decode form is a
+generator that pauses at each MoE member (``stack_decode_staged``);
+``serve_inline`` answers it with the FFN computed inline, the multi-tenant
+fleet with one combined replay a boundary. A ``moe`` FFN takes
+``moe.moe_apply_auto``: the sparse dispatch of one card, or, with sharding
+rules active (``dist.sharding.set_active``), the expert-parallel or
+tensor-parallel path on this rank's data shard; its load-balance loss is
+summed over the stack in train form and dropped in decode form, as in the
+JAX package. An attention member's decode writes its KV cache in place; a
+recurrent member's returns a new state.
 """
 
 from __future__ import annotations
@@ -27,19 +28,22 @@ from torch.autograd.profiler import record_function
 
 from repro_torch.models import attention as A
 from repro_torch.models import layers as L
+from repro_torch.models import mamba as MB
 from repro_torch.models import moe as MOE
+from repro_torch.models import xlstm as XL
 
-_WAITING = {
-    "mamba": "the Mamba mixer (models/mamba.py)",
-    "mlstm": "the mLSTM mixer (models/xlstm.py)",
-    "slstm": "the sLSTM mixer (models/xlstm.py)",
+#: The recurrent mixers (their decode state is not masked by position):
+#: (init, train, decode, state init) of each.
+_RECURRENT = {
+    "mamba": (MB.mamba_init, MB.mamba_train, MB.mamba_decode, MB.mamba_state_init),
+    "mlstm": (XL.mlstm_init, XL.mlstm_train, XL.mlstm_decode, XL.mlstm_state_init),
+    "slstm": (XL.slstm_init, XL.slstm_train, XL.slstm_decode, XL.slstm_state_init),
 }
+RECURRENT = tuple(_RECURRENT)
 
 
 def _check_kinds(mixer: str, ffn: str) -> None:
-    if mixer in _WAITING:
-        raise NotImplementedError(f"{_WAITING[mixer]} is not ported yet: ROADMAP Queue 1 item 4")
-    if mixer != "attn" or ffn not in ("mlp", "moe", "none"):
+    if mixer not in ("attn",) + RECURRENT or ffn not in ("mlp", "moe", "none"):
         raise ValueError(f"unknown layer kind ({mixer}, {ffn})")
 
 
@@ -52,7 +56,11 @@ def layer_kinds(cfg) -> list[tuple[str, str]]:
 def member_init(gen, cfg, mixer: str, ffn: str, dtype, device):
     _check_kinds(mixer, ffn)
     p = {"norm1": L.make_norm(cfg.norm, cfg.d_model, dtype, device)[0]}
-    p["mixer"] = (A.mla_init if cfg.attention == "mla" else A.gqa_init)(gen, cfg, dtype, device)
+    if mixer in RECURRENT:
+        init = _RECURRENT[mixer][0]
+    else:
+        init = A.mla_init if cfg.attention == "mla" else A.gqa_init
+    p["mixer"] = init(gen, cfg, dtype, device)
     if ffn != "none":
         p["norm2"] = L.make_norm(cfg.norm, cfg.d_model, dtype, device)[0]
         p["ffn"] = MOE.moe_init(gen, cfg, dtype, device) if ffn == "moe" else L.mlp_init(
@@ -83,7 +91,9 @@ def member_train(params, x, cfg, mixer, ffn, positions, mrope_positions, use_ker
     _check_kinds(mixer, ffn)
     norm = _norm(cfg)
     h = norm(params["norm1"], x)
-    if cfg.attention == "mla":
+    if mixer in RECURRENT:
+        x = x + _RECURRENT[mixer][1](params["mixer"], h, cfg)
+    elif cfg.attention == "mla":
         x = x + A.mla_train(params["mixer"], h, cfg, positions, use_kernel=use_kernel)
     else:
         x = x + A.gqa_train(params["mixer"], h, cfg, positions, mrope_positions, use_kernel)
@@ -101,7 +111,9 @@ def member_decode_mixer(params, x, cache, cfg, mixer, position, mrope_positions)
     Returns (x, cache) — the FFN half (if any) applies on top."""
     _check_kinds(mixer, "none")
     h = _norm(cfg)(params["norm1"], x)
-    if cfg.attention == "mla":
+    if mixer in RECURRENT:
+        mx, cache = _RECURRENT[mixer][2](params["mixer"], h, cache, cfg)
+    elif cfg.attention == "mla":
         mx, cache = A.mla_decode(params["mixer"], h, cache, cfg, position)
     else:
         mx, cache = A.gqa_decode(params["mixer"], h, cache, cfg, position, mrope_positions)
@@ -117,7 +129,12 @@ def member_decode(params, x, cache, cfg, mixer, ffn, position, mrope_positions):
 
 
 def member_cache_init(cfg, mixer, batch, max_seq, dtype, device):
+    """A member's decode state: a KV (or latent) cache of ``max_seq``
+    positions for attention, a recurrent state for the other mixers (all
+    zeros)."""
     _check_kinds(mixer, "none")
+    if mixer in RECURRENT:
+        return _RECURRENT[mixer][3](cfg, batch, dtype, device)
     if cfg.attention == "mla":
         return A.mla_cache_init(cfg, batch, max_seq, dtype, device)
     return A.gqa_cache_init(cfg, batch, max_seq, dtype, device)

@@ -5,9 +5,11 @@ decode step (scalar-or-(B,) position support in the attention caches).
 The port of ``repro.serve.engine``. The engine drives ``decode_step``;
 prefill feeds prompt tokens through the same cached path (functionally
 exact), and the admit / co-advance / commit logic is the JAX engine's line
-for line. It runs on the card unless ``device="cpu"`` is given, and raises
-where there is no card. ``collective_report`` gives the autotuner's
-decision for the engine's MoE dispatch site.
+for line, with two deliberate departures: ``admit`` refuses a prompt
+longer than ``max_seq``, and it resets the seated slot's recurrent states
+(Mamba, mLSTM, sLSTM). It runs on the card unless ``device="cpu"`` is
+given, and raises where there is no card. ``collective_report`` gives the
+autotuner's decision for the engine's MoE dispatch site.
 """
 
 from __future__ import annotations
@@ -18,6 +20,7 @@ import numpy as np
 import torch
 
 from repro_torch.models import model as M
+from repro_torch.models import transformer as T
 
 
 @dataclasses.dataclass
@@ -71,6 +74,14 @@ class Engine:
         A prompt longer than ``max_seq`` raises ``ValueError`` before
         anything changes: its cache writes would fall past the cache. (The
         JAX engine drops those writes and answers all the same.)
+
+        The seated slot's recurrent states (Mamba's conv window and SSM
+        state, the mLSTM's C, n, m, the sLSTM's c, n, h, m) go back to their
+        initial zeros; its attention caches stay as they are, since their
+        positions mask them. (The JAX engine resets only the position, so a
+        recurrent state carries whatever the slot ran before, the previous
+        request's or, in a slot not yet used, the steps it took idle, into
+        the next request.)
         """
         if len(req.prompt) > self.max_seq:
             raise ValueError(f"request {req.rid}: a prompt of {len(req.prompt)} tokens does not "
@@ -81,6 +92,7 @@ class Engine:
         slot = free[0]
         self.slot_req[slot] = req
         self.positions[slot] = 0
+        self._reset_recurrent(slot)
         # prefill: feed prompt tokens through the cached decode path; the
         # other slots advance with their own pending tokens (no stalls).
         for tok in req.prompt[:-1]:
@@ -88,6 +100,14 @@ class Engine:
             self._advance(decode_slots=[s for s in self.slot_req if s != slot])
         self.pending_tok[slot] = int(req.prompt[-1])
         return True
+
+    def _reset_recurrent(self, slot: int) -> None:
+        for state, (mixer, _) in zip(self.cache["stack"], T.layer_kinds(self.cfg)):
+            if mixer in T.RECURRENT:
+                fresh = T.member_cache_init(self.cfg, mixer, 1, self.max_seq, torch.float32,
+                                            self.device)
+                for key, t in state.items():
+                    t[slot] = fresh[key][0]
 
     # -------------------------------------------------------------- step
     def _forward(self) -> np.ndarray:

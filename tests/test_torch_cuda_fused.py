@@ -542,6 +542,7 @@ def test_backend_on_card_matches_reference(cuda, km):
     (2, 192, 192, 4, 4, 96, True, None),
     (1, 130, 70, 4, 1, 128, True, 32),
     (3, 1, 200, 4, 4, 64, False, None),
+    (1, 4096, 4096, 64, 8, 128, True, None),  # Jamba-1.5-Large's attention layer, (1, 4096)
 ], ids=str)
 def test_flash_attention_kernel_matches_plain(cuda, dtype, b, sq, sk, hq, hkv, d, causal,
                                                window):

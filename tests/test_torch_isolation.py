@@ -92,6 +92,23 @@ def test_model_entry_points_default_to_the_card_and_raise_without_one(monkeypatc
     assert Engine(cfg, params, batch_slots=1, max_seq=8, device="cpu").device.type == "cpu"
 
 
+@pytest.mark.parametrize("arch", ["jamba-1.5-large-398b", "xlstm-1.3b"])
+def test_recurrent_models_default_to_the_card_and_raise_without_one(monkeypatch, arch):
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models import model as M
+    from repro_torch.serve.engine import Engine
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = get_smoke_config(arch)
+    with pytest.raises(RuntimeError, match="CUDA card"):
+        M.init_params(0, cfg)
+    with pytest.raises(RuntimeError, match="CUDA card"):
+        M.init_cache(cfg, 1, 8)
+    params = M.init_params(0, cfg, device="cpu")
+    with pytest.raises(RuntimeError, match="CUDA card"):
+        Engine(cfg, params, batch_slots=1, max_seq=8)
+
+
 def test_engine_refuses_parameters_on_another_device():
     from repro_torch.configs import get_smoke_config
     from repro_torch.models import model as M

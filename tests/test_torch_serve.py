@@ -108,6 +108,16 @@ def test_launcher_runs_on_the_cpu(capsys):
     assert out.count(", 12)") == 6  # every request got its 12 tokens
 
 
+@pytest.mark.parametrize("arch", ["jamba-1.5-large-398b", "xlstm-1.3b"])
+def test_launcher_serves_the_recurrent_archs_on_the_cpu(capsys, arch):
+    """Jamba smoke (Mamba, attention, MoE) and xLSTM smoke (mLSTM, sLSTM):
+    4 slots for 6 requests, so slots are reused."""
+    steps = t_serve.main(["--arch", arch, "--device", "cpu", "--requests", "6",
+                          "--max-new", "5"])
+    out = capsys.readouterr().out
+    assert "completed 6/6 requests" in out and steps > 0 and out.count(", 5)") == 6
+
+
 def test_launcher_matches_the_jax_launcher_step_count(capsys):
     """Same seed, same prompts: the two launchers run the same number of
     engine steps (their weights differ: each draws its own)."""
