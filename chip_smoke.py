@@ -126,6 +126,34 @@ fleet and the per-shard path on one NVIDIA card, end to end.
    GiB of each pass and the capacity's drop share. c) the engine with 4
    slots, a 128-token cache and 6 requests of 12 new tokens, held like
    step 9's (a functional check);
+11d. trains (``train_phase``; the plain attention: K4 has no backward,
+   and no kernel of K1–K5 may launch, counted): a) TinyLlama-1.1B at
+   full width with its depth cut to 2 layers, float32, tokens (2, 256)
+   from ``SyntheticLM``: one ``make_train_step`` on the card and the same
+   step on the CPU from the same parameters and optimizer state, each
+   leaf's gradient within 1e-4 of the CPU's relative to its norm, the
+   loss within 1e-5, grad_norm and lr within 1e-4; b) one Mamba layer at
+   Jamba-1.5-Large's width (d_inner 16384, d_state 16) on (1, 512),
+   float32: the output and the gradients of x and every weight through
+   the scan's training form within 1e-5 (relative norm) of autograd
+   through the step-by-step recurrence, both timed, peak GiB above the
+   weights; c) TinyLlama-1.1B whole (22 layers, published widths, bf16),
+   10 steps on tokens (8, 2048) through ``launch.train.main``: the loss
+   falls from step 0 to step 9; ms a step (median after the first),
+   tokens/s, model TFLOP/s (6·N·tokens plus the causal attention's,
+   against 989 TFLOP/s), peak GiB; its final checkpoint (bf16 weights,
+   float32 Adam state) timed and sized, restored once with its digest
+   checked and every bit compared; one more step profiled: device ms by
+   part (forward, recompute, backward, optimizer) and kernel group, idle
+   share; d) on the 2-layer model in bf16: 10 steps with a checkpoint at
+   step 5, then ``--restore`` from step 5, the resumed losses within 1e-4
+   of the uninterrupted ones (bit equality printed), and one step each of
+   ``--microbatches 2``, ``--compress-grads`` and ``--straggler-drop``,
+   finite; e) the elastic drill on the 2-layer model (0.22 B parameters,
+   a 0.9 GB float32 payload in 8 rows): host D3(2,2), devices 1 and 4
+   killed at steps 3 and 7, the §5 broadcast on ``cuda_fused``: shapes
+   D3(1,2) then D3(2,1), zero derivations, losses within 1e-4 of an
+   uninterrupted run;
 12. runs Mixtral-8x7B at its published widths (d 4096, 32 heads, 8 KV
    heads of 128, 8 experts top-2 of d_ff 14336, vocab 32000, window 4096,
    bf16) with the depth cut from 32 layers to 8 (all 32 layers of bf16
@@ -279,6 +307,7 @@ The cells (layout D3(K, M) has n = K·M² routers):
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import pathlib
@@ -310,6 +339,10 @@ FLASH_TOL = {"torch.bfloat16": 1e-2, "torch.float32": 2e-4}  # K4: rtol = atol =
 # recurrent mixers (mixer.mamba holds mamba.scan: its kernels count to the scan alone)
 MODEL_LABELS = ("attn.mla", "ffn.mlp", "moe.dispatch", "moe.experts", "moe.combine",
                 "mixer.mamba", "mamba.scan", "mixer.mlstm", "mixer.slstm")
+# every profiler range the port opens: a range's own span on the card is not a kernel (the
+# stack's groups and the train step's parts are the training path's)
+PROFILER_RANGES = MODEL_LABELS + ("moe.exchange", "moe.gather", "moe.allreduce", "stack.group",
+                                  "train.forward", "train.backward", "train.optimizer")
 JAMBA_TOKENS = (1, 4096)  # Jamba: one sequence (the capacity couples a batch); the naive pass's
 # float32 scores at 64 heads are 4.3 GiB here
 MAMBA_CHECK_TOKENS = (1, 512)  # one Mamba layer's chunked scan against the step-by-step scan
@@ -319,6 +352,16 @@ MLSTM_FORM_TOL = 2e-4  # rtol = atol, chunked against parallel (tests/test_xlstm
 # the parallel form in float64 (in float32 its own rounding over 2048 positions exceeds the bound)
 XLSTM_PROFILE_STEPS = 256  # positions of the sLSTM block profiled alone
 XLSTM_DECODE_TOL = 1e-3  # rtol = atol: xLSTM decode against prefill logits, both float32
+TRAIN_SMALL_LAYERS = 2  # step 11d a, d, e: TinyLlama-1.1B at full width, 2 of its 22 layers
+TRAIN_CHECK_TOKENS = (2, 256)  # a: the float32 step on the card against the CPU
+TRAIN_GRAD_TOL, TRAIN_LOSS_TOL = 1e-4, 1e-5  # a: ||Δ|| / ||g|| per leaf; the loss, relative
+MAMBA_GRAD_TOL = 1e-5  # b: ||Δ|| / ||want|| of the output and of each input's gradient
+TRAIN_TOKENS = (8, 2048)  # c, d, e: the prefill cell's tokens (TinyLlama's published context)
+TRAIN_STEPS = 10  # c: launcher steps; the final checkpoint is written after the last
+TRAIN_LR = 4e-4  # c, d, e: TinyLlama's published peak learning rate (arXiv:2401.02385); the
+# launcher's default 3e-3 is the smoke configs' and made the whole model's loss swing 8-15
+RESTART_TOL = 1e-4  # d, e: resumed and elastic losses (tests/test_elastic.py's bound)
+ELASTIC_FAILURES = {3: [1], 7: [4]}  # e: tests/test_elastic.py's cascade on D3(2,2)
 SERVE_REQUESTS, SERVE_NEW = 6, 12  # the engine checks: 4 slots, so slots are reused
 LOGIT_MAX_ABS, LOGIT_REL_RMS, LOSS_REL = 0.5, 0.05, 1e-3  # bf16 model-path tolerances
 RANKS = 8  # per-shard phase: D3(2,2), the shape of one 8-GPU node, all on one card here
@@ -2257,6 +2300,372 @@ def xlstm_phase(dev, kit):
     return runs
 
 
+
+@contextlib.contextmanager
+def patched(module, name, value):
+    """``module.name`` set to ``value`` inside the block."""
+    old = getattr(module, name)
+    setattr(module, name, value)
+    try:
+        yield
+    finally:
+        setattr(module, name, old)
+
+
+@contextlib.contextmanager
+def launcher_probe(launcher):
+    """Runs of ``launch.train.main`` with each step's loss and wall ms
+    (the step and the sync the launcher makes to read the loss) and each
+    checkpoint's seconds and tree recorded: the launcher prints neither
+    at full precision."""
+    import torch
+
+    rec = types.SimpleNamespace(losses=[], step_ms=[], saves=[])
+    make_step, save = launcher.make_train_step, launcher.ckpt.save
+
+    def make_train_step(*args, **kwargs):
+        step = make_step(*args, **kwargs)
+
+        def timed(params, opt_state, batch):
+            t0 = time.perf_counter()
+            out = step(params, opt_state, batch)
+            rec.losses.append(float(out[2]["loss"]))
+            rec.step_ms.append((time.perf_counter() - t0) * 1e3)
+            return out
+        return timed
+
+    def timed_save(ckpt_dir, step, tree, **kwargs):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        path = save(ckpt_dir, step, tree, **kwargs)
+        rec.saves.append({"step": step, "s": time.perf_counter() - t0, "tree": tree,
+                          "bytes": (pathlib.Path(path) / "arrays.npz").stat().st_size})
+        return path
+
+    with patched(launcher, "make_train_step", make_train_step), \
+            patched(launcher.ckpt, "save", timed_save):
+        yield rec
+
+
+def step_breakdown(fn, wall_ms):
+    """One profiled call of a train step: device ms by part (the forward,
+    the backward's recompute of the remat'd groups, the backward proper,
+    the optimizer) and kernel group (matrix products, the rest), and the
+    idle share of ``wall_ms`` (a call timed without the profiler). The
+    parts come from the step's profiler ranges: ``train.forward`` and
+    ``train.optimizer`` on the calling thread, ``stack.group`` there
+    (forward) or on the autograd thread (recompute); kernels the autograd
+    thread launches outside a group are the backward's."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    labels = ("stack.group", "train.forward", "train.optimizer", "train.backward")
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    events = prof.events()
+    main_thread = next(e.thread for e in events if e.name == "train.forward")
+    parts: dict = {}
+    for e in events:
+        if e.device_type != torch.autograd.DeviceType.CPU or not e.kernels \
+                or e.name == "Command Buffer Full":
+            continue
+        up = e
+        while up is not None and up.name not in labels:
+            up = up.cpu_parent
+        name = up.name if up is not None else "train.backward"
+        part = {"stack.group": "forward" if e.thread == main_thread else "recompute",
+                "train.forward": "forward", "train.optimizer": "optimizer",
+                "train.backward": "backward"}[name]
+        for k in e.kernels:
+            group = ("matmul" if any(w in k.name.lower() for w in
+                                     ("gemm", "gemv", "cutlass", "xmma", "nvjet")) else "other")
+            by = parts.setdefault(part, {"matmul": 0.0, "other": 0.0, "kernels": 0})
+            by[group] += k.duration / 1e3
+            by["kernels"] += 1
+    busy = sum(p["matmul"] + p["other"] for p in parts.values())
+    return {"wall_ms": wall_ms, "device_ms": busy, "idle_share": 1 - busy / wall_ms,
+            "device_ms_by_part": parts}
+
+
+def train_phase(dev, kit, counters):
+    """Step 11d: the training path. a) one train step of TinyLlama-1.1B at
+    full width with its depth cut to 2 layers, float32, on the card and on
+    the CPU from the same state; b) one Mamba layer at Jamba-1.5-Large's
+    width, the scan's training form against autograd through the
+    step-by-step recurrence; c) TinyLlama-1.1B whole, bf16, 10 steps
+    through ``launch.train.main`` with its final checkpoint written,
+    restored and timed, and one step profiled; d) the launcher's restart
+    and its microbatch, compression and straggler paths on the 2-layer
+    model; e) the elastic drill on the 2-layer model with the §5 broadcast
+    on ``cuda_fused``. ``counters`` are the kernel wrappers: the path
+    launches none of them. Returns the runs' records."""
+    import shutil
+
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.core.topology import D3
+    from repro_torch.launch import train as launcher
+    from repro_torch.models import mamba as MB
+    from repro_torch.train import checkpoint as ckpt
+    from repro_torch.train.data import DataState, SyntheticLM
+    from repro_torch.train.elastic import ElasticTrainer, FaultInjector, max_loss_divergence
+    from repro_torch.train.optimizer import OptConfig, flatten, unflatten
+    from repro_torch.train.train_step import (
+        TrainSettings, init_train_state, make_microbatch_grads, make_train_step)
+
+    t_phase = time.perf_counter()
+    gib = lambda n: n / 2**30
+    work = pathlib.Path(__file__).resolve().parent / "build" / "chip_smoke_train"
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    print(f"train: {gib(torch.cuda.memory_allocated()):.2f} GiB allocated before the phase; "
+          f"{shutil.disk_usage(work).free / 1e9:.1f} GB free on the checkout's disk", flush=True)
+    arch = "tinyllama-1.1b"
+    full = get_config(arch)
+    small = dataclasses.replace(full, n_layers=TRAIN_SMALL_LAYERS)
+    settings = TrainSettings(use_kernel=False, remat=True)
+    runs = []
+
+    def rel(got, want):
+        return float((got.float() - want.float()).norm() / want.float().norm())
+
+    def counts():
+        return {c.__name__: c.launches for c in counters}
+
+    # a) the step held in float32: the card against the CPU from the same state
+    t0 = time.perf_counter()
+    cfg32 = dataclasses.replace(small, param_dtype="float32", compute_dtype="float32")
+    opt_cfg = OptConfig(lr=3e-3, warmup_steps=10, total_steps=10)
+    params, opt_state = init_train_state(SEED, cfg32, opt_cfg, settings, device=dev)
+    on_cpu = lambda tree: unflatten(tree, [t.cpu() for _, t in flatten(tree)])
+    p_cpu, o_cpu = on_cpu(params), on_cpu(opt_state)
+    data = SyntheticLM(DataState(seed=SEED, batch=TRAIN_CHECK_TOKENS[0],
+                                 seq=TRAIN_CHECK_TOKENS[1], vocab=cfg32.vocab)).next_batch()
+    b_cpu = {k: torch.from_numpy(v) for k, v in data.items()}
+    b_dev = {k: v.to(dev) for k, v in b_cpu.items()}
+    zero_counts(counters)
+    grads_fn = make_microbatch_grads(cfg32, settings)
+    loss_d, _, g_d = grads_fn(params, b_dev)
+    loss_c, _, g_c = grads_fn(p_cpu, b_cpu)
+    g_c = dict(flatten(g_c))
+    leaf_rel = {"/".join(map(str, path)): rel(g.cpu(), g_c[path]) for path, g in flatten(g_d)}
+    step = make_train_step(cfg32, opt_cfg, settings)
+    _, _, m_d = step(params, opt_state, b_dev)
+    _, _, m_c = step(p_cpu, o_cpu, b_cpu)
+    worst = max(leaf_rel, key=leaf_rel.get)
+    rec = {"run": "train step, card against CPU", "model": cfg32.name, "layers": cfg32.n_layers,
+           "dtype": "float32", "tokens": list(TRAIN_CHECK_TOKENS), "leaves": len(leaf_rel),
+           "grad_rel_max": leaf_rel[worst], "grad_rel_max_leaf": worst,
+           "grad_tol": TRAIN_GRAD_TOL, "loss_card": float(loss_d), "loss_cpu": float(loss_c),
+           "loss_tol": TRAIN_LOSS_TOL,
+           "step": {k: [float(m_d[k]), float(m_c[k])] for k in ("loss", "grad_norm", "lr")},
+           "launches": counts(), "phase_s": time.perf_counter() - t0}
+    runs.append(rec)
+    emit(rec)
+    require(leaf_rel[worst] <= TRAIN_GRAD_TOL
+            and abs(float(loss_d) - float(loss_c)) <= TRAIN_LOSS_TOL * abs(float(loss_c))
+            and all(abs(a - b) <= TRAIN_GRAD_TOL * abs(b) for a, b in rec["step"].values())
+            and not any(rec["launches"].values()),
+            f"the train step on the card is off the CPU's: {rec}")
+    del params, opt_state, p_cpu, o_cpu, g_d, g_c, step, grads_fn
+    kit.release()
+
+    # b) the Mamba scan's training form at Jamba-1.5-Large's width
+    t0 = time.perf_counter()
+    jcfg = get_config("jamba-1.5-large-398b")
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    layer = MB.mamba_init(gen, jcfg, torch.float32, dev)
+    x = torch.randn(*MAMBA_CHECK_TOKENS, jcfg.d_model, generator=gen, device=dev)
+    gy = torch.randn(*MAMBA_CHECK_TOKENS, jcfg.d_model, generator=gen, device=dev)
+
+    def layer_grads(scan):
+        leaves = {k: v.detach().requires_grad_(True) for k, v in layer.items()}
+        xx = x.detach().requires_grad_(True)
+        xc, z, dt, Bm, Cm, A = MB.scan_inputs(leaves, xx, jcfg)
+        out = MB._out(leaves, scan(dt, xc, Bm, Cm, A), xc, z, xx.dtype)
+        return out.detach(), dict(zip(["x", *leaves], torch.autograd.grad(
+            out, [xx, *leaves.values()], gy)))
+
+    ins = [t.detach().requires_grad_(True) for t in MB.scan_inputs(layer, x, jcfg)]
+    xc, _, dt, Bm, Cm, A = ins
+    gs = torch.randn(xc.shape, generator=gen, device=dev)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    torch.autograd.grad(MB.selective_scan(dt, xc, Bm, Cm, A), [dt, xc, Bm, Cm, A], gs)
+    torch.cuda.synchronize()
+    scan_peak = gib(torch.cuda.max_memory_allocated() - base)
+    del ins, xc, dt, Bm, Cm, A, gs
+    forms = {}
+    for name, scan in (("training form", MB.selective_scan),
+                       ("step by step", MB.selective_scan_plain)):
+        layer_grads(scan)  # warm-up
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        t1 = time.perf_counter()
+        out, grads = layer_grads(scan)
+        torch.cuda.synchronize()
+        forms[name] = (out, grads, (time.perf_counter() - t1) * 1e3,
+                       gib(torch.cuda.max_memory_allocated() - base))
+    (out, grads, ms, peak), (want, wgrads, plain_ms, plain_peak) = forms.values()
+    grad_rel = {k: rel(grads[k], wgrads[k]) for k in grads}
+    weight_gib = gib(sum(t.numel() * t.element_size() for t in layer.values()))
+    rec = {"run": "mamba scan training form", "tokens": list(MAMBA_CHECK_TOKENS),
+           "d_model": jcfg.d_model, "d_inner": jcfg.mamba.expand * jcfg.d_model,
+           "d_state": jcfg.mamba.d_state, "dtype": "float32", "tol": MAMBA_GRAD_TOL,
+           "train_block_tokens": MB.TRAIN_BLOCK_TOKENS,
+           "out_rel": rel(out, want), "grad_rel": grad_rel,
+           "layer_fwd_bwd_ms": ms, "plain_layer_fwd_bwd_ms": plain_ms, "weights_gib": weight_gib,
+           "layer_peak_gib_above_weights": peak,
+           "plain_layer_peak_gib_above_weights": plain_peak,
+           "scan_fwd_bwd_peak_gib": scan_peak,
+           "reference_three_f32_gib": 3 * gib(4 * x.shape[0] * x.shape[1]
+                                              * jcfg.mamba.expand * jcfg.d_model
+                                              * jcfg.mamba.d_state),
+           "phase_s": time.perf_counter() - t0}
+    runs.append(rec)
+    emit(rec)
+    require(rec["out_rel"] <= MAMBA_GRAD_TOL and max(grad_rel.values()) <= MAMBA_GRAD_TOL
+            and scan_peak < rec["reference_three_f32_gib"],
+            f"the Mamba scan's training form is off the step-by-step one, or holds more than "
+            f"the reference's three (B, S, di, N) float32 tensors: {rec}")
+    del layer, x, gy, forms, out, grads, want, wgrads
+    kit.release()
+
+    # c) TinyLlama-1.1B whole, bf16, through the launcher
+    t0 = time.perf_counter()
+    B, S = TRAIN_TOKENS
+    ck = work / "tinyllama"
+    zero_counts(counters)
+    torch.cuda.reset_peak_memory_stats()
+    with launcher_probe(launcher) as probe:
+        final = launcher.main(["--arch", arch, "--steps", str(TRAIN_STEPS),
+                               "--batch", str(B), "--seq", str(S), "--lr", str(TRAIN_LR),
+                               "--ckpt-dir", str(ck),
+                               "--ckpt-every", str(TRAIN_STEPS), "--seed", str(SEED)])
+    train_s = time.perf_counter() - t0
+    peak = gib(torch.cuda.max_memory_allocated())
+    launches = counts()
+    (save,) = probe.saves
+    t1 = time.perf_counter()
+    ck_step, tree = ckpt.restore(ck)
+    restore_s = time.perf_counter() - t1
+    restored = dict(flatten({"params": tree["params"], "opt": tree["opt"]}))
+    bits = lambda t: t.contiguous().reshape(-1).view(torch.uint8)
+    same_bits = all(
+        torch.equal(bits(torch.as_tensor(restored[path]).to(dev)), bits(t))
+        for path, t in flatten({"params": save["tree"]["params"], "opt": save["tree"]["opt"]}))
+    params, opt_state = save["tree"]["params"], save["tree"]["opt"]
+    del save["tree"], tree, restored
+    kit.release()
+    n_params = sum(t.numel() for _, t in flatten(params))
+    n_matmul = n_params - params["embed"]["table"].numel()  # the lookup does no products
+    tokens = B * S
+    attn_flops = 3 * 4 * B * full.n_heads * full.head_dim * (S * (S + 1) // 2) * full.n_layers
+    model_flops = 6 * n_matmul * tokens + attn_flops
+    step_ms = statistics.median(probe.step_ms[1:])
+    data = SyntheticLM(DataState(seed=SEED + 1, batch=B, seq=S, vocab=full.vocab)).next_batch()
+    batch = {k: torch.from_numpy(v).to(dev) for k, v in data.items()}
+    step = make_train_step(full, OptConfig(lr=TRAIN_LR, warmup_steps=10,
+                                           total_steps=TRAIN_STEPS), settings)
+    wall = []
+    for _ in range(2):  # the optimizer's outputs are dropped: the state stays the restored one
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        out = step(params, opt_state, batch)
+        float(out[2]["loss"])
+        wall.append((time.perf_counter() - t1) * 1e3)
+        del out
+    profile = step_breakdown(lambda: step(params, opt_state, batch), wall[-1])
+    rec = {"run": "train: tinyllama-1.1b whole", "layers": full.n_layers, "dtype": full.param_dtype,
+           "tokens": [B, S], "params": n_params, "steps": TRAIN_STEPS,
+           "losses": probe.losses, "final_loss": final, "step_ms": probe.step_ms,
+           "ms_per_step_median_after_first": step_ms, "tokens_per_s": tokens / step_ms * 1e3,
+           "model_tflop_per_step": model_flops / 1e12,
+           "model_tflop_per_s": model_flops / step_ms / 1e9,
+           "model_flops_share_of_bf16_peak": model_flops / (step_ms / 1e3) / BF16_FLOP_PER_S,
+           "peak_gib": peak, "launches": launches,
+           "checkpoint": {"step": ck_step, "save_s": save["s"], "bytes": save["bytes"],
+                          "restore_s_digest_checked": restore_s, "same_bits": same_bits},
+           "profiled_step": profile, "train_s": train_s}
+    runs.append(rec)
+    emit(rec)
+    require(all(np.isfinite(probe.losses)) and probe.losses[-1] < probe.losses[0]
+            and same_bits and ck_step == TRAIN_STEPS and not any(launches.values()),
+            f"tinyllama training: {rec}")
+    del params, opt_state, batch, step
+    shutil.rmtree(ck, ignore_errors=True)
+    kit.release()
+
+    # d) restart, and the microbatch, compression and straggler paths (2 layers, bf16)
+    t0 = time.perf_counter()
+    argv = ["--arch", arch, "--batch", str(B), "--seq", str(S), "--seed", str(SEED),
+            "--lr", str(TRAIN_LR)]
+    with patched(launcher, "get_config", lambda arch: small):
+        with launcher_probe(launcher) as whole:
+            launcher.main(argv + ["--steps", "10", "--ckpt-every", "5",
+                                  "--ckpt-dir", str(work / "restart")])
+        shutil.rmtree(work / "restart" / "step_00000010")
+        with launcher_probe(launcher) as resumed:
+            launcher.main(argv + ["--steps", "10", "--restore",
+                                  "--ckpt-dir", str(work / "restart")])
+        paths = {}
+        for name, extra in (("microbatches 2", ["--microbatches", "2"]),
+                            ("compress-grads", ["--compress-grads"]),
+                            ("straggler-drop", ["--microbatches", "2", "--straggler-drop"])):
+            paths[name] = launcher.main(argv + ["--steps", "1", *extra,
+                                                "--ckpt-dir", str(work / name.split()[0])])
+    diffs = [abs(a - b) for a, b in zip(whole.losses[5:], resumed.losses)]
+    rec = {"run": "train: restart and step paths, 2 layers", "layers": small.n_layers,
+           "tokens": [B, S], "losses": whole.losses, "resumed_losses": resumed.losses,
+           "resumed_max_abs_diff": max(diffs), "resumed_bit_equal": diffs == [0.0] * 5,
+           "tol": RESTART_TOL, "path_losses": paths, "phase_s": time.perf_counter() - t0}
+    runs.append(rec)
+    emit(rec)
+    require(len(resumed.losses) == 5 and max(diffs) <= RESTART_TOL
+            and all(np.isfinite(list(paths.values()))), f"restart and step paths: {rec}")
+    kit.release()
+
+    # e) the elastic drill on the 2-layer model, the §5 broadcast on the card
+    t0 = time.perf_counter()
+    drill = dict(host=D3(2, 2), batch=B, seq=S, seed=SEED, ckpt_every=5, device=dev)
+    drill_opt = OptConfig(lr=TRAIN_LR, warmup_steps=2, total_steps=10)
+    base = ElasticTrainer(small, drill_opt, settings, ckpt_dir=work / "base", **drill)
+    base_losses = base.run(10)
+    el = ElasticTrainer(small, drill_opt, settings, ckpt_dir=work / "elastic",
+                        injector=FaultInjector(ELASTIC_FAILURES), **drill)
+    el_losses = el.run(10)
+    events = [{"step": e.step, "failed": list(e.failed), "shape": list(e.shape),
+               "survivors": list(e.survivors), "resumed_from": e.resumed_from,
+               "broadcast_rounds": e.broadcast_rounds,
+               "payload_gb": e.bytes_redistributed / 1e9, "wall_s": e.wall_s,
+               "derivations": e.derivations} for e in el.events]
+    div = max_loss_divergence(base_losses, el_losses)
+    rec = {"run": "train: elastic drill, 2 layers", "host": "D3(2, 2)",
+           "failures": ELASTIC_FAILURES, "backend": type(el.backend).__name__,
+           "events": events,
+           "max_loss_divergence": div, "tol": RESTART_TOL,
+           "phase_s": time.perf_counter() - t0}
+    runs.append(rec)
+    emit(rec)
+    require([e["shape"] for e in events] == [[1, 2], [2, 1]]
+            and rec["backend"] == "CudaFusedBackend"
+            and all(e["derivations"] == 0 for e in events) and div <= RESTART_TOL
+            and len(el_losses) == 10, f"elastic drill: {rec}")
+    del base, el
+    shutil.rmtree(work, ignore_errors=True)
+    kit.release()
+    phase_s = time.perf_counter() - t_phase
+    print(f"train: phase_s {phase_s:.1f}", flush=True)
+    runs[0]["train_phase_s"] = phase_s
+    return runs
+
+
 def main() -> None:
     import torch
 
@@ -2977,7 +3386,8 @@ def main() -> None:
         a wall time taken without the profiler; the idle share is the part
         of the wall time with no kernel running (None where the profiler
         saw no device time). The device spans of the port's profiler ranges
-        (``MODEL_LABELS``) are not kernels and are left out of the groups.
+        (``PROFILER_RANGES``, and any other user annotation) are not
+        kernels and are left out of the groups.
         With ``labels``, also the device time of the kernels launched
         inside each ``record_function`` range of that name; with
         ``top_ops``, the device time of the kernels
@@ -2998,7 +3408,8 @@ def main() -> None:
             torch.cuda.synchronize()
         groups, n_kernels = {}, 0
         for e in prof.key_averages():
-            if e.device_type != torch.autograd.DeviceType.CUDA or e.key in MODEL_LABELS:
+            if (e.device_type != torch.autograd.DeviceType.CUDA or e.key in PROFILER_RANGES
+                    or getattr(e, "is_user_annotation", False)):
                 continue
             name = e.key.lower()
             group = ("flash_attention" if "flash_attention" in name else
@@ -3058,6 +3469,10 @@ def main() -> None:
     kernels["flash_attention"]["launches_by_path"]["jamba-1.5-large-398b prefill"] = jamba_launches
     kernels["flash_attention"]["body_launches"]["wgmma"] += jamba_launches
     runs.extend(xlstm_phase(dev, kit))
+
+    # ----- 11d. training: TinyLlama-1.1B (whole, and 2 layers), Jamba's Mamba layer
+    runs.extend(train_phase(dev, kit, all_counters + (cf.ring_put, cf.ring_signal,
+                                                     cf.ring_wait_add)))
 
     # ----------------- 12. Mixtral-8x7B at full width, the depth cut to 8 layers
     t0 = time.perf_counter()

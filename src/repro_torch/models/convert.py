@@ -10,7 +10,8 @@ member's expert tensors (``router``, ``w_in``, ``w_gate``, ``w_out`` and
 ``shared``) come across like any other; with sharding ``rules`` and a
 ``rank``, each MoE member's ``w_in``, ``w_gate`` and ``w_out`` are cut to
 that rank's rows by ``rules.expert``, and the router and the rest of the
-model stay whole.
+model stay whole. ``opt_state_from_jax`` carries the optimizer state
+(moments, step, compression error) across the same way.
 Imports neither jax nor the JAX package.
 """
 
@@ -46,15 +47,9 @@ def _cut_experts(ffn: dict, rules, rank: int) -> dict:
     return {key: w.clone() for key, w in local_experts(ffn, rules, coords, sizes).items()}
 
 
-def params_from_jax(np_tree, cfg, device="cuda", rules=None, rank=None):
-    """The port's parameters from the JAX package's tree of numpy arrays,
-    in ``cfg.param_dtype`` on ``device``; with ``rules`` and ``rank``, the
-    MoE experts cut to the rank's."""
-    if (rules is None) != (rank is None):
-        raise ValueError("give both rules and rank, or neither")
-    device = _device(device)
-    dt = _dtype(cfg.param_dtype)
-    conv = lambda a: _tensor(a, dt, device)
+def _unstack(np_tree, cfg, conv):
+    """The JAX layout's tree with ``conv`` applied to every array, the stack
+    and the dense prefix unstacked into one dict per layer."""
     out = {key: _tree(np_tree[key], conv) for key in ("embed", "final_norm", "unembed", "mtp")
            if key in np_tree}
     members = np_tree["stack"]
@@ -65,8 +60,38 @@ def params_from_jax(np_tree, cfg, device="cuda", rules=None, rank=None):
         (prefix,) = np_tree["prefix"]
         out["prefix"] = [_tree(prefix, lambda a, i=i: conv(np.asarray(a)[i]))
                          for i in range(cfg.first_dense_layers)]
+    return out
+
+
+def params_from_jax(np_tree, cfg, device="cuda", rules=None, rank=None):
+    """The port's parameters from the JAX package's tree of numpy arrays,
+    in ``cfg.param_dtype`` on ``device``; with ``rules`` and ``rank``, the
+    MoE experts cut to the rank's."""
+    if (rules is None) != (rank is None):
+        raise ValueError("give both rules and rank, or neither")
+    device = _device(device)
+    dt = _dtype(cfg.param_dtype)
+    out = _unstack(np_tree, cfg, lambda a: _tensor(a, dt, device))
     if rules is not None:
         for layer in out["stack"]:
             if "router" in layer.get("ffn", {}):
                 layer["ffn"] = _cut_experts(layer["ffn"], rules, rank)
+    return out
+
+
+def opt_state_from_jax(np_state, cfg, device="cuda"):
+    """The port's optimizer state from the JAX package's
+    (``repro.train.optimizer.init_state``, with ``err`` under gradient
+    compression) as numpy arrays: ``mu``'s moments (``m`` and ``v``, or
+    ``m``, ``vr`` and ``vc``) and ``err`` unstacked as ``params_from_jax``
+    unstacks the parameters, each in its own dtype, and ``step``."""
+    device = _device(device)
+
+    def conv(a):
+        a = np.asarray(a)
+        return _tensor(a, getattr(torch, a.dtype.name), device)
+
+    out = {"mu": _unstack(np_state["mu"], cfg, conv), "step": conv(np_state["step"])}
+    if "err" in np_state:
+        out["err"] = _unstack(np_state["err"], cfg, conv)
     return out

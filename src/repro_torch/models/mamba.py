@@ -9,8 +9,12 @@ chunk through the chunk's cumulative decay. The JAX package scans with
 ``jax.lax.associative_scan`` over the whole sequence at once, holding
 (B, S, di, N) float32 tensors (1 MiB a token at Jamba's width); this form
 holds a block's, and sums in another order, so it agrees with the
-reference to a tolerance, not to the bit. ``selective_scan_plain`` is the
-step-by-step recurrence of the decode form, the oracle both are held to.
+reference to a tolerance, not to the bit. Under autograd the same scan
+runs as a ``torch.autograd.Function`` whose backward recomputes each
+block from its saved entering state and scans the adjoint back through
+it, so training holds a block's float32 terms, not the sequence's.
+``selective_scan_plain`` is the step-by-step recurrence of the decode
+form, the oracle both are held to.
 Decode is the O(1) single-step update of the conv window and SSM state.
 
 The discretisation ``exp(dt·A)`` and ``dt·x·B`` is computed in float32 and
@@ -35,6 +39,10 @@ CHUNK = 32
 #: bounds the float32 (B, T, di, N) tensors a block holds (512 MiB each at
 #: Jamba's width).
 BLOCK_TOKENS = 512
+#: Tokens of one block of the training form (``_SelectiveScan``): its
+#: backward holds about four of a block's (B, T, di, N) float32 tensors
+#: (128 MiB each at Jamba's width).
+TRAIN_BLOCK_TOKENS = 128
 
 
 def mamba_init(gen, cfg, dtype, device):
@@ -118,28 +126,123 @@ def _scan_block(a, bx, h, chunk):
     return hs.view(Bsz, T, *hs.shape[3:])
 
 
-def selective_scan(dt, xc, Bm, Cm, A):
-    """y_t = Σ_N h_t·C_t with h_t = exp(dt_t·A)·h_{t-1} + dt_t·x_t·B_t from
-    h = 0: (B, S, di) float32. Blocks of at most ``BLOCK_TOKENS`` tokens,
-    each cut into whole chunks of ``CHUNK`` positions and a shorter tail."""
-    Bsz, S, di = xc.shape
+def _spans(Bsz, S, block_tokens):
+    """(lo, hi, chunk) of each block: at most ``block_tokens`` tokens, cut
+    into whole chunks of ``CHUNK`` positions and a shorter tail."""
     chunk = CHUNK
-    per_block = max(chunk, BLOCK_TOKENS // Bsz // chunk * chunk)
-    h = torch.zeros((Bsz, di, A.shape[1]), dtype=torch.float32, device=xc.device)
-    ys = []
+    per_block = max(chunk, block_tokens // Bsz // chunk * chunk)
     for lo in range(0, S, per_block):
         hi = min(lo + per_block, S)
         whole = lo + (hi - lo) // chunk * chunk
         for a0, a1, c in ((lo, whole, chunk), (whole, hi, hi - whole)):
-            if a1 == a0:
-                continue
-            a, bx = _discretize(dt[:, a0:a1], xc[:, a0:a1], Bm[:, a0:a1], A)
-            hs = _scan_block(a, bx, h, c)
-            del a, bx
-            h = hs[:, -1].clone()
-            ys.append((hs @ Cm[:, a0:a1].float()[..., None])[..., 0])
-            del hs
+            if a1 > a0:
+                yield a0, a1, c
+
+
+def _block_terms(dtf, dx, Bmf, a0, a1, A):
+    """a = exp(dt·A) and b = (dt·x)·B of positions [a0, a1), float32
+    (B, T, di, N) each (``_discretize`` on float32 inputs)."""
+    return torch.exp(dtf[:, a0:a1, :, None] * A), dx[:, a0:a1, :, None] * Bmf[:, a0:a1, None, :]
+
+
+def _scan_forward(dtf, dx, Bmf, Cmf, A, block_tokens, states=None):
+    """y (B, S, di) of the chunked scan on float32 inputs; appends each
+    block's entering state to ``states`` when given."""
+    Bsz, S, di = dtf.shape
+    h = torch.zeros((Bsz, di, A.shape[1]), dtype=torch.float32, device=dtf.device)
+    ys = []
+    for a0, a1, c in _spans(Bsz, S, block_tokens):
+        if states is not None:
+            states.append(h)
+        a, bx = _block_terms(dtf, dx, Bmf, a0, a1, A)
+        hs = _scan_block(a, bx, h, c)
+        del a, bx
+        h = hs[:, -1].clone()
+        ys.append((hs @ Cmf[:, a0:a1, :, None])[..., 0])
+        del hs
     return torch.cat(ys, dim=1)
+
+
+def _scan_block_back(a, lam, carry, chunk):
+    """The adjoint of ``_scan_block``, in place: ``lam`` holds dL/dy's
+    share u_t = gy_t·C_t on entry and λ_t = u_t + a_{t+1}·λ_{t+1} on exit,
+    λ at the block's last position also taking ``carry`` (dL/dh there from
+    later blocks). The n chunks run side by side backwards from a zero
+    adjoint (the last from ``carry``), then chunk c adds the running
+    product of the decays after each position times chunk c + 1's
+    first λ, from the last chunk down."""
+    Bsz, T = a.shape[:2]
+    n = T // chunk
+    a = a.view(Bsz, n, chunk, *a.shape[2:])
+    lam = lam.view(Bsz, n, chunk, *lam.shape[2:])
+    run = torch.zeros_like(lam[:, :, 0])
+    run[:, -1] = carry
+    for t in reversed(range(chunk)):
+        run = lam[:, :, t].add_(run) if t == chunk - 1 else \
+            torch.addcmul(lam[:, :, t], a[:, :, t + 1], run, out=lam[:, :, t])
+    for c in range(n - 2, -1, -1):
+        after = torch.cumprod(a[:, c, 1:].flip(1), dim=1).flip(1)  # Π a_{t+1..chunk-1}
+        edge = a[:, c + 1, 0] * lam[:, c + 1, 0]
+        lam[:, c, :-1].addcmul_(after, edge[:, None])
+        lam[:, c, -1].add_(edge)
+
+
+class _SelectiveScan(torch.autograd.Function):
+    """The chunked scan with a backward of its own, in blocks of
+    ``TRAIN_BLOCK_TOKENS``: the forward keeps only each block's entering
+    state (B, di, N); the backward walks the blocks in reverse, recomputes
+    a block's a, b and states from its entering state, and scans the
+    adjoint back through it (``_scan_block_back``). A block's few
+    (B, T, di, N) float32 terms are all it holds at once."""
+
+    @staticmethod
+    def forward(ctx, dtf, dx, Bmf, Cmf, A):
+        states = []
+        y = _scan_forward(dtf, dx, Bmf, Cmf, A, TRAIN_BLOCK_TOKENS, states)
+        ctx.save_for_backward(dtf, dx, Bmf, Cmf, A, *states)
+        return y
+
+    @staticmethod
+    def backward(ctx, gy):
+        dtf, dx, Bmf, Cmf, A, *states = ctx.saved_tensors
+        Bsz, S, di = dtf.shape
+        g_dt, g_dx = torch.empty_like(dtf), torch.empty_like(dx)
+        g_B, g_C, g_A = torch.empty_like(Bmf), torch.empty_like(Cmf), torch.zeros_like(A)
+        gy = gy.float()
+        carry = torch.zeros_like(states[0])  # dL/dh at the block's last position, from later
+        spans = list(_spans(Bsz, S, TRAIN_BLOCK_TOKENS))
+        for (a0, a1, c), h0 in zip(reversed(spans), reversed(states)):
+            a, bx = _block_terms(dtf, dx, Bmf, a0, a1, A)
+            hs = _scan_block(a, bx, h0, c)
+            del bx
+            g_C[:, a0:a1] = torch.einsum("btdn,btd->btn", hs, gy[:, a0:a1])
+            lam = gy[:, a0:a1, :, None] * Cmf[:, a0:a1, None, :]
+            _scan_block_back(a, lam, carry, c)
+            carry = a[:, 0] * lam[:, 0]
+            g_dx[:, a0:a1] = torch.einsum("btdn,btn->btd", lam, Bmf[:, a0:a1])
+            g_B[:, a0:a1] = torch.einsum("btdn,btd->btn", lam, dx[:, a0:a1])
+            ga = a.mul_(lam)  # dL/d(dt·A) = λ_t·h_{t-1}·a_t, built in a's buffer
+            del lam
+            ga[:, 1:].mul_(hs[:, :-1])
+            ga[:, 0].mul_(h0)
+            del hs
+            g_dt[:, a0:a1] = (ga * A).sum(-1)
+            g_A += torch.einsum("btdn,btd->dn", ga, dtf[:, a0:a1])
+            del ga, a
+        return g_dt, g_dx, g_B, g_C, g_A
+
+
+def selective_scan(dt, xc, Bm, Cm, A):
+    """y_t = Σ_N h_t·C_t with h_t = exp(dt_t·A)·h_{t-1} + dt_t·x_t·B_t from
+    h = 0: (B, S, di) float32. Blocks of at most ``BLOCK_TOKENS`` tokens,
+    each cut into whole chunks of ``CHUNK`` positions and a shorter tail.
+    Where autograd records and an input needs a gradient, the training
+    form (``_SelectiveScan``) runs the same scan with its own backward:
+    the serving form's in-place writes are not differentiable."""
+    dtf, dx, Bmf, Cmf = dt.float(), (dt * xc).float(), Bm.float(), Cm.float()
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (dt, xc, Bm, Cm, A)):
+        return _SelectiveScan.apply(dtf, dx, Bmf, Cmf, A)
+    return _scan_forward(dtf, dx, Bmf, Cmf, A, BLOCK_TOKENS)
 
 
 def selective_scan_plain(dt, xc, Bm, Cm, A):

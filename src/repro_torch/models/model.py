@@ -79,14 +79,20 @@ def _embed_inputs(params, batch, cfg):
     return x, positions, batch.get("mrope_positions")
 
 
-def forward_train(params, batch, cfg: ModelConfig, use_kernel: bool = True):
+def forward_train(params, batch, cfg: ModelConfig, use_kernel: bool = True,
+                  remat: bool = True):
     """-> (logits (B, S, vocab), aux_loss, hidden (B, S, d)). ``aux_loss``
     is the float32 sum of the MoE layers' load-balance losses (zero
-    without MoE layers); the dense prefix runs before the stack."""
+    without MoE layers); the dense prefix runs before the stack. With
+    ``remat`` and autograd recording, each prefix layer and each group of
+    the stack runs under ``torch.utils.checkpoint``, as the JAX package
+    runs them under ``jax.checkpoint``."""
     x, positions, mrope = _embed_inputs(params, batch, cfg)
     for member in params.get("prefix", []):  # dense members: their aux is 0
-        x = T.member_train(member, x, cfg, "attn", "mlp", positions, mrope, use_kernel)[0]
-    x, aux = T.stack_train(params["stack"], x, cfg, positions, mrope, use_kernel)
+        x = T.remat_call(
+            lambda x, member=member: T.member_train(member, x, cfg, "attn", "mlp", positions,
+                                                    mrope, use_kernel)[0], x, remat)
+    x, aux = T.stack_train(params["stack"], x, cfg, positions, mrope, use_kernel, remat)
     h = _norm_f(cfg)(params["final_norm"], x)
     logits = _unembed(params, h, cfg)
     return logits, aux, h
@@ -127,8 +133,8 @@ def softmax_xent(logits, labels, valid=None):
     return (nll * valid).sum() / valid.sum().clamp(min=1)
 
 
-def loss_fn(params, batch, cfg: ModelConfig, use_kernel: bool = True):
-    logits, aux, h = forward_train(params, batch, cfg, use_kernel)
+def loss_fn(params, batch, cfg: ModelConfig, use_kernel: bool = True, remat: bool = True):
+    logits, aux, h = forward_train(params, batch, cfg, use_kernel, remat)
     labels = batch["labels"]
     loss = softmax_xent(logits[:, :-1], labels[:, 1:])
     metrics = {"ce": loss}

@@ -74,7 +74,10 @@ _ROUTES: list | None = None
 @contextlib.contextmanager
 def recording_routes():
     """Collect the routing of every ``moe_apply_sparse`` call made inside
-    the block, in call order (one entry per MoE layer of a forward)."""
+    the block, in call order (one entry per MoE layer of a forward). A
+    tool for forwards without autograd: a backward run inside the block
+    through remat'd layers (``forward_train(..., remat=True)``) recomputes
+    them and records each MoE layer again."""
     global _ROUTES
     outer, _ROUTES = _ROUTES, []
     try:

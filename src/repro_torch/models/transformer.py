@@ -8,7 +8,10 @@ recurrent state) forms. The JAX package stacks layers as repeating groups
 and scans them with ``lax.scan`` under ``jax.checkpoint``; here the stack
 is a list with one parameter dict per layer, in the JAX stack's order
 (group g, member mi is layer g·period + mi), walked by a Python loop.
-There is no remat: nothing runs backward yet. The decode form is a
+With ``remat`` (the default) and autograd recording, the train form runs
+each group of ``period`` layers under ``torch.utils.checkpoint`` (non
+reentrant), as the JAX package runs ``jax.checkpoint(group_fn)``: the
+backward recomputes a group's activations from its input. The decode form is a
 generator that pauses at each MoE member (``stack_decode_staged``);
 ``serve_inline`` answers it with the FFN computed inline, the multi-tenant
 fleet with one combined replay a boundary. A ``moe`` FFN takes
@@ -25,6 +28,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 from torch.autograd.profiler import record_function
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.models import attention as A
 from repro_torch.models import layers as L
@@ -146,11 +150,33 @@ def stack_init(gen, cfg, dtype, device):
     return [member_init(gen, cfg, mixer, ffn, dtype, device) for mixer, ffn in layer_kinds(cfg)]
 
 
-def stack_train(stack_params, x, cfg, positions, mrope_positions=None, use_kernel=True):
-    """-> (x, the float32 sum of the members' aux losses)."""
+def remat_call(fn, x, remat: bool):
+    """``fn(x)``, under ``torch.utils.checkpoint`` when ``remat`` is set and
+    autograd is recording (so the backward recomputes what ``fn`` made)."""
+    if remat and torch.is_grad_enabled():
+        return checkpoint(fn, x, use_reentrant=False)
+    return fn(x)
+
+
+def stack_train(stack_params, x, cfg, positions, mrope_positions=None, use_kernel=True,
+                remat: bool = True):
+    """-> (x, the float32 sum of the members' aux losses); ``remat``
+    checkpoints each group of ``period`` layers. A group runs under the
+    profiler label ``stack.group`` (in the backward's recompute too)."""
+    kinds = layer_kinds(cfg)
+    period = len(cfg.layer_kinds())
     aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
-    for params, (mixer, ffn) in zip(stack_params, layer_kinds(cfg)):
-        x, aux = member_train(params, x, cfg, mixer, ffn, positions, mrope_positions, use_kernel)
+    for g0 in range(0, len(stack_params), period):
+        def group_fn(x, layers=stack_params[g0:g0 + period], kinds=kinds[g0:g0 + period]):
+            with record_function("stack.group"):
+                aux = None
+                for params, (mixer, ffn) in zip(layers, kinds):
+                    x, a = member_train(params, x, cfg, mixer, ffn, positions, mrope_positions,
+                                        use_kernel)
+                    aux = a if aux is None else aux + a
+                return x, aux
+
+        x, aux = remat_call(group_fn, x, remat)
         aux_total = aux_total + aux
     return x, aux_total
 

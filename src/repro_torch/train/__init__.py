@@ -1,4 +1,23 @@
-"""Training substrate. Ported so far: fault tolerance (``fault_tolerance``:
-the failover library, the multi-tenant cluster and the straggler policy).
-The optimizer, train step, checkpointing, data pipeline, compression and
-elastic trainer wait for ROADMAP Queue 1 item 5."""
+"""Training substrate: optimizer, train step factory, checkpointing,
+data pipeline, fault tolerance, gradient compression, elastic trainer.
+
+The port of ``repro.train`` for one process. Not ported: the sharding
+spec trees (``optimizer.state_specs``, ``train_step.train_shardings``),
+which wait for the multi-process step (ROADMAP Queue 1 item 5)."""
+
+from repro_torch.train.optimizer import OptConfig, init_state, apply_updates
+from repro_torch.train.train_step import TrainSettings, make_train_step, init_train_state
+from repro_torch.train import checkpoint
+from repro_torch.train.data import DataState, SyntheticLM
+
+__all__ = [
+    "OptConfig",
+    "init_state",
+    "apply_updates",
+    "TrainSettings",
+    "make_train_step",
+    "init_train_state",
+    "checkpoint",
+    "DataState",
+    "SyntheticLM",
+]
