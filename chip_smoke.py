@@ -267,7 +267,42 @@ fleet and the per-shard path on one NVIDIA card, end to end.
    plain call and of one local 25 MiB ``copy_`` (the yardstick), the
    bound of one call of all 8 ranks (per round and rank: read x, read the
    partner's x, write the sum; the staging copy through the window is the
-   design's cost, not the function's) and the bound of one put.
+   design's cost, not the function's) and the bound of one put;
+17. runs DeepSeek-V3 under expert parallelism on the production model
+   axis: 16 processes share the card on a (data 1, model 16) mesh (gloo,
+   the host as the exchanges' carrier; the model axis is D3(4,2)), 256
+   experts, 16 a rank, so ``moe_apply_auto`` takes EP. The weights are made
+   anew at step 11's depth (3 dense-prefix layers, 1 MoE layer and the MTP
+   block, 31.6 GB of bf16 from seed 0; the card's free memory printed
+   first), once in the parent, and handed to the ranks by CUDA IPC; each
+   rank cuts its 16 experts as views, each expert stack by its
+   ``models.param_specs`` entry through ``dist.sharding.local_slices`` (a
+   checksum of every weight before and after). Before the ranks start the
+   parent runs the one-process oracles (``moe_apply_ep_plain(..., 1, 16)``,
+   each model coordinate's 16 experts one ``bmm`` batch, as a rank runs
+   them) and keeps only their outputs, and a control: the expert FFN of
+   256 experts as one batch against 16 batches of 16, bits compared.
+   a) the MoE layer on hidden states (1, 4096, 7168) bf16 from the seed:
+   T_loc 256, C_loc 16, a (16, 16, 16, 7168) bf16 buffer of 58.7 MB a rank
+   each way, in the four fixed modes through ``moe_apply_auto``: every
+   rank's output the same bits, ``xla``, ``dragonfly`` and
+   ``dragonfly_overlap`` the plain version's bits, the fused mode within
+   K4's bf16 bound of it, the aux equal across modes and ranks (within
+   1e-5 of the plain one: gloo sums it in its own order), routes and drops
+   the plain version's; per mode the wall ms of a call of all ranks
+   (median of 3 after a warm-up), the exchange, expert-FFN and all-gather
+   ms (``moe.timing_parts``), the carrier's copies and bytes and the peak
+   a rank; then ``moe_collectives="auto"``: one decision measured and
+   agreed by all 16 ranks, its output the bits of the mode it names, every
+   candidate's µs beside the analytic ``moe_site_report`` at that key.
+   b) ``forward_train`` with K4 on tokens (1, 4096) from the seed in the
+   ``dragonfly`` mode: exactly 4 ``wgmma`` K4 launches a rank (64 in all),
+   every rank's logits and rank 0's last-token logits the one-process
+   forward's bits, the MoE layer's routes, drops and router logits too;
+   rank 0's ``loss_fn`` (``ce`` and ``mtp`` bit for bit, the loss within
+   1e-5: its aux term is gloo's sum) while the other ranks run
+   ``forward_train`` beside it; its ms, tokens/s, the exchange's share
+   and the peaks a rank.
 
 The float32 products of the plain versions, the references and the
 library calls run in full float32: TF32 is switched off for cuBLAS and
@@ -302,14 +337,20 @@ The cells (layout D3(K, M) has n = K·M² routers):
   Jamba       Jamba-1.5-Large, one period of 8 layers (1 attention, 7
   prefill     Mamba, 1 MoE FFN), tokens (1, 4096): K4 at (128, 128), 64/8
               heads, 1 launch a forward;
-  xLSTM       xLSTM-1.3B whole, tokens (8, 2048), no kernel.
+  xLSTM       xLSTM-1.3B whole, tokens (8, 2048), no kernel;
+  DeepSeek EP DeepSeek-V3 at step 11's depth, mesh (1, 16), 16 ranks
+              sharing the card, 16 of 256 experts a rank: T_loc 256, C_loc
+              16, a (16, 16, 16, 7168) bf16 buffer of 58.7 MB a rank each
+              way; the forward on tokens (1, 4096), K4 4 launches a rank.
 """
 
 from __future__ import annotations
 
 import contextlib
 import dataclasses
+import gc
 import json
+import os
 import pathlib
 import statistics
 import subprocess
@@ -378,6 +419,10 @@ TP_FORWARD_LAYERS = 8  # layers of the TP model forward (part b)
 TP_FORWARD_TOKENS = (1, 4096)  # cut from (1, 8192), where 16 ranks ran out of the card's memory
 ORDER_CALLS = 8  # known all-reduces gloo's summation order is read off (one more is held out)
 TP_PHASE_S = 300  # the TP phase's time budget
+DS_EP_MESH = (1, 16)  # step 17: DeepSeek-V3 on the production model axis, 16 of 256 experts a rank
+DS_EP_CALLS = 3  # timed calls of its layer per mode, after a warm-up
+DS_EP_PHASE_S = 300  # step 17's time budget
+CHECKSUM_CHUNK = 1 << 24  # int16 values a bits checksum sums at once (128 MiB of int64)
 FLEET_HOST, FLEET_GUEST = (2, 2), (1, 2)  # D3(2,2): 8 ranks; two D3(1,2) guests of 4 devices
 FLEET_LAYERS = 2  # of Mixtral's 32, per tenant: 6.3 GB of bf16 weights each
 FLEET_SLOTS, FLEET_REQUESTS, FLEET_NEW, FLEET_MAX_SEQ = 2, 3, 8, 32
@@ -623,7 +668,7 @@ def ep_rank(rank, group, layout, mparams, cfg, x, tokens, want_y, layers_b, tune
     rules = SH.active()[0]
     # this rank's experts: views of the shared stacks, read only
     params = {**mparams, "stack": [
-        {**layer, "ffn": MOE.local_experts(layer["ffn"], rules, mesh.coords, mesh.sizes)}
+        {**layer, "ffn": MOE.local_experts(layer["ffn"], cfg, rules, mesh.coords, mesh.sizes)}
         for layer in mparams["stack"]]}
 
     def sync():
@@ -722,6 +767,7 @@ def ep_rank(rank, group, layout, mparams, cfg, x, tokens, want_y, layers_b, tune
     model["ms"] = wall_ms(lambda: M.forward_train(params_b, batch, cfg_b, True))[1]
     model["peak_gib"] = peak_gib()
     SH.clear_active()
+    _release_shared(mparams)
     return {"layer": layer, "model": model}
 
 
@@ -925,7 +971,7 @@ def tp_rank(rank, group, layout, mparams, cfg, x, tokens, layers_b, order_shapes
     rules = SH.active()[0]
     # this rank's ff slice of every expert: views of the shared stacks, read only
     params = {**mparams, "stack": [
-        {**layer, "ffn": MOE.local_experts(layer["ffn"], rules, mesh.coords, mesh.sizes)}
+        {**layer, "ffn": MOE.local_experts(layer["ffn"], cfg, rules, mesh.coords, mesh.sizes)}
         for layer in mparams["stack"]]}
     t0 = time.perf_counter()
     orders = {shape: MOE.ObservedSumOrder.observe(mesh, "model", shape, x.dtype,
@@ -1002,6 +1048,7 @@ def tp_rank(rank, group, layout, mparams, cfg, x, tokens, layers_b, order_shapes
     model["ms"] = wall_ms(lambda: M.forward_train(params_b, batch, cfg_b, True))[1]
     model["peak_gib"] = peak_gib()
     SH.clear_active()
+    _release_shared(mparams)
     return {"layer": layer, "model": model, "order_s": order_s,
             "orders": orders if rank == 0 else None}
 
@@ -1232,15 +1279,45 @@ def tp_phase(dev, mparams, mcfg, seed):
         ranks_n * TP_FORWARD_LAYERS
 
 
-def _checksum(tree) -> int:
-    """Every weight's bits summed as int16: shared weights, unchanged."""
+def _release_shared(*trees) -> None:
+    """Empty the dicts and lists of parameter trees a rank got from the
+    parent by CUDA IPC, and collect the rank's reference cycles (a fleet's
+    hooks refer back to it), so that the rank's last references to the
+    parent's tensors go when its function returns. Otherwise they live
+    until the process exits without dropping them, and the parent's blocks
+    stay in torch's IPC limbo (``ipc_collect`` cannot free them): Mixtral's
+    weights and the fleet's tenants held 34.28 GiB of the card to the end
+    of the script (``experiments/ipc_limbo.py`` shows the limbo and the
+    cure)."""
+    def empty(tree):
+        if isinstance(tree, (dict, list)):
+            for sub in (tree.values() if isinstance(tree, dict) else tree):
+                empty(sub)
+            tree.clear()
+
+    for tree in trees:
+        empty(tree)
+    gc.collect()
+
+
+def _bits_sum(t) -> int:
+    """A 2-byte tensor's bits summed as int16, in chunks of CHECKSUM_CHUNK
+    values: the int64 sum of a whole tensor takes an int64 copy of it (30
+    GB for a 7.5 GB expert stack)."""
     import torch
 
+    flat = t.reshape(-1).view(torch.int16)
+    return sum(int(flat[i:i + CHECKSUM_CHUNK].sum(dtype=torch.int64))
+               for i in range(0, flat.numel(), CHECKSUM_CHUNK))
+
+
+def _checksum(tree) -> int:
+    """Every weight's bits summed as int16: shared weights, unchanged."""
     if isinstance(tree, dict):
         return sum(_checksum(v) for v in tree.values())
     if isinstance(tree, list):
         return sum(_checksum(v) for v in tree)
-    return int(tree.view(torch.int16).sum(dtype=torch.int64))
+    return _bits_sum(tree)
 
 
 def _nbytes(tree) -> int:
@@ -1258,6 +1335,15 @@ def _cast(tree, dtype):
     if isinstance(tree, list):
         return [_cast(val, dtype) for val in tree]
     return tree.to(dtype)
+
+
+def _to(tree, device):
+    """A copy of a parameter tree on ``device``."""
+    if isinstance(tree, dict):
+        return {key: _to(val, device) for key, val in tree.items()}
+    if isinstance(tree, list):
+        return [_to(val, device) for val in tree]
+    return tree.to(device)
 
 
 def _tensors(tree):
@@ -1377,6 +1463,9 @@ def fleet_rank(rank, group, layout, tenants, cfg, prompts, device, tune_dir):
     out["transport"] = str(dist.get_backend(group))
     if rank == 0:  # the replay against the expert FFN per destination, in one process
         out["replay_vs_ffn"] = replay_vs_ffn(*captured["first"])
+    fleet = None
+    captured.clear()
+    _release_shared(tenants)
     return out
 
 
@@ -1895,6 +1984,420 @@ def deepseek_phase(dev, kit):
           f"and naive passes, {flips['set_share']:.4%} as sets (step 12's cap for Mixtral: "
           f"{ROUTE_FLIP_MAX:.0%})", flush=True)
     return k4, runs, n_attn
+
+
+def deepseek_ep_rank(rank, group, layout, params, cfg, x, tokens, want_y, tune_dir):
+    """One rank of step 17, on a (1, 16) mesh of processes sharing the card.
+    ``params`` are the parent's DeepSeek-V3 weights, shared through CUDA
+    IPC: the rank cuts its 16 experts of the MoE layer as views, each
+    expert stack by its ``param_specs`` entry through ``local_slices``,
+    and writes to none.
+
+    a) the MoE layer alone on ``x`` in every fixed mode through
+       ``moe_apply_auto`` (EP: 256 experts split over 16): the first call's
+       output held here against the one-process ``want_y`` bit for bit and
+       its routes kept, then DS_EP_CALLS timed calls (from a barrier to the
+       device's end), then one under ``moe.timing_parts``; then the layer
+       with ``moe_collectives="auto"`` on a measuring tuner of its own
+       cache file in ``tune_dir``, its output held against the named
+       mode's and a second call (a memo hit) timed;
+    b) ``forward_train`` with K4 on ``tokens`` in the ``dragonfly`` mode,
+       its K4 launches counted, its logits' bits summed and the MoE layer's
+       routes kept; then ``loss_fn`` on rank 0 while the other ranks run
+       ``forward_train`` beside it (the same one MoE exchange: 16 ranks'
+       float32 cross-entropy passes at once would not fit the card), one
+       forward under ``timing_parts`` and one timed forward.
+    Returns host data."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.dist import sharding as SH
+    from repro_torch.kernels.flash_attention.flash_attention import flash_attention
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import model as M
+    from repro_torch.models import moe as MOE
+    from repro_torch.runtime import autotune as AT
+
+    dev = x.device
+    mesh = make_mesh(DS_EP_MESH, ("data", "model"), device=dev.type)
+    SH.set_active(SH.ShardRules(), mesh)
+    rules = SH.active()[0]
+    specs = M.param_specs(cfg, rules)
+    stack = []
+    for layer, spec in zip(params["stack"], specs["stack"]):
+        if "router" in layer.get("ffn", {}):
+            layer = {**layer, "ffn": {
+                key: w[SH.local_slices(spec["ffn"][key], w.shape, mesh.coords, mesh.sizes)]
+                if key in MOE.EXPERT_FF_DIM else w for key, w in layer["ffn"].items()}}
+        stack.append(layer)
+    local = {**params, "stack": stack}
+    ffn = stack[0]["ffn"]
+    whole = params["stack"][0]["ffn"]
+    held = {key: list(ffn[key].shape) for key in MOE.EXPERT_FF_DIM}
+    views = all(ffn[k].untyped_storage().data_ptr() == whole[k].untyped_storage().data_ptr()
+                for k in MOE.EXPERT_FF_DIM)
+
+    def sync():
+        torch.cuda.synchronize(dev)
+
+    def wall_ms(fn):
+        dist.barrier()
+        t0 = time.perf_counter()
+        out = fn()
+        sync()
+        return out, (time.perf_counter() - t0) * 1e3
+
+    def peak_gib():
+        return torch.cuda.max_memory_allocated(dev) / 2**30
+
+    def same(a, b):
+        return bool(torch.equal(a.view(torch.int16), b.view(torch.int16)))
+
+    # a) the MoE layer alone, in every fixed mode
+    layer = {"modes": {}, "held": held, "views": views}
+    outs = {}
+    for mode in EP_MODES:
+        SH.set_active(SH.ShardRules(moe_collectives=mode), mesh)
+        mesh.carrier_copies = mesh.carrier_bytes = 0
+        torch.cuda.reset_peak_memory_stats(dev)
+        with MOE.recording_routes() as routes:
+            (y, aux), first_ms = wall_ms(lambda: MOE.moe_apply_auto(ffn, x, cfg))
+        copies = {"copies": mesh.carrier_copies, "bytes": mesh.carrier_bytes}
+        times = [wall_ms(lambda: MOE.moe_apply_auto(ffn, x, cfg))[1] for _ in range(DS_EP_CALLS)]
+        with MOE.timing_parts() as parts:
+            wall_ms(lambda: MOE.moe_apply_auto(ffn, x, cfg))
+        (idx, keep, _), = routes
+        outs[mode] = y
+        layer["modes"][mode] = {
+            "first_ms": first_ms, "call_ms": times, "parts": dict(parts),
+            "carrier_per_call": copies, "peak_gib": peak_gib(), "aux": float(aux),
+            "bits": _bits_sum(y), "bits_equal_plain": same(y, want_y),
+            "vs_plain": attention_close(y, want_y, FLASH_TOL[str(x.dtype)]),
+            "finite": bool(torch.isfinite(y).all()),
+            "shape_ok": y.shape == x.shape and y.dtype == x.dtype,
+            "idx": idx.cpu(), "keep": keep.cpu()}
+    # a') the autotuner's pick, agreed by every rank, then a memo hit
+    tuner = AT.Autotuner(cache_path=pathlib.Path(tune_dir) / f"ds-{rank}.json", device=dev)
+    decide_s = timing_decisions(tuner)
+    AT.set_autotuner(tuner)
+    SH.set_active(SH.ShardRules(moe_collectives="auto"), mesh)
+    (y_auto, aux_auto), first_ms = wall_ms(lambda: MOE.moe_apply_auto(ffn, x, cfg))
+    dec = tuner.decisions[-1]
+    mode = AT.EP_MODE[dec.strategy]
+    (y_memo, _), memo_ms = wall_ms(lambda: MOE.moe_apply_auto(ffn, x, cfg))
+    AT.set_autotuner(None)
+    layer["auto"] = {"key": str(dec.key), "strategy": dec.strategy, "source": dec.source,
+                     "mode": mode, "measured_us": dec.measured_us,
+                     "analytic_us": dec.analytic_us, "decide_ms": decide_s[0] * 1e3,
+                     "first_call_ms": first_ms, "memo_call_ms": memo_ms,
+                     "memo_hit": len(tuner.decisions) == 1 and len(decide_s) == 2,
+                     "bits_equal_named_mode": same(y_auto, outs[mode]) and same(y_memo, outs[mode]),
+                     "aux_equal_named_mode": float(aux_auto) == layer["modes"][mode]["aux"]}
+    layer["transport"], layer["carrier"] = mesh.transport, str(mesh.carrier)
+    del outs, y, y_auto, y_memo
+
+    # b) the model forward under EP, the dragonfly mode, K4 on
+    SH.set_active(SH.ShardRules(moe_collectives="dragonfly"), mesh)
+    batch = {"tokens": tokens, "labels": tokens}
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    zero_counts((flash_attention,))
+    with MOE.recording_routes() as routes:
+        (logits, aux, _), first_ms = wall_ms(lambda: M.forward_train(local, batch, cfg, True))
+    k4 = {"launches": flash_attention.launches, "bodies": dict(flash_attention.body_launches)}
+    (idx, keep, lg), = routes
+    model = {"k4": k4, "first_ms": first_ms, "aux": float(aux), "logits_bits": _bits_sum(logits),
+             "finite": all(bool(torch.isfinite(c).all()) for c in logits.split(256, dim=1)),
+             "last_logits": logits[:, -1].cpu() if rank == 0 else None,
+             "routes": (idx.cpu(), keep.cpu(), lg.cpu()), "forward_peak_gib": peak_gib()}
+    del logits
+    torch.cuda.empty_cache()
+    if rank == 0:
+        loss, metrics = M.loss_fn(local, batch, cfg, True)
+        model["metrics"] = {key: float(val) for key, val in metrics.items()}
+    else:
+        M.forward_train(local, batch, cfg, True)
+    sync()
+    model["loss_peak_gib"] = peak_gib()
+    torch.cuda.empty_cache()
+    with MOE.timing_parts() as parts:
+        _, parts_ms = wall_ms(lambda: M.forward_train(local, batch, cfg, True))
+    model["parts"], model["parts_wall_ms"] = dict(parts), parts_ms
+    model["ms"] = wall_ms(lambda: M.forward_train(local, batch, cfg, True))[1]
+    model["peak_gib"] = peak_gib()
+    SH.clear_active()
+    _release_shared(params)
+    return {"layer": layer, "model": model}
+
+
+def deepseek_ep_phase(dev, seed):
+    """Step 17: DeepSeek-V3 at its published widths under expert
+    parallelism on the production model axis, 16 ranks sharing the card
+    (gloo, the host as the exchanges' carrier), 16 of the 256 experts a
+    rank. The weights are made anew (step 11's depth: its 3 dense-prefix
+    layers, 1 MoE layer and the MTP block) and shared with the ranks by
+    CUDA IPC; the one-process oracles (``moe_apply_ep_plain`` over the same
+    mesh, the layer and the forward) run before the ranks start and only
+    their outputs are kept. Returns its record and K4's launches (all
+    ranks)."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.dist import sharding as SH
+    from repro_torch.dist.mesh import dragonfly_layout
+    from repro_torch.kernels import build
+    from repro_torch.launch.mesh import spawn
+    from repro_torch.models import model as M
+    from repro_torch.models import moe as MOE
+    from repro_torch.runtime import autotune as AT
+
+    t_phase = time.perf_counter()
+    gib = lambda n: n / 2**30
+    # earlier phases' reference cycles (a fleet's hooks refer back to it) can
+    # still hold views of their weights: 8.89 GiB here on an H100 80GB without it
+    gc.collect()
+    torch.cuda.ipc_collect()
+    torch.cuda.empty_cache()
+    free0 = gib(torch.cuda.mem_get_info()[0])
+    live = {t.untyped_storage().data_ptr(): t.untyped_storage().nbytes()
+            for t in gc.get_objects() if torch.is_tensor(t) and t.is_cuda}
+    print(f"deepseek_ep: {free0:.1f} GiB free on the card before the weights are made, "
+          f"{gib(torch.cuda.memory_allocated()):.2f} GiB allocated, "
+          f"{gib(sum(live.values())):.2f} GiB of it in {len(live)} live storages", flush=True)
+    full = get_config("deepseek-v3-671b")
+    cfg = dataclasses.replace(full, n_layers=DEEPSEEK_LAYERS)
+    n_data, n_model = DS_EP_MESH
+    ranks_n = n_data * n_model
+    E, d = cfg.moe.num_experts, cfg.d_model
+    E_loc = E // n_model
+    layout = dragonfly_layout(n_model)
+    require(SH.ShardRules(model_axis_size=n_model, data_axis_size=n_data).expert_parallel(E),
+            f"{E} experts do not split over {n_model} model ranks")
+    t0 = time.perf_counter()
+    params = M.init_params(torch.Generator(device=dev).manual_seed(seed), cfg, device=dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    # init_params' float32 draws leave the bf16 weights in split cached segments,
+    # which pinned 10.6 GiB the ranks need (H100 80GB): a round trip through the
+    # host gives each weight a segment of its own
+    t0 = time.perf_counter()
+    host = _to(params, "cpu")
+    del params
+    torch.cuda.empty_cache()
+    params = _to(host, dev)
+    del host
+    torch.cuda.synchronize()
+    compact_s = time.perf_counter() - t0
+    weight_gb = _nbytes(params) / 1e9
+    B, S = DEEPSEEK_TOKENS
+    x = torch.randn((B, S, d), generator=torch.Generator(device=dev).manual_seed(seed),
+                    device=dev).to(getattr(torch, cfg.compute_dtype))
+    tokens = torch.randint(1, cfg.vocab, DEEPSEEK_TOKENS, device=dev,
+                           generator=torch.Generator(device=dev).manual_seed(seed))
+    T_loc = B * S // ranks_n
+    C = MOE.ep_capacity(cfg, T_loc)
+    buf_bytes = n_model * E_loc * C * d * x.element_size()
+    ffn = params["stack"][0]["ffn"]
+
+    # the control: one expert's products in a batch of 256 and of 16
+    rules = SH.ShardRules(model_axis_size=n_model, data_axis_size=n_data)
+    sizes = {"data": n_data, "model": n_model}
+    h = torch.randn((E, n_model * C, d), generator=torch.Generator(device=dev).manual_seed(seed),
+                    device=dev).to(x.dtype)
+    y_all = MOE._expert_ffn(ffn, h)
+    y_loc = torch.cat([MOE._expert_ffn(MOE.local_experts(ffn, cfg, rules, {"data": 0, "model": j},
+                                                        sizes), h[j * E_loc:(j + 1) * E_loc])
+                       for j in range(n_model)])
+    diff = (y_all.float() - y_loc.float()).abs()
+    control = {"h": list(h.shape), "bits_equal": bool(torch.equal(y_all.view(torch.int16),
+                                                                  y_loc.view(torch.int16))),
+               "max_abs_diff": float(diff.max()),
+               "elements_differing_share": float((diff > 0).float().mean()),
+               "experts_differing": int((diff.flatten(1) > 0).any(1).sum())}
+    print(f"deepseek_ep: the expert FFN in one batch of {E} against {n_model} batches of "
+          f"{E_loc}: {control}", flush=True)
+    del h, y_all, y_loc, diff
+
+    # the one-process oracles, before the ranks start; only their outputs kept
+    torch.cuda.reset_peak_memory_stats()
+    with MOE.recording_routes() as routes:
+        want_y, want_aux = MOE.moe_apply_ep_plain(ffn, x, cfg, n_data, n_model)
+    want_y, want_aux = want_y.cpu(), float(want_aux)
+    want_idx, want_keep = (t.cpu() for t in routes[0][:2])
+    del routes
+    batch = {"tokens": tokens, "labels": tokens}
+    auto = MOE.moe_apply_auto
+    MOE.moe_apply_auto = lambda p, h, c: MOE.moe_apply_ep_plain(p, h, c, n_data, n_model)
+    try:
+        with MOE.recording_routes() as plain_routes:
+            logits = M.forward_train(params, batch, cfg, True)[0]
+        plain = {"last_logits": logits[:, -1].cpu(), "logits_bits": _bits_sum(logits),
+                 "routes": tuple(t.cpu() for t in plain_routes[0])}
+        del logits, plain_routes
+        torch.cuda.empty_cache()
+        plain["metrics"] = {key: float(val) for key, val in
+                            M.loss_fn(params, batch, cfg, True)[1].items()}
+    finally:
+        MOE.moe_apply_auto = auto
+    oracle_peak = gib(torch.cuda.max_memory_allocated())
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    want_y = want_y.to(dev)  # allocated anew: kept in a cached segment, it would pin it
+    with tempfile.TemporaryDirectory(prefix="autotune-ds-") as tmp:
+        analytic = AT.moe_site_report(
+            cfg, rules, n_tokens=B * S, dtype=str(x.dtype).split(".")[1],
+            tuner=AT.Autotuner(cache_path=pathlib.Path(tmp) / "analytic.json", mode="analytic",
+                               device=dev))
+    before = _checksum(params)
+    torch.cuda.empty_cache()
+    free = gib(torch.cuda.mem_get_info()[0])
+    print(f"deepseek_ep: {free:.1f} GiB free on the card before {ranks_n} ranks start "
+          f"({weight_gb:.1f} GB of weights resident; the parent holds "
+          f"{gib(torch.cuda.memory_allocated()):.2f} GiB, reserves "
+          f"{gib(torch.cuda.memory_reserved()):.2f}; the oracles' peak {oracle_peak:.2f} GiB)",
+          flush=True)
+
+    build.build_all()  # the ranks only load the libraries
+    # 16 allocators share what the weights leave of the card: the ranks' grow
+    # and shrink their segments instead of caching fixed ones
+    conf = os.environ.get("PYTORCH_CUDA_ALLOC_CONF")
+    os.environ["PYTORCH_CUDA_ALLOC_CONF"] = "expandable_segments:True"
+    t0 = time.perf_counter()
+    try:
+        with tempfile.TemporaryDirectory(prefix="autotune-ds-ep-") as tune_dir:
+            ranks = spawn(deepseek_ep_rank, ranks_n, device="cuda",
+                          args=(params, cfg, x, tokens, want_y, tune_dir))
+    finally:
+        if conf is None:
+            del os.environ["PYTORCH_CUDA_ALLOC_CONF"]
+        else:
+            os.environ["PYTORCH_CUDA_ALLOC_CONF"] = conf
+    ranks_s = time.perf_counter() - t0
+    torch.cuda.ipc_collect()
+    require(_checksum(params) == before, "a DeepSeek EP rank wrote to the shared weights")
+
+    # a) the layer
+    lay = [r["layer"] for r in ranks]
+    want_bits = _bits_sum(want_y)
+    for r, rec in enumerate(lay):
+        require(rec["views"] and rec["held"] == {
+            "w_in": [E_loc, d, cfg.moe.d_ff_expert], "w_gate": [E_loc, d, cfg.moe.d_ff_expert],
+            "w_out": [E_loc, cfg.moe.d_ff_expert, d]}, f"DeepSeek EP, rank {r}: held {rec['held']}")
+        for mode, m in rec["modes"].items():
+            require(m["finite"] and m["shape_ok"], f"DeepSeek EP layer, rank {r}, {mode}: shape "
+                                                   "or non-finite")
+            require(m["bits"] == lay[0]["modes"][mode]["bits"],
+                    f"DeepSeek EP layer, {mode}: rank {r}'s output differs from rank 0's")
+            sl = slice(r * T_loc, (r + 1) * T_loc)
+            entries = slice(r * T_loc * cfg.moe.top_k, (r + 1) * T_loc * cfg.moe.top_k)
+            require(torch.equal(m["idx"], want_idx[sl])
+                    and torch.equal(m["keep"], want_keep[entries]),
+                    f"DeepSeek EP layer, rank {r}, {mode}: routes or drops differ from the plain "
+                    "version's")
+            if mode in EP_MODES[:3]:
+                require(m["bits_equal_plain"], f"DeepSeek EP layer, rank {r}, {mode}: not the "
+                                               f"bits of moe_apply_ep_plain: {m['vs_plain']}")
+            else:
+                require(m["vs_plain"][0], f"DeepSeek EP layer, rank {r}, {mode}: off the plain "
+                                          f"version: {m['vs_plain']}")
+        auxes = {m["aux"] for m in rec["modes"].values()}
+        require(len(auxes) == 1 and auxes == {m["aux"] for m in lay[0]["modes"].values()},
+                f"DeepSeek EP layer, rank {r}: aux {auxes}")
+        a = rec["auto"]
+        require((a["key"], a["strategy"], a["source"], a["measured_us"]) == (
+            lay[0]["auto"]["key"], lay[0]["auto"]["strategy"], "measured",
+            lay[0]["auto"]["measured_us"]),
+            f"DeepSeek EP auto, rank {r}: decided {a['strategy']} ({a['source']}), rank 0 "
+            f"{lay[0]['auto']['strategy']}")
+        require(a["bits_equal_named_mode"] and a["aux_equal_named_mode"] and a["memo_hit"],
+                f"DeepSeek EP auto, rank {r}: not the bits of {a['mode']}, or no memo hit: {a}")
+    aux = lay[0]["modes"]["xla"]["aux"]
+    aux_rel = abs(aux - want_aux) / abs(want_aux)
+    require(aux_rel < 1e-5, f"DeepSeek EP layer aux {aux} vs plain {want_aux}")
+    require(lay[0]["auto"]["key"] == analytic["key"],
+            f"DeepSeek EP auto key {lay[0]['auto']['key']} vs moe_site_report {analytic['key']}")
+    modes = {}
+    for mode in EP_MODES:
+        recs = [rec["modes"][mode] for rec in lay]
+        per_call = [max(rec["call_ms"][i] for rec in recs) for i in range(DS_EP_CALLS)]
+        modes[mode] = {
+            "call_ms": statistics.median(per_call), "call_ms_each": per_call,
+            "first_call_ms": max(rec["first_ms"] for rec in recs),
+            "median_rank_parts_ms": {key: statistics.median(rec["parts"][key] for rec in recs)
+                                     for key in ("exchange_ms", "experts_ms", "gather_ms")},
+            "carrier_copies_per_call": recs[0]["carrier_per_call"],
+            "peak_gib_per_rank_max": max(rec["peak_gib"] for rec in recs),
+            "bits_equal_plain": all(rec["bits_equal_plain"] for rec in recs),
+            "vs_plain": {"max_abs_err": max(rec["vs_plain"][1] for rec in recs),
+                         "rel_rms": max(rec["vs_plain"][2] for rec in recs)}}
+    dropped = int((~want_keep).sum())
+    layer_rec = {"x": list(x.shape), "dtype": str(x.dtype), "T_loc": T_loc, "C_loc": C,
+                 "E_loc": E_loc, "dispatch_buffer": [n_model, E_loc, C, d],
+                 "dispatch_buffer_mb": buf_bytes / 1e6,
+                 "gather_bytes_received_per_rank": (n_model - 1) * T_loc * d * x.element_size(),
+                 "transport": lay[0]["transport"], "carrier": lay[0]["carrier"],
+                 "aux": aux, "plain_aux": want_aux, "aux_rel_vs_plain": aux_rel,
+                 "plain_bits": want_bits, "dropped_share": dropped / want_keep.numel(),
+                 "expert_ffn_control": control, "modes": modes,
+                 "auto": {key: lay[0]["auto"][key] for key in (
+                     "key", "strategy", "mode", "measured_us", "analytic_us")}
+                 | {"ranks_agree": len(lay),
+                    "decide_ms_max_rank": max(rec["auto"]["decide_ms"] for rec in lay),
+                    "first_call_ms_max_rank": max(rec["auto"]["first_call_ms"] for rec in lay),
+                    "memo_call_ms_max_rank": max(rec["auto"]["memo_call_ms"] for rec in lay),
+                    "mode_call_ms": {m: modes[m]["call_ms"] for m in EP_MODES},
+                    "moe_site_report_analytic": analytic}}
+
+    # b) the forward
+    mod = [r["model"] for r in ranks]
+    k4 = {"launches": cfg.n_layers, "bodies": {"mma_sync": 0, "wgmma": cfg.n_layers}}
+    for r, rec in enumerate(mod):
+        require(rec["k4"] == k4, f"DeepSeek EP forward, rank {r}: K4 launched {rec['k4']}, "
+                                 f"expected {k4}")
+        require(rec["finite"] and rec["logits_bits"] == plain["logits_bits"],
+                f"DeepSeek EP forward, rank {r}: logits not the one-process forward's bits")
+    require(torch.equal(mod[0]["last_logits"].view(torch.int16),
+                        plain["last_logits"].view(torch.int16)),
+            "DeepSeek EP forward: rank 0's last-token logits are not the one-process forward's")
+    got_routes = tuple(torch.cat([rec["routes"][j] for rec in mod]) for j in range(3))
+    require(all(torch.equal(g.view(torch.int16) if g.dtype == torch.bfloat16 else g,
+                            w.view(torch.int16) if w.dtype == torch.bfloat16 else w)
+                for g, w in zip(got_routes, plain["routes"])),
+            "DeepSeek EP forward: the MoE layer's routes, drops or router logits differ from "
+            "the one-process forward's")
+    got_m, want_m = mod[0]["metrics"], plain["metrics"]
+    require(got_m["ce"] == want_m["ce"] and got_m["mtp"] == want_m["mtp"],
+            f"DeepSeek EP loss_fn: ce and mtp {got_m} vs one-process {want_m}")
+    loss_rel = abs(got_m["loss"] - want_m["loss"]) / abs(want_m["loss"])
+    require(loss_rel < 1e-5, f"DeepSeek EP loss {got_m} vs one-process {want_m}")
+    fwd_ms = max(rec["ms"] for rec in mod)
+    parts_wall = max(rec["parts_wall_ms"] for rec in mod)
+    ex = statistics.median(rec["parts"]["exchange_ms"] + rec["parts"]["gather_ms"] for rec in mod)
+    model_rec = {"layers": f"{cfg.n_layers} of {full.n_layers} ({cfg.first_dense_layers} dense "
+                           f"prefix, 1 MoE) + MTP", "tokens": list(DEEPSEEK_TOKENS),
+                 "mode": "dragonfly", "ms": fwd_ms,
+                 "first_ms": max(rec["first_ms"] for rec in mod),
+                 "tokens_per_s": B * S / fwd_ms * 1e3,
+                 "exchange_and_gather_share": ex / parts_wall, "timed_with_parts_ms": parts_wall,
+                 "median_rank_parts_ms": {key: statistics.median(rec["parts"][key] for rec in mod)
+                                          for key in ("exchange_ms", "experts_ms", "gather_ms")},
+                 "k4_per_rank": k4, "k4_all_ranks": ranks_n * cfg.n_layers,
+                 "forward_peak_gib_per_rank_max": max(rec["forward_peak_gib"] for rec in mod),
+                 "loss_peak_gib": {"rank 0 (loss_fn)": mod[0]["loss_peak_gib"],
+                                   "others (forward_train), max": max(
+                                       rec["loss_peak_gib"] for rec in mod[1:])},
+                 "metrics": got_m, "plain_metrics": want_m,
+                 "loss_bits_equal": got_m["loss"] == want_m["loss"], "loss_rel": loss_rel,
+                 "logits_bits_equal_all_ranks": True}
+    del params, x, tokens, want_y, ffn
+    return {"run": "deepseek_ep", "model": cfg.name, "mesh": {"data": n_data, "model": n_model},
+            "model_axis_layout": f"D3({layout.topo.K},{layout.topo.M})",
+            "weight_gb": weight_gb, "init_s": init_s, "compact_s": compact_s,
+            "card_free_gib_before": free0,
+            "card_free_gib_before_ranks": free, "oracle_peak_gib": oracle_peak,
+            "ranks_s": ranks_s, "phase_s": time.perf_counter() - t_phase,
+            "weights_unchanged": True, "layer": layer_rec, "forward": model_rec}, \
+        ranks_n * cfg.n_layers
 
 
 def serve_with_reuse(kit, cfg, params, dev, what):
@@ -3646,6 +4149,19 @@ def main() -> None:
     for name, rec in kernels.items():
         rec["launches"] = launches[name]
     kernels["ring_exchange"] = per_shard_phase(dev, SEED)
+
+    # ------ 17. DeepSeek-V3 under expert parallelism, 16 ranks on the card, K4 on each
+    ds_ep_rec, ds_ep_k4 = deepseek_ep_phase(dev, SEED)
+    release()
+    ds_ep_rec["card_free_gib_after"] = torch.cuda.mem_get_info()[0] / 2**30
+    emit(ds_ep_rec)
+    if ds_ep_rec["phase_s"] > DS_EP_PHASE_S:
+        print(f"deepseek_ep: the phase took {ds_ep_rec['phase_s']:.0f} s, past its "
+              f"{DS_EP_PHASE_S} s", flush=True)
+    k4_rec = kernels["flash_attention"]
+    k4_rec["launches"] += ds_ep_k4
+    k4_rec["launches_by_path"]["deepseek-v3-671b EP forward, all ranks"] = ds_ep_k4
+    k4_rec["body_launches"]["wgmma"] += ds_ep_k4
 
     # --------------------------------------------------------------- report
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",

@@ -6,16 +6,20 @@ an MoE FFN (``models.moe``)."""
 
 from repro_torch.models.model import (
     init_params,
+    param_specs,
     forward_train,
     loss_fn,
     init_cache,
+    cache_specs,
     decode_step,
 )
 
 __all__ = [
     "init_params",
+    "param_specs",
     "forward_train",
     "loss_fn",
     "init_cache",
+    "cache_specs",
     "decode_step",
 ]

@@ -2,8 +2,8 @@
 MLA (DeepSeek latent attention). Train path (full sequence, flash kernel)
 and decode path (single token, KV or latent cache).
 
-The port of ``repro.models.attention``; the sharding specs (``gqa_specs``,
-``mla_specs``) are not ported. The decode paths write the new token into
+The port of ``repro.models.attention``, with the sharding specs
+(``gqa_specs``, ``mla_specs``) as plain tuples. The decode paths write the new token into
 the cache in place (the JAX package returns an updated copy) and return
 the cache all the same.
 """
@@ -29,6 +29,15 @@ def gqa_init(gen, cfg, dtype, device):
         "wv": L.truncated_normal(gen, (d, cfg.n_kv_heads * hd), dtype, s, device),
         "wo": L.truncated_normal(gen, (cfg.n_heads * hd, d), dtype,
                                  (cfg.n_heads * hd) ** -0.5, device),
+    }
+
+
+def gqa_specs(cfg, rules):
+    return {
+        "wq": rules.attn_in((0, 0)),
+        "wk": rules.attn_in((0, 0)),
+        "wv": rules.attn_in((0, 0)),
+        "wo": rules.attn_out((0, 0)),
     }
 
 
@@ -114,6 +123,18 @@ def mla_init(gen, cfg, dtype, device):
         "wo": tn((o_in, d), o_in ** -0.5),
         "q_norm": L.rmsnorm_init(m.q_lora_rank, dtype, device),
         "kv_norm": L.rmsnorm_init(m.kv_lora_rank, dtype, device),
+    }
+
+
+def mla_specs(cfg, rules):
+    return {
+        "wq_a": (None, None),
+        "wq_b": rules.attn_in((0, 0)),
+        "wkv_a": (None, None),
+        "wkv_b": rules.attn_in((0, 0)),
+        "wo": rules.attn_out((0, 0)),
+        "q_norm": {"scale": (None,)},
+        "kv_norm": {"scale": (None,)},
     }
 
 

@@ -9,7 +9,7 @@ into one dict per layer; the MTP head comes across as it is. A MoE
 member's expert tensors (``router``, ``w_in``, ``w_gate``, ``w_out`` and
 ``shared``) come across like any other; with sharding ``rules`` and a
 ``rank``, each MoE member's ``w_in``, ``w_gate`` and ``w_out`` are cut to
-that rank's rows by ``rules.expert``, and the router and the rest of the
+that rank's rows by ``moe.moe_specs``, and the router and the rest of the
 model stay whole. ``opt_state_from_jax`` carries the optimizer state
 (moments, step, compression error) across the same way.
 Imports neither jax nor the JAX package.
@@ -21,7 +21,7 @@ import numpy as np
 import torch
 
 from repro_torch.models.model import _device, _dtype
-from repro_torch.models.moe import local_experts
+from repro_torch.models.moe import EXPERT_FF_DIM, local_experts
 
 
 def _tensor(a, dtype, device) -> torch.Tensor:
@@ -37,14 +37,17 @@ def _tree(node, fn):
     return fn(node)
 
 
-def _cut_experts(ffn: dict, rules, rank: int) -> dict:
+def _cut_experts(ffn: dict, cfg, rules, rank: int) -> dict:
     """A MoE member's expert stacks cut to ``rank``'s rows by
-    ``rules.expert`` on the mesh the rules describe: (data, model) with the
+    ``moe.moe_specs`` on the mesh the rules describe: (data, model) with the
     model axis fastest, as ``launch.mesh.make_mesh`` lays ranks out."""
     sizes = {rules.tensor_axis: rules.model_axis_size, rules.data_axis: rules.data_axis_size}
     coords = {rules.tensor_axis: rank % rules.model_axis_size,
               rules.data_axis: rank // rules.model_axis_size % rules.data_axis_size}
-    return {key: w.clone() for key, w in local_experts(ffn, rules, coords, sizes).items()}
+    # the stacks cut as views are copied, so the whole stacks can be freed;
+    # the router and the shared expert (a dict) stay as they are
+    return {key: w.clone() if key in EXPERT_FF_DIM else w
+            for key, w in local_experts(ffn, cfg, rules, coords, sizes).items()}
 
 
 def _unstack(np_tree, cfg, conv):
@@ -75,7 +78,7 @@ def params_from_jax(np_tree, cfg, device="cuda", rules=None, rank=None):
     if rules is not None:
         for layer in out["stack"]:
             if "router" in layer.get("ffn", {}):
-                layer["ffn"] = _cut_experts(layer["ffn"], rules, rank)
+                layer["ffn"] = _cut_experts(layer["ffn"], cfg, rules, rank)
     return out
 
 

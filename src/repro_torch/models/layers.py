@@ -4,7 +4,8 @@ The port of ``repro.models.layers``: each layer is an init that returns a
 dict of tensors (``truncated_normal`` draws from a ``torch.Generator`` on
 the tensors' device) and an apply that is a plain function of (params, x).
 Norms and RoPE compute in float32 and cast back to the input's dtype, as
-the JAX package does. Sharding specs are not ported.
+the JAX package does. A spec (``norm_specs``, ``mlp_specs``) is the
+port's plain tuple, one entry per dim (``dist.sharding.Spec``).
 """
 
 from __future__ import annotations
@@ -59,6 +60,14 @@ def make_norm(kind: str, d: int, dtype, device):
     if kind == "nonparametric":  # olmo
         return layernorm_init(d, dtype, device, elementwise=False), layernorm
     raise ValueError(kind)
+
+
+def norm_specs(kind: str):
+    if kind == "rmsnorm":
+        return {"scale": (None,)}
+    if kind == "layernorm":
+        return {"scale": (None,), "bias": (None,)}
+    return {}
 
 
 # ------------------------------------------------------------------ RoPE
@@ -123,6 +132,13 @@ def mlp_apply(params, x, act=F.silu):
     else:
         h = act(h)
     return h @ params["w_out"]
+
+
+def mlp_specs(rules, gated=True):
+    p = {"w_in": rules.mlp_in((0, 0)), "w_out": rules.mlp_out((0, 0))}
+    if gated:
+        p["w_gate"] = rules.mlp_in((0, 0))
+    return p
 
 
 # ------------------------------------------------------------- embedding

@@ -20,7 +20,8 @@ Decode is the O(1) single-step update of the conv window and SSM state.
 The discretisation ``exp(dt·A)`` and ``dt·x·B`` is computed in float32 and
 ``y`` is cast to the compute dtype before ``* silu(z)``, as in the JAX
 package. The mixer runs under the profiler label ``mixer.mamba``, its scan
-under ``mamba.scan``. Sharding specs are not ported.
+under ``mamba.scan``. ``mamba_specs`` gives each parameter's sharding
+spec as a plain tuple.
 """
 
 from __future__ import annotations
@@ -67,6 +68,21 @@ def mamba_init(gen, cfg, dtype, device):
     p["D"] = torch.ones((di,), dtype=dtype, device=device)
     p["w_out"] = tn((di, d), di ** -0.5)
     return p
+
+
+def mamba_specs(cfg, rules):
+    t = rules.tensor_axis
+    return {
+        "w_in": (None, t),
+        "conv_w": (None, t),
+        "conv_b": (t,),
+        "w_bcdt": (t, None),
+        "w_dt": (None, t),
+        "dt_bias": (t,),
+        "A_log": (t, None),
+        "D": (t,),
+        "w_out": (t, None),
+    }
 
 
 def _mm(a, w):

@@ -9,8 +9,12 @@ for the multi-tenant fleet. DeepSeek-V3's
 dense prefix (``first_dense_layers``) is ``params["prefix"]``, a list of
 per-layer dicts like the stack (the JAX package stacks it in a
 one-tuple), and its multi-token-prediction head ``params["mtp"]`` is
-``{"proj", "norm", "block"}``, the block one dense member. Not ported
-here: ``param_specs`` and ``cache_specs`` (sharding).
+``{"proj", "norm", "block"}``, the block one dense member.
+``param_specs`` and ``cache_specs`` give the sharding spec of every leaf
+of those trees (a plain tuple, ``dist.sharding.Spec``): each layer of the
+stack and of the prefix takes the JAX package's stacked spec without its
+leading entry, and each prefix layer's cache the stack's first member's.
+``dist.sharding.local_slices`` turns a spec into what a rank holds.
 """
 
 from __future__ import annotations
@@ -64,6 +68,27 @@ def init_params(key, cfg: ModelConfig, device="cuda"):
             "block": T.member_init(gen, cfg, "attn", "mlp", dt, device),
         }
     return p
+
+
+def param_specs(cfg: ModelConfig, rules):
+    """The sharding spec of every parameter, in ``init_params``' tree."""
+    s = {
+        "embed": {"table": rules.embed((cfg.vocab, cfg.d_model))},
+        "final_norm": L.norm_specs(cfg.norm),
+        "stack": T.stack_specs(cfg, rules),
+    }
+    if not cfg.tie_embeddings:
+        s["unembed"] = {"w": rules.attn_in((cfg.d_model, cfg.vocab))}
+    if cfg.first_dense_layers:
+        s["prefix"] = [T.member_specs(cfg, rules, "attn", "mlp")
+                       for _ in range(cfg.first_dense_layers)]
+    if cfg.mtp_depth:
+        s["mtp"] = {
+            "proj": (None, None),
+            "norm": L.norm_specs(cfg.norm),
+            "block": T.member_specs(cfg, rules, "attn", "mlp"),
+        }
+    return s
 
 
 # --------------------------------------------------------------- forward
@@ -159,6 +184,17 @@ def init_cache(cfg: ModelConfig, batch: int, max_seq: int, dtype=None, device="c
         cache["prefix"] = [T.member_cache_init(cfg, "attn", batch, max_seq, dt, device)
                            for _ in range(cfg.first_dense_layers)]
     return cache
+
+
+def cache_specs(cfg: ModelConfig, rules, long_context: bool):
+    """The sharding spec of every decode state, in ``init_cache``' tree;
+    each prefix layer takes the stack's first layer's, as in the JAX
+    package."""
+    s = {"stack": T.stack_cache_specs(cfg, rules, long_context)}
+    if cfg.first_dense_layers:
+        s["prefix"] = [T.stack_cache_specs(cfg, rules, long_context)[0]
+                       for _ in range(cfg.first_dense_layers)]
+    return s
 
 
 def decode_step(params, cache, batch, position, cfg: ModelConfig):

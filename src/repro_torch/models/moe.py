@@ -103,6 +103,23 @@ def moe_init(gen, cfg, dtype, device):
     return p
 
 
+#: the dim of each expert stack that the TP-experts rule shards
+EXPERT_FF_DIM = {"w_in": 2, "w_gate": 2, "w_out": 1}
+
+
+def moe_specs(cfg, rules):
+    """The layer's sharding specs: the router replicated, each expert stack
+    as ``rules.expert`` places it (the expert dim over the model axis where
+    E divides it, else the ff dim), the shared expert as a dense MLP."""
+    E = cfg.moe.num_experts
+    p = {"router": (None, None)}
+    for key, ff_dim in EXPERT_FF_DIM.items():
+        p[key] = rules.expert((E, 0, 0), ff_dim=ff_dim, n_experts=E)
+    if cfg.moe.shared_experts:
+        p["shared"] = L.mlp_specs(rules)
+    return p
+
+
 def router_topk(logits: torch.Tensor, k: int, norm_probs: bool):
     """logits: (..., E) -> (weights (..., k) float32, indices (..., k) int64).
     Ties go to the lower expert index, as in ``jax.lax.top_k``."""
@@ -296,11 +313,18 @@ def ep_capacity(cfg, tokens: int) -> int:
 
 def _combine(back, r: _Routes, T: int) -> torch.Tensor:
     """(T, d) from the returned (E, C, d) buffer, accumulated in its dtype
-    with each gate cast to it, as the reference's ``out.at[src].add``."""
+    with each gate cast to it, as the reference's ``out.at[src].add``: a
+    token's k entries (token-major, as ``_route`` orders them) added to
+    zeros one at a time in k order, each sum rounded to the dtype.
+    ``index_add_`` does not do that: on the CPU it sums bf16 entries in
+    float32 and rounds once, and on the card it adds by atomics in no fixed
+    order, which with top-8 routing gave other bits from call to call."""
     g = back[r.flat_e, r.at]
+    parts = torch.where(r.keep[:, None], g * r.w.reshape(-1)[:, None].to(g.dtype), 0)
+    parts = parts.reshape(T, -1, back.shape[-1])
     out = torch.zeros((T, back.shape[-1]), dtype=back.dtype, device=back.device)
-    out.index_add_(0, r.src, torch.where(r.keep[:, None],
-                                         g * r.w.reshape(-1)[:, None].to(g.dtype), 0))
+    for j in range(parts.shape[1]):
+        out += parts[:, j]
     return out
 
 
@@ -310,18 +334,14 @@ def _check_ep_mode(mode: str) -> None:
                          f"{EP_MODES + ('auto',)}")
 
 
-#: the dim of each expert stack that the TP-experts rule shards
-EXPERT_FF_DIM = {"w_in": 2, "w_gate": 2, "w_out": 1}
-
-
-def local_experts(params, rules, coords, sizes):
+def local_experts(params, cfg, rules, coords, sizes):
     """A MoE layer's parameters with ``w_in``, ``w_gate`` and ``w_out`` cut,
-    as views, to the rows ``rules.expert`` gives the rank at ``coords`` of
-    a mesh of ``sizes``; the router and the shared expert as given."""
-    E = params["router"].shape[1]
-    return {key: w[SH.local_slices(rules.expert(w.shape, EXPERT_FF_DIM[key], E), w.shape,
-                                   coords, sizes)] if key in EXPERT_FF_DIM else w
-            for key, w in params.items()}
+    as views, to what ``moe_specs`` gives the rank at ``coords`` of a mesh
+    of ``sizes``; the router and the shared expert as given (every rank
+    runs them whole)."""
+    specs = moe_specs(cfg, rules)
+    return {key: w[SH.local_slices(specs[key], w.shape, coords, sizes)]
+            if key in EXPERT_FF_DIM else w for key, w in params.items()}
 
 
 def ep_auto_mode(cfg, T_loc: int, dtype, mesh, group) -> str:
@@ -359,7 +379,7 @@ def moe_apply_ep(params, x, cfg):
     the outputs, combines them, and all-gathers the tokens over its model
     group. Returns (y (B, S, d), aux): aux is the mean of every rank's
     load-balance loss, the reference's ``pmean``. Expert weights come
-    whole (E, ...) or cut to this rank's (E_loc, ...) by ``rules.expert``.
+    whole (E, ...) or cut to this rank's (E_loc, ...) by ``moe_specs``.
     The shared expert, if any, runs on the data shard outside the exchange.
 
     Exchanges travel on the mesh's carrier device (the host for gloo, the
@@ -392,7 +412,7 @@ def moe_apply_ep(params, x, cfg):
     xt = xs[mc * T_loc:(mc + 1) * T_loc]
     held = params["w_in"].shape[0]
     if held == E and E_loc != E:
-        experts = local_experts(params, rules, mesh.coords, mesh.sizes)
+        experts = local_experts(params, cfg, rules, mesh.coords, mesh.sizes)
     elif held == E_loc:
         experts = params
     else:
@@ -469,8 +489,12 @@ def moe_apply_ep_plain(params, x, cfg, n_data: int, n_model: int):
     whole (B, S, d) batch and the weights whole. Each of the
     n_data·n_model token shards routes with its own C_loc; each data
     group's shards meet at the experts as (E, n_model·C_loc, d), as the
-    ranks' arrivals do; the combine runs in the activation dtype; aux is
-    the mean of the per-shard losses. Nothing on the main path calls it."""
+    ranks' arrivals do, and each model coordinate's E/n_model experts run
+    as one batch, as that rank runs them, so that the products are the
+    ranks' by construction (cuBLAS picks its algorithm per call, and a
+    batch of all E is another call); the combine runs in the activation
+    dtype; aux is the mean of the per-shard losses. Nothing on the main
+    path calls it."""
     m = cfg.moe
     E = m.num_experts
     B, S, d = x.shape
@@ -488,7 +512,13 @@ def moe_apply_ep_plain(params, x, cfg, n_data: int, n_model: int):
                              for key in ("idx", "keep", "logits")))
     bufs = torch.stack([_dispatch(s, r, E, C) for s, r in zip(shards, routes)])
     h = bufs.reshape(n_data, n_model, E, C, d).transpose(1, 2).reshape(n_data, E, n_model * C, d)
-    y = torch.stack([_expert_ffn(params, h[g]) for g in range(n_data)])
+    rules = SH.ShardRules(model_axis_size=n_model, data_axis_size=n_data)
+    sizes = {rules.data_axis: n_data, rules.tensor_axis: n_model}
+    E_loc = E // n_model
+    y = torch.stack([torch.cat([
+        _expert_ffn(local_experts(params, cfg, rules, {rules.data_axis: g, rules.tensor_axis: j},
+                                  sizes), h[g, j * E_loc:(j + 1) * E_loc])
+        for j in range(n_model)]) for g in range(n_data)])
     y = y.reshape(n_data, E, n_model, C, d).transpose(1, 2).reshape(n, E, C, d)
     out = torch.cat([_combine(y[i], r, T_loc) for i, r in enumerate(routes)])
     aux = torch.stack([load_balance_loss(r.logits, r.idx, E, m.top_k) for r in routes]).mean()

@@ -21,6 +21,11 @@ tensor-parallel path on this rank's data shard; its load-balance loss is
 summed over the stack in train form and dropped in decode form, as in the
 JAX package. An attention member's decode writes its KV cache in place; a
 recurrent member's returns a new state.
+
+The sharding specs (``member_specs``, ``stack_specs``,
+``stack_cache_specs``) follow the port's trees: one spec dict per layer,
+each the JAX package's stacked spec without its leading (layer group)
+entry, layer i taking member i % period.
 """
 
 from __future__ import annotations
@@ -70,6 +75,24 @@ def member_init(gen, cfg, mixer: str, ffn: str, dtype, device):
         p["ffn"] = MOE.moe_init(gen, cfg, dtype, device) if ffn == "moe" else L.mlp_init(
             gen, cfg.d_model, cfg.d_ff, dtype, device, gated=cfg.mlp_gated)
     return p
+
+
+def member_specs(cfg, rules, mixer: str, ffn: str):
+    _check_kinds(mixer, ffn)
+    s = {"norm1": L.norm_specs(cfg.norm)}
+    if mixer == "attn":
+        s["mixer"] = A.mla_specs(cfg, rules) if cfg.attention == "mla" else A.gqa_specs(cfg, rules)
+    elif mixer == "mamba":
+        s["mixer"] = MB.mamba_specs(cfg, rules)
+    elif mixer == "mlstm":
+        s["mixer"] = XL.mlstm_specs(cfg, rules)
+    else:
+        s["mixer"] = XL.slstm_specs(cfg, rules)
+    if ffn != "none":
+        s["norm2"] = L.norm_specs(cfg.norm)
+        s["ffn"] = MOE.moe_specs(cfg, rules) if ffn == "moe" else L.mlp_specs(
+            rules, gated=cfg.mlp_gated)
+    return s
 
 
 def _norm(cfg):
@@ -150,6 +173,12 @@ def stack_init(gen, cfg, dtype, device):
     return [member_init(gen, cfg, mixer, ffn, dtype, device) for mixer, ffn in layer_kinds(cfg)]
 
 
+def stack_specs(cfg, rules):
+    """One spec dict per layer of the main stack, as ``stack_init`` lays
+    the parameters out."""
+    return [member_specs(cfg, rules, mixer, ffn) for mixer, ffn in layer_kinds(cfg)]
+
+
 def remat_call(fn, x, remat: bool):
     """``fn(x)``, under ``torch.utils.checkpoint`` when ``remat`` is set and
     autograd is recording (so the backward recomputes what ``fn`` made)."""
@@ -224,3 +253,25 @@ def serve_inline(staged, cfg):
 def stack_cache_init(cfg, batch, max_seq, dtype, device):
     return [member_cache_init(cfg, mixer, batch, max_seq, dtype, device)
             for mixer, _ in layer_kinds(cfg)]
+
+
+def _member_cache_specs(cfg, rules, mixer):
+    b, t = rules.batch_axes, rules.tensor_axis
+    if mixer == "attn":
+        if cfg.attention == "mla":
+            return {"c_kv": (b, t, None), "k_rope": (b, t, None)}  # (B, S, r)
+        return {"k": (b, None, t, None), "v": (b, None, t, None)}  # (B, kvh, S, hd)
+    if mixer == "mamba":
+        return {"conv": (b, None, t), "ssm": (b, t, None)}  # (B, d_conv-1, di), (B, di, N)
+    if mixer == "mlstm":
+        return {"C": (b, None, t, None), "n": (b, None, t), "m": (b, None)}  # (B, H, dh, dh)
+    return {"c": (b, t), "n": (b, t), "h": (b, t), "m": (b, t)}  # sLSTM: (B, d)
+
+
+def stack_cache_specs(cfg, rules, long_context: bool):
+    """One spec dict per layer's decode state, as ``stack_cache_init`` lays
+    them out. Attention caches are sequence-sharded over the tensor axis
+    (KV head counts like 8 do not divide a 16-wide model axis; the
+    sequence always does); recurrent states shard their inner or feature
+    dims. ``long_context`` changes nothing, as in the JAX package."""
+    return [_member_cache_specs(cfg, rules, mixer) for mixer, _ in layer_kinds(cfg)]

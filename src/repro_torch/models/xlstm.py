@@ -10,7 +10,8 @@ head, sLSTM (c, n, h, m). The stabilisers ``m`` and every sLSTM state are
 float32, and the products of the inner forms run in float32, as in the
 JAX package (in float64 for float64 operands: the oracle of the chunkwise
 form is the parallel form in float64). The mixers run under the profiler labels ``mixer.mlstm`` and
-``mixer.slstm``. Sharding specs are not ported.
+``mixer.slstm``. ``mlstm_specs`` and ``slstm_specs`` give each parameter's
+sharding spec as a plain tuple.
 """
 
 from __future__ import annotations
@@ -43,6 +44,22 @@ def mlstm_init(gen, cfg, dtype, device):
         "b_if": torch.zeros((2 * H,), dtype=dtype, device=device),
         "ogate_norm": L.rmsnorm_init(dp, dtype, device),
         "w_down": tn((dp, d), dp ** -0.5),
+    }
+
+
+def mlstm_specs(cfg, rules):
+    t = rules.tensor_axis
+    return {
+        "w_up": (None, t),
+        # block-diagonal per-head weights: the head count (4) is below the
+        # tensor axis' size, so these stay replicated
+        "wq": (None, None, None),
+        "wk": (None, None, None),
+        "wv": (None, None, None),
+        "w_if": (t, None),
+        "b_if": (None,),
+        "ogate_norm": {"scale": (None,)},
+        "w_down": (t, None),
     }
 
 
@@ -182,6 +199,16 @@ def slstm_init(gen, cfg, dtype, device):
         "r_gates": L.truncated_normal(gen, (d, 4 * d), dtype, s * 0.5, device),
         "b_gates": torch.zeros((4 * d,), dtype=dtype, device=device),
         "w_out": L.truncated_normal(gen, (d, d), dtype, s, device),
+    }
+
+
+def slstm_specs(cfg, rules):
+    t = rules.tensor_axis
+    return {
+        "w_gates": (None, t),
+        "r_gates": (None, t),
+        "b_gates": (t,),
+        "w_out": (t, None),
     }
 
 

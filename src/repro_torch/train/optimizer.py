@@ -12,8 +12,9 @@ still move and it still decays, as under ``jax.value_and_grad``.
 The port keeps one parameter dict per layer where the JAX package stacks
 each member of ``stack`` over its layer groups and the dense ``prefix``
 over its layers; decay and factorability are decided on the reference's
-stacked shape (``reference_ndim``). ``state_specs`` (sharding) is not
-ported.
+stacked shape (``reference_ndim``). ``state_specs`` (sharding, built on
+``models.param_specs``) is not ported: it waits for the multi-process
+step.
 """
 
 from __future__ import annotations

@@ -8,9 +8,9 @@ microbatches run one after another and their float32 gradients are
 summed (the JAX package's ``lax.scan``), and the loss is the mean over
 the microbatches. The step runs under the profiler labels
 ``train.forward``, ``train.backward`` and ``train.optimizer``. Not
-ported: ``unroll`` (XLA cost analysis) and ``train_shardings`` (the
-sharding spec trees); they wait for the dry run and the multi-process
-step.
+ported: ``unroll`` (XLA cost analysis) and ``train_shardings`` (built on
+``models.param_specs`` and ``state_specs``); they wait for the dry run
+and the multi-process step.
 """
 
 from __future__ import annotations

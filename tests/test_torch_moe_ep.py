@@ -263,7 +263,7 @@ def run_rank(rank, group, layout, params_path, jax_seeds):
             res["auto"] = run_auto(rank, mesh, params, x, cfg, root)
         # the expert stacks already cut to this rank's rows, through
         # moe_apply_auto, which takes the EP path under these rules
-        cut = TMOE.local_experts(params, SH.active()[0], mesh.coords, mesh.sizes)
+        cut = TMOE.local_experts(params, cfg, SH.active()[0], mesh.coords, mesh.sizes)
         SH.set_active(SH.ShardRules(moe_collectives="xla"), mesh)
         y, aux = TMOE.moe_apply_auto(cut, x, cfg)
         res["xla-cut-auto"] = (y.numpy(), aux.numpy(), cut["w_in"].shape[0])
@@ -510,7 +510,7 @@ def test_ep_plain_matches_the_reference_and_the_ranks(runs, name):
 
 @pytest.mark.parametrize("name", list(CASES))
 def test_cut_weights_and_auto_take_the_same_path(runs, name):
-    """Expert stacks cut to the rank's rows by ``rules.expert`` give the
+    """Expert stacks cut to the rank's rows by ``moe_specs`` give the
     bits of the whole stacks, and ``moe_apply_auto`` takes the EP path
     under the rules."""
     ranks, _, _ = runs
