@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Drive the port's collective runtime, dense, MoE, MLA, Mamba and xLSTM
-model paths (one card, expert- and tensor-parallel), the multi-tenant
-fleet and the per-shard path on one NVIDIA card, end to end.
+model paths (one card, expert- and tensor-parallel), training (one
+process and sharded), the multi-tenant fleet and the per-shard path on
+one NVIDIA card, end to end.
 
     python3 chip_smoke.py
 
@@ -45,9 +46,11 @@ fleet and the per-shard path on one NVIDIA card, end to end.
    to back) and prints them on a line of their own beside the constants in
    ``runtime/autotune.py``; then ``get_backend("auto")`` with a measuring
    tuner on a cache in a temporary directory decides each collective at
-   its cell's bytes (the matmul at X = ``AUTO_MATMUL_BLOCK`` = 128, not
-   512: its ``sendrecv`` candidate, the NumPy trace interpreter, would move
-   16 times the bytes there), timing every candidate one process can run
+   a cut of its cell's bytes (the matmul at X = ``AUTO_MATMUL_BLOCK`` =
+   128, not 512: its ``sendrecv`` candidate, the NumPy trace interpreter,
+   would move 16 times the bytes there; the all-to-all at a
+   quarter of its chunk, ``AUTO_CHUNK``, and the all-reduce and broadcast
+   at a quarter of the bucket, ``AUTO_BUCKET``), timing every candidate one process can run
    (``fused``, ``cuda_fused``, ``sendrecv``): per key every candidate's
    measured µs beside its analytic seed, the decision and the wall time it
    took; a second call of each (a memo hit) with the launch counts set to
@@ -138,8 +141,9 @@ fleet and the per-shard path on one NVIDIA card, end to end.
    the scan's training form within 1e-5 (relative norm) of autograd
    through the step-by-step recurrence, both timed, peak GiB above the
    weights; c) TinyLlama-1.1B whole (22 layers, published widths, bf16),
-   10 steps on tokens (8, 2048) through ``launch.train.main``: the loss
-   falls from step 0 to step 9; ms a step (median after the first),
+   ``TRAIN_STEPS`` (6) steps on tokens (8, 2048) through
+   ``launch.train.main``: the loss falls from the first step to the last;
+   ms a step (median after the first),
    tokens/s, model TFLOP/s (6·N·tokens plus the causal attention's,
    against 989 TFLOP/s), peak GiB; its final checkpoint (bf16 weights,
    float32 Adam state) timed and sized, restored once with its digest
@@ -185,7 +189,7 @@ fleet and the per-shard path on one NVIDIA card, end to end.
    and ``dragonfly_overlap`` bit-identical, the fused mode within K4's
    bf16 bound of them, all four within it of the one-process
    ``moe_apply_ep_plain``, the aux equal; per mode the wall ms of a call
-   of all ranks (median of 3 after a warm-up), the exchange, expert-FFN
+   of all ranks (``EP_CALLS`` after a warm-up), the exchange, expert-FFN
    and all-gather ms (``moe.timing_parts``), the carrier's copies and
    bytes, the drops and the peak; then the layer with
    ``moe_collectives="auto"``: the decision measured on the 8 ranks
@@ -194,9 +198,10 @@ fleet and the per-shard path on one NVIDIA card, end to end.
    ``xla``'s: the fused mode sums in another order), the measured µs per
    candidate beside each mode's wall ms, a second call timed (a memo
    hit), and ``Engine.collective_report()`` under those rules (measured
-   and the same on every rank). b) ``forward_train`` on tokens
-   (1, 8192) in the ``dragonfly`` mode with K4 on, exactly 8 ``wgmma``
-   launches a rank, rank 0's last-token logits and loss against the
+   and the same on every rank). b) ``forward_train`` of the first
+   ``EP_FORWARD_LAYERS`` layers on tokens (1, 8192) in the ``dragonfly``
+   mode with K4 on, one ``wgmma`` launch a layer and rank, rank 0's
+   last-token logits and loss against the
    one-process forward whose MoE layers are ``moe_apply_ep_plain``
    (step 8's criteria, the route flips as in step 12); its ms, tokens/s
    and the exchange's share. c) the whole-array wave replay
@@ -223,10 +228,11 @@ fleet and the per-shard path on one NVIDIA card, end to end.
    ``moe_apply_sparse``'s (whose capacity is also 2560), the plain
    version within K4's relative rms (1e-2) of the unsplit sparse layer,
    and ``torch.bmm`` on a rank's strided ff slice copying no expert
-   stack; the wall ms of a call of all ranks (median of 3 after a
+   stack; the wall ms of a call of all ranks (``TP_CALLS`` after a
    warm-up), the all-reduce and expert-FFN ms, the carrier's copies and
-   bytes and the peak a rank. b) ``forward_train`` with K4 on tokens
-   (1, 8192), exactly 8 ``wgmma`` launches a rank, held bit for bit
+   bytes and the peak a rank. b) ``forward_train`` of the first
+   ``TP_FORWARD_LAYERS`` layers with K4 on tokens (1, 4096), one
+   ``wgmma`` launch a layer and rank, held bit for bit
    against the one-process forward whose MoE layers are
    ``moe_apply_tp_plain`` summing in gloo's order: rank 0's last-token
    logits, the loss, and every layer's routes, drops and router logits;
@@ -290,7 +296,7 @@ fleet and the per-shard path on one NVIDIA card, end to end.
    K4's bf16 bound of it, the aux equal across modes and ranks (within
    1e-5 of the plain one: gloo sums it in its own order), routes and drops
    the plain version's; per mode the wall ms of a call of all ranks
-   (median of 3 after a warm-up), the exchange, expert-FFN and all-gather
+   (``DS_EP_CALLS`` after a warm-up), the exchange, expert-FFN and all-gather
    ms (``moe.timing_parts``), the carrier's copies and bytes and the peak
    a rank; then ``moe_collectives="auto"``: one decision measured and
    agreed by all 16 ranks, its output the bits of the mode it names, every
@@ -302,7 +308,40 @@ fleet and the per-shard path on one NVIDIA card, end to end.
    rank 0's ``loss_fn`` (``ce`` and ``mtp`` bit for bit, the loss within
    1e-5: its aux term is gloo's sum) while the other ranks run
    ``forward_train`` beside it; its ms, tokens/s, the exchange's share
-   and the peaks a rank.
+   and the peaks a rank;
+18. trains on meshes of processes sharing the card
+   (``train_sharded_phase``; ``train.train_step.make_sharded_train_step``
+   on gloo, the host as the carrier; the plain attention, and no launch of
+   K1–K5 in any part, counted). Each rank makes the whole parameters from
+   the seed on the card, cuts them and a fresh optimizer state to its
+   shards by ``train_shardings`` and frees the rest; each one-process
+   oracle runs first and only its outputs are kept; nothing is shared by
+   CUDA IPC. a) TinyLlama-1.1B at full width, 2 layers, float32, mesh
+   (2, 2) with FSDP (G = 2: each data coordinate holds one whole layer),
+   one step on ``SyntheticLM`` tokens (4, 256): the gathered parameters,
+   m and v, every leaf within 1e-4 of the one-process step on the card
+   relative to its norm, the loss within 1e-5, grad_norm and lr within
+   1e-4; beside it the bf16 control, the same one-process step with bf16
+   weights against float32. b) TinyLlama-1.1B whole, bf16 weights and
+   float32 Adam state, mesh (2, 2) with FSDP (11 whole layers a data
+   coordinate; the embedding split by vocab over data and by d over model,
+   the unembedding by d over data and by vocab over model), 2 steps on
+   ``SyntheticLM`` tokens (4, 2048): loss and grad_norm within
+   ``SHARDED_REL`` of the one-process step at each step, every rank's
+   parameter bytes the reference device's at those specs; its ms a step,
+   tokens/s, the carrier's bytes a step, the peak a rank and the free
+   memory before the ranks. c) Mixtral-8x7B at its published widths with
+   1 of 32 layers, mesh (2, 4) (8 experts, 2 a rank: EP; the model axis
+   D3(4,1)) with ZeRO-1, one step in each of ``xla`` and ``dragonfly`` on
+   tokens (2, 2048) from the seed (T_loc 512), against the one-process
+   step whose MoE layer is ``moe_apply_ep_plain(..., 2, 4)``: loss,
+   moe_aux and grad_norm within ``SHARDED_REL``, the first moment of the
+   router and of each expert stack within ``SHARDED_M_REL`` and zero
+   nowhere the oracle's is above the noise, the two modes the same bits;
+   its ms a step, the forward's exchange share (``moe.timing_parts``), the
+   carrier's copies and bytes and the peak a rank.
+
+Every step ends with a ``phase: <step> <seconds> s`` line.
 
 The float32 products of the plain versions, the references and the
 library calls run in full float32: TF32 is switched off for cuBLAS and
@@ -342,6 +381,9 @@ The cells (layout D3(K, M) has n = K·M² routers):
               sharing the card, 16 of 256 experts a rank: T_loc 256, C_loc
               16, a (16, 16, 16, 7168) bf16 buffer of 58.7 MB a rank each
               way; the forward on tokens (1, 4096), K4 4 launches a rank.
+  sharded    TinyLlama-1.1B whole, mesh (2, 2), FSDP, 4 ranks sharing
+  training   the card, tokens (4, 2048); Mixtral-8x7B 1 layer, mesh (2, 4),
+              EP with ZeRO-1, 8 ranks, tokens (2, 2048); no kernel.
 """
 
 from __future__ import annotations
@@ -398,7 +440,7 @@ TRAIN_CHECK_TOKENS = (2, 256)  # a: the float32 step on the card against the CPU
 TRAIN_GRAD_TOL, TRAIN_LOSS_TOL = 1e-4, 1e-5  # a: ||Δ|| / ||g|| per leaf; the loss, relative
 MAMBA_GRAD_TOL = 1e-5  # b: ||Δ|| / ||want|| of the output and of each input's gradient
 TRAIN_TOKENS = (8, 2048)  # c, d, e: the prefill cell's tokens (TinyLlama's published context)
-TRAIN_STEPS = 10  # c: launcher steps; the final checkpoint is written after the last
+TRAIN_STEPS = 6  # c: launcher steps; the final checkpoint follows the last
 TRAIN_LR = 4e-4  # c, d, e: TinyLlama's published peak learning rate (arXiv:2401.02385); the
 # launcher's default 3e-3 is the smoke configs' and made the whole model's loss swing 8-15
 RESTART_TOL = 1e-4  # d, e: resumed and elastic losses (tests/test_elastic.py's bound)
@@ -410,17 +452,18 @@ CALLS = 5  # back-to-back allreduce_shard calls with fresh data
 SKEW = (2, 3, 0.05)  # in call 2, rank 3 sleeps 50 ms before its first put
 EP_MESH = (1, 8)  # EP phase: (data, model); the model axis is dragonfly_layout(8) = D3(2,2)
 EP_MODES = ("xla", "dragonfly", "dragonfly_overlap", "dragonfly_overlap_fused")
-EP_CALLS = 3  # timed calls of the EP layer per mode, after a warm-up
-EP_FORWARD_LAYERS = 8  # layers of the EP model forward (part b), of the 8 the weights hold
+EP_CALLS = 1  # timed calls of the EP layer per mode, after a warm-up
+EP_FORWARD_LAYERS = 2  # layers of the EP model forward (part b), of the 8 the weights hold;
+# cut from 8 for the script's time
 EP_PHASE_S = 150  # the EP phase's time budget: a phase past it says so
 TP_MESH = (1, 16)  # TP phase: the production model axis; 8 experts do not split over 16
-TP_CALLS = 3  # timed calls of the TP layer, after a warm-up
-TP_FORWARD_LAYERS = 8  # layers of the TP model forward (part b)
+TP_CALLS = 1  # timed calls of the TP layer, after a warm-up
+TP_FORWARD_LAYERS = 2  # layers of the TP model forward (part b); cut from 8 for the script's time
 TP_FORWARD_TOKENS = (1, 4096)  # cut from (1, 8192), where 16 ranks ran out of the card's memory
 ORDER_CALLS = 8  # known all-reduces gloo's summation order is read off (one more is held out)
 TP_PHASE_S = 300  # the TP phase's time budget
 DS_EP_MESH = (1, 16)  # step 17: DeepSeek-V3 on the production model axis, 16 of 256 experts a rank
-DS_EP_CALLS = 3  # timed calls of its layer per mode, after a warm-up
+DS_EP_CALLS = 1  # timed calls of its layer per mode, after a warm-up
 DS_EP_PHASE_S = 300  # step 17's time budget
 CHECKSUM_CHUNK = 1 << 24  # int16 values a bits checksum sums at once (128 MiB of int64)
 FLEET_HOST, FLEET_GUEST = (2, 2), (1, 2)  # D3(2,2): 8 ranks; two D3(1,2) guests of 4 devices
@@ -432,6 +475,26 @@ AUTO_MATMUL_BLOCK = 128  # the autotuner's matmul key: X = 128, not the cell's 5
 # candidate, the NumPy trace interpreter, replays 2.7–2.9 s a call at X = 128 (the autotune line),
 # X = 512 has 16 times the bytes and 64 times the block products, and the tuner times 4 calls
 AUTO_PHASE_S = 240  # the global-site autotuner step's time budget
+AUTO_CHUNK = CHUNK // 4  # the autotuner's all-to-all key: 64 KiFloat a (src, dst) chunk (16
+# tokens × 4096), and its all-reduce and broadcast key: a quarter of the bucket. Cut
+# for the script's time, as AUTO_MATMUL_BLOCK was: at the cells' bytes the sendrecv candidate
+# took 77 s of the all-reduce's decision and 36 s of the all-to-all's (measured on one H100)
+AUTO_BUCKET = BUCKET // 4
+TRAIN_SHARDED_MESH = (2, 2)  # step 18 a, b: (data, model) with FSDP; G = 2 and 22 split over data
+TRAIN_SHARDED_CHECK_TOKENS = (4, 256)  # a: the float32 step, SyntheticLM
+TRAIN_SHARDED_TOKENS = (4, 2048)  # b: TinyLlama's published context, (2, 2048) a data rank
+TRAIN_SHARDED_STEPS = 2  # b
+MIXTRAL_TRAIN_LAYERS = 1  # c: of 32; the one-process oracle's weights, gradients and Adam state
+# take about 20 GB at one layer, 38 at two
+MIXTRAL_TRAIN_MESH = (2, 4)  # c: 8 experts, 2 a model rank: EP; the model axis is D3(4,1)
+MIXTRAL_TRAIN_TOKENS = (2, 2048)  # c: (1, 2048) a data rank, T_loc 512; cut from (2, 4096),
+# where 8 ranks' plain attention (float32 (1, 32, 4096, 4096) scores, 2 GiB a copy) ran the card
+# out of memory (on one H100: 7.6 GiB a rank allocated when one asked for 2 more)
+MIXTRAL_TRAIN_MODES = ("xla", "dragonfly")
+SHARDED_REL = 1e-3  # b, c: loss, grad_norm and moe_aux against the one-process step, relative
+SHARDED_M_REL = 3e-2  # c: each watched leaf's first moment, ||Δ|| / ||m||: bf16 gradients; the
+# bf16 control (the one-process step in bf16 against float32) put its worst leaf's m 2.83e-2 off
+TRAIN_SHARDED_PHASE_S = 300  # step 18's time budget
 
 
 def require(cond: bool, what: str) -> None:
@@ -762,7 +825,8 @@ def ep_rank(rank, group, layout, mparams, cfg, x, tokens, want_y, layers_b, tune
     del logits
     model["loss"] = float(M.loss_fn(params_b, batch, cfg_b, True)[0])
     with MOE.timing_parts() as parts:
-        _, parts_ms = wall_ms(lambda: M.forward_train(params_b, batch, cfg_b, True))
+        # the output dropped at once: kept, it doubled the logits held in the timed forward
+        parts_ms = wall_ms(lambda: M.forward_train(params_b, batch, cfg_b, True))[1]
     model["parts"], model["parts_wall_ms"] = dict(parts), parts_ms
     model["ms"] = wall_ms(lambda: M.forward_train(params_b, batch, cfg_b, True))[1]
     model["peak_gib"] = peak_gib()
@@ -1043,7 +1107,8 @@ def tp_rank(rank, group, layout, mparams, cfg, x, tokens, layers_b, order_shapes
     del logits
     model["loss"] = float(M.loss_fn(params_b, batch, cfg_b, True)[0])
     with MOE.timing_parts() as parts:
-        _, parts_ms = wall_ms(lambda: M.forward_train(params_b, batch, cfg_b, True))
+        # the output dropped at once: kept, it doubled the logits held in the timed forward
+        parts_ms = wall_ms(lambda: M.forward_train(params_b, batch, cfg_b, True))[1]
     model["parts"], model["parts_wall_ms"] = dict(parts), parts_ms
     model["ms"] = wall_ms(lambda: M.forward_train(params_b, batch, cfg_b, True))[1]
     model["peak_gib"] = peak_gib()
@@ -1338,12 +1403,12 @@ def _cast(tree, dtype):
 
 
 def _to(tree, device):
-    """A copy of a parameter tree on ``device``."""
+    """A copy of a parameter tree on ``device`` (``None`` leaves stay)."""
     if isinstance(tree, dict):
         return {key: _to(val, device) for key, val in tree.items()}
     if isinstance(tree, list):
         return [_to(val, device) for val in tree]
-    return tree.to(device)
+    return None if tree is None else tree.to(device)
 
 
 def _tensors(tree):
@@ -2121,7 +2186,8 @@ def deepseek_ep_rank(rank, group, layout, params, cfg, x, tokens, want_y, tune_d
     model["loss_peak_gib"] = peak_gib()
     torch.cuda.empty_cache()
     with MOE.timing_parts() as parts:
-        _, parts_ms = wall_ms(lambda: M.forward_train(local, batch, cfg, True))
+        # the output dropped at once: kept, it doubled the logits held in the timed forward
+        parts_ms = wall_ms(lambda: M.forward_train(local, batch, cfg, True))[1]
     model["parts"], model["parts_wall_ms"] = dict(parts), parts_ms
     model["ms"] = wall_ms(lambda: M.forward_train(local, batch, cfg, True))[1]
     model["peak_gib"] = peak_gib()
@@ -2398,6 +2464,458 @@ def deepseek_ep_phase(dev, seed):
             "ranks_s": ranks_s, "phase_s": time.perf_counter() - t_phase,
             "weights_unchanged": True, "layer": layer_rec, "forward": model_rec}, \
         ranks_n * cfg.n_layers
+
+
+
+# --------------------------------------------------------------------------
+# Step 18: the sharded training step on a mesh of processes sharing the card
+# --------------------------------------------------------------------------
+def _flat_named(tree):
+    """{path string: tensor} of a tree of dicts and lists (``None`` left out)."""
+    from repro_torch.train.optimizer import flatten
+
+    return {"/".join(map(str, path)): x for path, x in flatten(tree) if x is not None}
+
+
+def _mu(state, key):
+    """{param path string: the held ``key`` moment} of an optimizer state
+    (a leaf the rank holds none of left out)."""
+    from repro_torch.train.optimizer import flatten
+
+    return {"/".join(map(str, path[:-1])): x for path, x in flatten(state["mu"])
+            if path[-1] == key and x is not None}
+
+
+def reference_device_bytes(cfg, pspecs, like, sizes) -> int:
+    """The bytes one device holds of the JAX package's stacked parameters
+    under these specs (every split even): each stacked member's leaf
+    (G, *leaf) once, its leading dim split where a ``Holder`` names the
+    batch axes, every other leaf as the port's."""
+    import math
+
+    from repro_torch.dist import sharding as SH
+    from repro_torch.train import optimizer as O
+
+    period = len(cfg.layer_kinds())
+    total = 0
+    for path, leaf in O.flatten(like):
+        holder, own = SH.split_holder(O.get(pspecs, path))
+        shape = list(leaf.shape)
+        entries = list(own) + [None] * (len(shape) - len(own))
+        if path[0] in O.STACKED:
+            if path[1] >= (period if path[0] == "stack" else 1):
+                continue  # one leaf a stacked member
+            shape = [(cfg.n_layers - cfg.first_dense_layers) // period if path[0] == "stack"
+                      else cfg.first_dense_layers] + shape
+            entries = [holder] + entries
+        parts = math.prod(math.prod(sizes[a] for a in SH.spec_axes(e)) for e in entries)
+        total += math.prod(shape) // parts * leaf.element_size()
+    return total
+
+
+def train_sharded_rank(rank, group, layout, jobs, mesh_shape, seed):
+    """One rank of step 18: lays the ranks out as a ``mesh_shape`` mesh of
+    (data, model) and runs each job of ``jobs`` (``_train_sharded_job``) in
+    turn. Returns {part: its record}."""
+    import torch
+
+    from repro_torch.launch.mesh import make_mesh
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    mesh = make_mesh(mesh_shape, ("data", "model"), device="cuda")
+    return {job["part"]: _train_sharded_job(rank, mesh, job, seed) for job in jobs}
+
+
+def _train_sharded_job(rank, mesh, job, seed):
+    """Makes the whole parameters from ``seed`` on the card (every rank and
+    the parent's oracle draw the same bits), cuts them and a fresh
+    optimizer state to the rank's shards by ``train_shardings``, frees the
+    rest, takes its rows of the job's batch and runs its steps in each of
+    its modes from the same state (kept on the host between modes), every
+    launch count of K1–K5 at 0 first. ``want`` holds the oracle's tensors
+    on the card, shared by CUDA IPC: the first moment of each leaf it names
+    is held against the rank's slice of it in the first mode (the other
+    modes are held to the first's bits), and part "a" gathers the whole
+    state and holds every leaf against it. The rank empties ``want`` before
+    it returns (``_release_shared``). Returns host data."""
+    import torch
+
+    from repro_torch.dist import sharding as SH
+    from repro_torch.kernels.block_matmul.block_matmul import block_matmul
+    from repro_torch.kernels.flash_attention.flash_attention import flash_attention
+    from repro_torch.models import model as M
+    from repro_torch.models import moe as MOE
+    from repro_torch.runtime.backends import cuda_fused as cf
+    from repro_torch.train import optimizer as O
+    from repro_torch.train import train_step as TS
+
+    counters = (cf.reduce_rounds, cf.combine_rows, block_matmul, flash_attention, cf.ring_put,
+                cf.ring_signal, cf.ring_wait_add)
+    cfg, opt_cfg, rules_kw, modes = job["cfg"], job["opt_cfg"], job["rules_kw"], job["modes"]
+    dev = mesh.device
+    gib = lambda n: n / 2**30
+    settings = TS.TrainSettings(use_kernel=False, remat=True)
+    SH.set_active(SH.ShardRules(**dict(rules_kw, moe_collectives=modes[0])), mesh)
+    rules = SH.active()[0]
+    specs = TS.train_shardings(cfg, rules, opt_cfg, settings)
+    like = TS.state_shapes(cfg, opt_cfg)
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    whole = M.init_params(torch.Generator(device=dev).manual_seed(seed), cfg, device=dev)
+    p0, s0 = TS.shard_train_state(whole, like[1], specs[:2], mesh)
+    del whole
+    torch.cuda.empty_cache()
+    out = {"coords": mesh.coords, "init_s": time.perf_counter() - t0, "modes": {},
+           "held_bytes": {"params": _nbytes(_flat_named(p0)), "m": _nbytes(_mu(s0, "m")),
+                          "v": _nbytes(_mu(s0, "v"))}}
+    if len(modes) > 1:  # every mode starts from these shards, kept on the host
+        p0, s0 = _to(p0, "cpu"), _to(s0, "cpu")
+    b = TS.shard_batch({k: torch.from_numpy(v) for k, v in job["batch"].items()}, specs[2], mesh)
+    step = TS.make_sharded_train_step(cfg, opt_cfg, settings)
+    kept = None
+    for mode in modes:
+        SH.set_active(SH.ShardRules(**dict(rules_kw, moe_collectives=mode)), mesh)
+        p, s = (_to(p0, dev), _to(s0, dev)) if len(modes) > 1 else (p0, s0)
+        zero_counts(counters)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        rec = {"metrics": [], "ms": [], "carrier_bytes": [], "carrier_copies": []}
+        for _ in range(job["steps"]):
+            c0, k0 = mesh.carrier_bytes, mesh.carrier_copies
+            with MOE.timing_parts() as parts, TS.timing_parts() as step_parts:
+                t0 = time.perf_counter()
+                p, s, m = step(p, s, b)
+                torch.cuda.synchronize()
+                rec["ms"].append((time.perf_counter() - t0) * 1e3)
+            rec["metrics"].append({k: float(v) for k, v in m.items()})
+            rec["carrier_bytes"].append(mesh.carrier_bytes - c0)
+            rec["carrier_copies"].append(mesh.carrier_copies - k0)
+            rec["moe_parts"] = dict(parts)
+            rec["step_parts"] = dict(step_parts)
+        rec["launches"] = {c.__name__: c.launches for c in counters}
+        rec["peak_gib"] = gib(torch.cuda.max_memory_allocated())
+        if job["watch"] and kept is None:  # the first moment against the oracle's, slice by slice
+            cmp = {}
+            for name in job["watch"]:
+                path = tuple(int(k) if k.isdigit() else k for k in name.split("/"))
+                mspec = O.get(specs[1]["mu"], path)["m"]
+                sl = SH.held_slices(mspec, O.get(like[0], path).shape, mesh.coords, mesh.sizes)
+                if sl is None or TS._replica(mspec, mesh):
+                    cmp[name] = (0.0, 0.0, 0, 0, 0)
+                    continue
+                want = job["want"][name][sl].float()
+                got = O.get(s["mu"], path)["m"].float()
+                # zero where the oracle's is not: above bf16's noise (an entry whose gradient
+                # cancels to zero in one order of bf16 sums may not in another), and at all
+                above = want.abs() > SHARDED_M_REL * want.pow(2).mean().sqrt()
+                cmp[name] = (float(torch.sum((got - want) ** 2)), float(torch.sum(want ** 2)),
+                             int((above & (got == 0)).sum()), int((want != 0).sum()),
+                             int(((want != 0) & (got == 0)).sum()))
+                del want, got, above
+            rec["m_vs_oracle"] = cmp
+        if len(modes) > 1:
+            p, s = _to(p, "cpu"), _to(s, "cpu")
+        if kept is None:
+            kept = (p, s)
+        else:  # another mode: the first mode's bits, every held slice
+            rec["same_bits_as_first"] = all(
+                torch.equal(x.contiguous().reshape(-1).view(torch.uint8),
+                            y.contiguous().reshape(-1).view(torch.uint8))
+                for x, y in zip(list(_flat_named(p).values()) + list(_mu(s, "m").values())
+                                + list(_mu(s, "v").values()),
+                                list(_flat_named(kept[0]).values()) + list(_mu(kept[1], "m").values())
+                                + list(_mu(kept[1], "v").values())))
+            del p, s
+        out["modes"][mode] = rec
+    if job["part"] == "a":  # the whole state, every leaf against the oracle's
+        gp, gs = TS.gather_train_state(kept[0], kept[1], specs[:2], like, mesh)
+        errs = {}
+        if rank == 0:
+            want = job["want"]
+            got = {**{f"p/{k}": v for k, v in _flat_named(gp).items()},
+                   **{f"m/{k}": v for k, v in _mu(gs, "m").items()},
+                   **{f"v/{k}": v for k, v in _mu(gs, "v").items()}}
+            require(set(got) == set(want),
+                    f"the gathered state's leaves {sorted(set(got) ^ set(want))}")
+            for k, w in want.items():
+                w = w.to(dev).float()
+                errs[k] = float((got[k].float() - w).norm() / w.norm().clamp(min=1e-30))
+        out["leaf_rel_err"] = errs
+        del gp, gs
+    del kept, p0, s0, b
+    _release_shared(job["want"])
+    SH.clear_active()
+    torch.cuda.empty_cache()
+    return out
+
+
+def train_sharded_phase(dev, counters):
+    """Step 18: the sharded training step (``train.train_step.
+    make_sharded_train_step``) on meshes of processes sharing the card
+    (gloo, the host as the carrier). a) TinyLlama-1.1B at full width, 2
+    layers, float32, mesh (2, 2) with FSDP (each data coordinate holds one
+    whole layer), one step against the one-process step on the card;
+    b) TinyLlama-1.1B whole, bf16, mesh (2, 2) with FSDP, 2 steps on (4,
+    2048); c) Mixtral-8x7B at its published widths with 1 layer, mesh (2, 4)
+    under EP with ZeRO-1, one step in each of ``xla`` and ``dragonfly``.
+    Each one-process oracle runs first and only its outputs are kept.
+    ``counters`` are the kernel wrappers: every part launches none.
+    Returns the runs' records."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.dist import sharding as SH
+    from repro_torch.launch.mesh import spawn
+    from repro_torch.models import model as M
+    from repro_torch.models import moe as MOE
+    from repro_torch.train import optimizer as O
+    from repro_torch.train import train_step as TS
+    from repro_torch.train.data import DataState, SyntheticLM
+
+    t_phase = time.perf_counter()
+    gib = lambda n: n / 2**30
+    gc.collect()
+    torch.cuda.ipc_collect()
+    torch.cuda.empty_cache()
+    print(f"train_sharded: {gib(torch.cuda.memory_allocated()):.2f} GiB allocated before the "
+          "phase", flush=True)
+    settings = TS.TrainSettings(use_kernel=False, remat=True)
+    runs = []
+
+    def oracle(cfg, opt_cfg, batch, steps, moe=None):
+        """The one-process step on the card from the same seed: (params,
+        state, metrics a step), the MoE layers as ``moe`` gives them."""
+        params = M.init_params(torch.Generator(device=dev).manual_seed(SEED), cfg, device=dev)
+        state = O.init_state(params, opt_cfg)
+        b = {k: torch.from_numpy(v).to(dev) for k, v in batch.items()}
+        auto = MOE.moe_apply_auto
+        if moe is not None:
+            MOE.moe_apply_auto = moe
+        zero_counts(counters)
+        torch.cuda.reset_peak_memory_stats()
+        try:
+            step = TS.make_train_step(cfg, opt_cfg, settings)
+            metrics, ms = [], []
+            for _ in range(steps):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                params, state, m = step(params, state, b)
+                torch.cuda.synchronize()
+                ms.append((time.perf_counter() - t0) * 1e3)
+                metrics.append({k: float(v) for k, v in m.items()})
+        finally:
+            MOE.moe_apply_auto = auto
+        launches = {c.__name__: c.launches for c in counters}
+        require(not any(launches.values()), f"the one-process step launched {launches}")
+        peak = gib(torch.cuda.max_memory_allocated())
+        return params, state, metrics, {"ms": ms, "peak_gib": peak}
+
+    def run_ranks(jobs, mesh_shape):
+        """The jobs on one spawn of ``mesh_shape`` ranks: (per-rank {part:
+        record}, the free GiB before they start, their seconds)."""
+        torch.cuda.empty_cache()
+        free = gib(torch.cuda.mem_get_info()[0])
+        n = mesh_shape[0] * mesh_shape[1]
+        parts = ", ".join(job["part"] for job in jobs)
+        print(f"train_sharded {parts}: {free:.1f} GiB free on the card before {n} ranks start",
+              flush=True)
+        conf = os.environ.get("PYTORCH_CUDA_ALLOC_CONF")
+        os.environ["PYTORCH_CUDA_ALLOC_CONF"] = "expandable_segments:True"
+        t0 = time.perf_counter()
+        try:
+            ranks = spawn(train_sharded_rank, n, device="cuda",
+                          args=(jobs, mesh_shape, SEED))
+        finally:
+            if conf is None:
+                del os.environ["PYTORCH_CUDA_ALLOC_CONF"]
+            else:
+                os.environ["PYTORCH_CUDA_ALLOC_CONF"] = conf
+        for job in jobs:
+            part = job["part"]
+            for r, rec in enumerate(ranks):
+                for mode, m in rec[part]["modes"].items():
+                    require(not any(m["launches"].values()),
+                            f"step 18 {part}, rank {r}, {mode}: launched {m['launches']}")
+                    require(m["metrics"] == ranks[0][part]["modes"][mode]["metrics"],
+                            f"step 18 {part}: rank {r}'s metrics differ from rank 0's")
+        return ranks, free, time.perf_counter() - t0
+
+    def job(part, cfg, opt_cfg, rules_kw, batch, modes=("xla",), steps=1, watch=(), want=None):
+        return {"part": part, "cfg": cfg, "opt_cfg": opt_cfg, "rules_kw": rules_kw,
+                "batch": batch, "modes": modes, "steps": steps, "watch": tuple(watch),
+                "want": want or {}}
+
+    def rel(a, b):
+        return abs(a - b) / max(abs(b), 1e-30)
+
+    full = get_config("tinyllama-1.1b")
+    mesh_ab = TRAIN_SHARDED_MESH
+    sizes_ab = {"data": mesh_ab[0], "model": mesh_ab[1]}
+    opt_cfg = O.OptConfig(lr=TRAIN_LR, warmup_steps=1)
+
+    # a and b on one spawn of 4 ranks, the oracles first. a) TinyLlama-1.1B, 2 layers, float32
+    t_part = time.perf_counter()
+    cfg32 = dataclasses.replace(full, n_layers=TRAIN_SMALL_LAYERS, param_dtype="float32",
+                                compute_dtype="float32")
+    data_a = SyntheticLM(DataState(seed=SEED, batch=TRAIN_SHARDED_CHECK_TOKENS[0],
+                                   seq=TRAIN_SHARDED_CHECK_TOKENS[1], vocab=full.vocab)).next_batch()
+    params, state, want_a, orc_a = oracle(cfg32, opt_cfg, data_a, 1)
+    want_state = {**{f"p/{k}": v for k, v in _flat_named(params).items()},
+                  **{f"m/{k}": v for k, v in _mu(state, "m").items()},
+                  **{f"v/{k}": v for k, v in _mu(state, "v").items()}}
+    # the control: the same one-process step with bf16 weights, against float32: the
+    # distance bf16 alone puts between two correct steps (what b and c's bounds face)
+    m32 = _mu(state, "m")
+    del params, state
+    p16, s16, want16, _ = oracle(dataclasses.replace(cfg32, param_dtype="bfloat16",
+                                                     compute_dtype="bfloat16"), opt_cfg, data_a, 1)
+    m_rel16 = {k: float((v.float() - m32[k]).norm() / m32[k].norm().clamp(min=1e-30))
+               for k, v in _mu(s16, "m").items()}
+    control = {"loss": rel(want16[0]["loss"], want_a[0]["loss"]),
+               "grad_norm": rel(want16[0]["grad_norm"], want_a[0]["grad_norm"]),
+               "m_worst_leaf": max(m_rel16.values()), "m_median_leaf":
+               statistics.median(m_rel16.values())}
+    print(f"train_sharded a: the bf16 control, one-process bf16 against float32: {control}",
+          flush=True)
+    del p16, s16, m32
+    # b) TinyLlama-1.1B whole, bf16 weights and float32 Adam state, 2 steps
+    data_b = SyntheticLM(DataState(seed=SEED, batch=TRAIN_SHARDED_TOKENS[0],
+                                   seq=TRAIN_SHARDED_TOKENS[1], vocab=full.vocab)).next_batch()
+    params, state, want_b, orc_b = oracle(full, opt_cfg, data_b, TRAIN_SHARDED_STEPS)
+    del params, state
+    oracles_s = time.perf_counter() - t_part
+    ranks, free_ab, ranks_s = run_ranks(
+        [job("a", cfg32, opt_cfg, {"fsdp": True}, data_a, want=want_state),
+         job("b", full, opt_cfg, {"fsdp": True}, data_b, steps=TRAIN_SHARDED_STEPS)], mesh_ab)
+
+    got = ranks[0]["a"]["modes"]["xla"]["metrics"][0]
+    errs = ranks[0]["a"]["leaf_rel_err"]
+    worst = max(errs, key=errs.get)
+    require(errs[worst] <= TRAIN_GRAD_TOL, f"step 18 a: leaf {worst} {errs[worst]:.3g} off the "
+                                           "one-process step")
+    require(rel(got["loss"], want_a[0]["loss"]) <= TRAIN_LOSS_TOL
+            and rel(got["grad_norm"], want_a[0]["grad_norm"]) <= TRAIN_GRAD_TOL
+            and rel(got["lr"], want_a[0]["lr"]) <= TRAIN_GRAD_TOL,
+            f"step 18 a: metrics {got} against the one-process step's {want_a[0]}")
+    runs.append({"run": "train_sharded a", "model": f"{full.name}, {cfg32.n_layers} layers, float32",
+                 "mesh": list(mesh_ab), "rules": "fsdp", "tokens": list(TRAIN_SHARDED_CHECK_TOKENS),
+                 "metrics": got, "oracle_metrics": want_a[0], "leaves": len(errs),
+                 "worst_leaf": [worst, errs[worst]], "bf16_control": control,
+                 "ms": ranks[0]["a"]["modes"]["xla"]["ms"], "oracle_ms": orc_a["ms"],
+                 "peak_gib_a_rank": max(r["a"]["modes"]["xla"]["peak_gib"] for r in ranks),
+                 "launches": ranks[0]["a"]["modes"]["xla"]["launches"]})
+    emit(runs[-1])
+
+    got = ranks[0]["b"]["modes"]["xla"]
+    for i, m in enumerate(got["metrics"]):
+        for key in ("loss", "grad_norm"):
+            require(rel(m[key], want_b[i][key]) <= SHARDED_REL,
+                    f"step 18 b, step {i}: {key} {m[key]} against the one-process "
+                    f"{want_b[i][key]}")
+    rules_b = SH.ShardRules(fsdp=True, data_axis_size=mesh_ab[0], model_axis_size=mesh_ab[1])
+    pspecs = TS.train_shardings(full, rules_b, opt_cfg, settings)[0]
+    ref_bytes = reference_device_bytes(full, pspecs, TS.param_shapes(full), sizes_ab)
+    held = [r["b"]["held_bytes"] for r in ranks]
+    require(all(h["params"] == ref_bytes for h in held),
+            f"step 18 b: the ranks hold {[h['params'] for h in held]} bytes of parameters, the "
+            f"reference's device {ref_bytes}")
+    tokens_b = TRAIN_SHARDED_TOKENS[0] * TRAIN_SHARDED_TOKENS[1]
+    step_ms = statistics.median(max(r["b"]["modes"]["xla"]["ms"][i] for r in ranks)
+                                for i in range(TRAIN_SHARDED_STEPS))
+    runs.append({"run": "train_sharded b", "model": f"{full.name} whole", "mesh": list(mesh_ab),
+                 "rules": "fsdp", "tokens": list(TRAIN_SHARDED_TOKENS),
+                 "metrics": got["metrics"], "oracle_metrics": want_b,
+                 "rel": [{k: rel(m[k], w[k]) for k in ("loss", "grad_norm")}
+                         for m, w in zip(got["metrics"], want_b)],
+                 "ms": [r["b"]["modes"]["xla"]["ms"] for r in ranks], "step_ms": step_ms,
+                 "tokens_per_s": tokens_b / step_ms * 1e3, "oracle_ms": orc_b["ms"],
+                 "oracle_tokens_per_s": tokens_b / orc_b["ms"][-1] * 1e3,
+                 "step_parts_rank0": got["step_parts"],
+                 "carrier_bytes_a_step": got["carrier_bytes"],
+                 "carrier_copies_a_step": got["carrier_copies"],
+                 "held_bytes_a_rank": held, "reference_device_param_bytes": ref_bytes,
+                 "peak_gib_a_rank": [r["b"]["modes"]["xla"]["peak_gib"] for r in ranks],
+                 "oracle_peak_gib": orc_b["peak_gib"], "free_gib_before_ranks": free_ab,
+                 "oracles_s": oracles_s, "ranks_s": ranks_s,
+                 "rank_init_s": max(r["b"]["init_s"] for r in ranks),
+                 "launches": got["launches"], "parts_a_b_s": time.perf_counter() - t_part})
+    emit(runs[-1])
+    del want_state
+    torch.cuda.ipc_collect()
+    torch.cuda.empty_cache()
+
+    # c) Mixtral-8x7B at its published widths, 1 layer, EP on (2, 4) with ZeRO-1
+    t_part = time.perf_counter()
+    mfull = get_config("mixtral-8x7b")
+    mcfg = dataclasses.replace(mfull, n_layers=MIXTRAL_TRAIN_LAYERS)
+    tokens = torch.randint(1, mcfg.vocab, MIXTRAL_TRAIN_TOKENS, device=dev,
+                           generator=torch.Generator(device=dev).manual_seed(SEED)).cpu().numpy()
+    data = {"tokens": tokens, "labels": tokens}
+    n_d, n_m = MIXTRAL_TRAIN_MESH
+    watch = [f"stack/0/ffn/{k}" for k in ("router", "w_in", "w_gate", "w_out")]
+    params, state, want, orc = oracle(
+        mcfg, opt_cfg, data, 1,
+        moe=lambda p, x, c: MOE.moe_apply_ep_plain(p, x, c, n_d, n_m))
+    n_params = sum(t.numel() for t in _tensors(params))
+    want_m = {name: O.get(state["mu"], tuple(int(k) if k.isdigit() else k
+                                             for k in name.split("/")))["m"] for name in watch}
+    del params, state
+    gc.collect()
+    ranks, free_c, ranks_s = run_ranks([job("c", mcfg, opt_cfg, {"zero1": True}, data,
+                                            MIXTRAL_TRAIN_MODES, 1, watch, want_m)],
+                                       MIXTRAL_TRAIN_MESH)
+    del want_m
+    torch.cuda.ipc_collect()
+    ranks = [r["c"] for r in ranks]
+    first = MIXTRAL_TRAIN_MODES[0]
+    got = ranks[0]["modes"][first]["metrics"][0]
+    for key in ("loss", "moe_aux", "grad_norm"):
+        require(rel(got[key], want[0][key]) <= SHARDED_REL,
+                f"step 18 c: {key} {got[key]} against the one-process {want[0][key]}")
+    m_rel, m_zero = {}, {}
+    for name in watch:  # the first mode's; the others are held to its bits below
+        parts = [r["modes"][first]["m_vs_oracle"][name] for r in ranks]
+        m_rel[name] = (sum(p[0] for p in parts) / max(sum(p[1] for p in parts), 1e-30)) ** 0.5
+        m_zero[name] = [sum(p[k] for p in parts) for k in (2, 3, 4)]
+        require(m_rel[name] <= SHARDED_M_REL and m_zero[name][0] == 0,
+                f"step 18 c, {first}: the first moment of {name}: {m_rel[name]:.3g} off the "
+                f"oracle's; zero at {m_zero[name][0]} of its entries above the noise, at "
+                f"{m_zero[name][2]} of its {m_zero[name][1]} nonzero ones")
+    for mode in MIXTRAL_TRAIN_MODES[1:]:
+        require(all(r["modes"][mode]["same_bits_as_first"] for r in ranks),
+                f"step 18 c: {mode} does not give {first}'s bits")
+        require(ranks[0]["modes"][mode]["metrics"] == ranks[0]["modes"][first]["metrics"],
+                f"step 18 c: {mode}'s metrics differ from {first}'s")
+    tokens_c = MIXTRAL_TRAIN_TOKENS[0] * MIXTRAL_TRAIN_TOKENS[1]
+    by_mode = {}
+    for mode in MIXTRAL_TRAIN_MODES:
+        ms = max(r["modes"][mode]["ms"][0] for r in ranks)
+        parts = ranks[0]["modes"][mode]["moe_parts"]
+        by_mode[mode] = {"ms": ms, "tokens_per_s": tokens_c / ms * 1e3,
+                         "forward_exchange_ms": parts["exchange_ms"],
+                         "forward_gather_ms": parts["gather_ms"],
+                         "forward_exchange_share": parts["exchange_ms"] / ms,
+                         "step_parts_rank0": ranks[0]["modes"][mode]["step_parts"],
+                         "carrier_bytes": ranks[0]["modes"][mode]["carrier_bytes"][0],
+                         "carrier_copies": ranks[0]["modes"][mode]["carrier_copies"][0],
+                         "peak_gib_a_rank": max(r["modes"][mode]["peak_gib"] for r in ranks)}
+    runs.append({"run": "train_sharded c", "model": f"{mcfg.name}, {mcfg.n_layers} of "
+                 f"{mfull.n_layers} layers", "params": n_params, "mesh": list(MIXTRAL_TRAIN_MESH),
+                 "rules": "zero1, EP", "tokens": list(MIXTRAL_TRAIN_TOKENS), "metrics": got,
+                 "oracle_metrics": want[0], "m_rel": m_rel,
+                 # zero where the oracle's is: above the noise, nonzero, of its nonzero
+                 "m_zeros_where_oracle_nonzero": m_zero,
+                 "modes": by_mode, "oracle_ms": orc["ms"], "oracle_peak_gib": orc["peak_gib"],
+                 "free_gib_before_ranks": free_c, "ranks_s": ranks_s,
+                 "rank_init_s": max(r["init_s"] for r in ranks),
+                 "held_bytes_a_rank": [r["held_bytes"] for r in ranks],
+                 "launches": ranks[0]["modes"][first]["launches"],
+                 "part_s": time.perf_counter() - t_part})
+    emit(runs[-1])
+    torch.cuda.empty_cache()
+    print(f"train_sharded: phase_s {time.perf_counter() - t_phase:.1f}", flush=True)
+    return runs
 
 
 def serve_with_reuse(kit, cfg, params, dev, what):
@@ -2740,7 +3258,8 @@ def xlstm_phase(dev, kit):
     peaks["loss_fn"] = gib(torch.cuda.max_memory_allocated())
     require(counts == none and bool(torch.isfinite(loss)), f"xlstm loss {float(loss)}, {counts}")
     kit.release()
-    fwd_ms = kit.time_ms(lambda: M.forward_train(params, batch, cfg, True), reps=2, warmup=1)
+    # one timed forward: two ran above
+    fwd_ms = kit.time_ms(lambda: M.forward_train(params, batch, cfg, True), reps=1, warmup=0)
     # Where the time goes, block by block: a profile of the whole forward (over 300,000
     # launches) takes minutes to read, so each kind of block is timed alone on the
     # forward's first block's input (CUDA events) and profiled alone, the sLSTM on the
@@ -2897,7 +3416,7 @@ def train_phase(dev, kit, counters):
     full width with its depth cut to 2 layers, float32, on the card and on
     the CPU from the same state; b) one Mamba layer at Jamba-1.5-Large's
     width, the scan's training form against autograd through the
-    step-by-step recurrence; c) TinyLlama-1.1B whole, bf16, 10 steps
+    step-by-step recurrence; c) TinyLlama-1.1B whole, bf16, TRAIN_STEPS steps
     through ``launch.train.main`` with its final checkpoint written,
     restored and timed, and one step profiled; d) the launcher's restart
     and its microbatch, compression and straggler paths on the 2-layer
@@ -3242,6 +3761,15 @@ def main() -> None:
         torch.cuda.synchronize()
         torch.cuda.empty_cache()
 
+    phase_end = [time.perf_counter()]
+
+    def phase(step: str) -> None:
+        """One ``phase: <step> <seconds> s`` line: the seconds since the
+        last step ended (the first step's since main began)."""
+        now = time.perf_counter()
+        print(f"phase: {step} {now - phase_end[0]:.1f} s", flush=True)
+        phase_end[0] = now
+
     # ------------------------------------------------------------ 1. card
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"],
@@ -3251,6 +3779,8 @@ def main() -> None:
     print(f"torch {torch.__version__} cuda {torch.version.cuda}; "
           f"allow_tf32: matmul={torch.backends.cuda.matmul.allow_tf32} "
           f"cudnn={torch.backends.cudnn.allow_tf32}", flush=True)
+
+    phase("1")
 
     # ----------------------------------------------------------- 2. build
     t0 = time.perf_counter()
@@ -3278,6 +3808,8 @@ def main() -> None:
     print(f"programs: derived and fused in {time.perf_counter() - t0:.2f} s", flush=True)
     n, n_mm = layout.n, progs["matmul"].n
     F, X, N = BUCKET, BLOCK, MatmulGrid(4, 4).n * BLOCK
+
+    phase("2")
 
     # ------------------------------------- 3. each kernel against its plain version
     kernels = {}
@@ -3421,6 +3953,8 @@ def main() -> None:
     del a, b, got, want
     release()
 
+    phase("3")
+
     # --------------------------------------- 4. the main path at full width
     counters = (cf.reduce_rounds, cf.combine_rows, block_matmul)
     expected = {
@@ -3513,6 +4047,8 @@ def main() -> None:
     for name in ("reduce_rounds", "combine_rows", "block_matmul"):
         require(launches[name] > 0, f"the main path never launched {name}")
 
+    phase("4")
+
     # ------------------------------- 5. reduced width against the NumPy reference
     rng = np.random.default_rng(SEED)
     plain_progs = {
@@ -3539,6 +4075,8 @@ def main() -> None:
         emit({"reference": coll, "shape": [list(a.shape) for a in args], "forms": ["optimized", "plain"],
               "bit_exact": True})
 
+    phase("5-6")
+
     # ------------------ 6b. the autotuner at the global site, the cells' own bytes
     # get_backend("auto") with a measuring tuner on a cache in a temporary
     # directory decides each collective on its first call (timed), then runs
@@ -3560,9 +4098,9 @@ def main() -> None:
     N_auto = MatmulGrid(4, 4).n * AUTO_MATMUL_BLOCK
     agen = torch.Generator(device=dev).manual_seed(SEED + 6)  # leaves gen's stream as it was
     auto_inputs = {
-        "alltoall": lambda: (torch.randn((n, n, CHUNK), generator=agen, device=dev),),
-        "allreduce": lambda: (torch.randn((n, F), generator=agen, device=dev),),
-        "broadcast": lambda: (torch.randn((n, F), generator=agen, device=dev),),
+        "alltoall": lambda: (torch.randn((n, n, AUTO_CHUNK), generator=agen, device=dev),),
+        "allreduce": lambda: (torch.randn((n, AUTO_BUCKET), generator=agen, device=dev),),
+        "broadcast": lambda: (torch.randn((n, AUTO_BUCKET), generator=agen, device=dev),),
         "matmul": lambda: tuple(torch.randint(-4, 5, (N_auto, N_auto), generator=agen,
                                               device=dev).float() for _ in range(2)),
     }
@@ -3628,7 +4166,8 @@ def main() -> None:
     tune_dir.cleanup()
     release()
     auto_rec = {"run": "autotune_global", "card": card, "cache_device": AT.device_tag(dev),
-                "matmul_block": AUTO_MATMUL_BLOCK, "seeds": seeds,
+                "matmul_block": AUTO_MATMUL_BLOCK, "alltoall_chunk": AUTO_CHUNK,
+                "bucket": AUTO_BUCKET, "seeds": seeds,
                 "decisions": {row["run"]: {k: row[k] for k in ("key", "strategy", "ran", "decide_s")}
                               for row in auto_rows},
                 "warm_tuner": "every key from the cache, nothing timed",
@@ -3637,6 +4176,8 @@ def main() -> None:
     if auto_rec["phase_s"] > AUTO_PHASE_S:
         print(f"autotune: the global step took {auto_rec['phase_s']:.0f} s, past its "
               f"{AUTO_PHASE_S} s", flush=True)
+
+    phase("6b")
 
     # ------------------------- 7. flash attention against its plain version
     B, S = PREFILL
@@ -3782,6 +4323,8 @@ def main() -> None:
     del q, k, v, qt, kt, vt, mixtral_qkv, allowed, pos
     release()
 
+    phase("7")
+
     # ------------------------------- 8. TinyLlama-1.1B prefill at full width
     all_counters = counters + (flash_attention,)
     params = M.init_params(torch.Generator(device=dev).manual_seed(SEED), cfg, device=dev)
@@ -3839,6 +4382,8 @@ def main() -> None:
     del last, naive_last
     release()
 
+    phase("8")
+
     # --------------------------------- 9. serving at full width, 4 slots
     class Recording(Engine):
         """The engine, keeping each step's positions and logits."""
@@ -3882,6 +4427,8 @@ def main() -> None:
     emit(runs[-1])
     del full
     release()
+
+    phase("9")
 
     # ---------------------------- 10. where the model path's device time goes
     def device_profile(fn, wall_ms, reps=3, labels=(), top_ops=0):
@@ -3952,6 +4499,8 @@ def main() -> None:
     del params, eng, batch
     release()
 
+    phase("10")
+
     # -------- 11. DeepSeek-V3 at full width, the depth cut to 3 dense + 1 MoE layers
     kit = types.SimpleNamespace(time_ms=time_ms, bound=bound, model_run=model_run,
                                 logits_close=logits_close, device_profile=device_profile,
@@ -3964,6 +4513,8 @@ def main() -> None:
         f"{cfg.name} prefill": cfg.n_layers, "deepseek-v3-671b prefill": ds_launches}
     kernels["flash_attention"]["body_launches"]["wgmma"] += ds_launches
 
+    phase("11")
+
     # --- 11b. Jamba-1.5-Large at full width, one period of 8 layers; 11c. xLSTM-1.3B whole
     jamba_k4, jamba_runs, jamba_launches = jamba_phase(dev, kit)
     runs.extend(jamba_runs)
@@ -3971,11 +4522,16 @@ def main() -> None:
     kernels["flash_attention"]["jamba_shape"] = jamba_k4
     kernels["flash_attention"]["launches_by_path"]["jamba-1.5-large-398b prefill"] = jamba_launches
     kernels["flash_attention"]["body_launches"]["wgmma"] += jamba_launches
+    phase("11b")
     runs.extend(xlstm_phase(dev, kit))
+
+    phase("11c")
 
     # ----- 11d. training: TinyLlama-1.1B (whole, and 2 layers), Jamba's Mamba layer
     runs.extend(train_phase(dev, kit, all_counters + (cf.ring_put, cf.ring_signal,
                                                      cf.ring_wait_add)))
+
+    phase("11d")
 
     # ----------------- 12. Mixtral-8x7B at full width, the depth cut to 8 layers
     t0 = time.perf_counter()
@@ -4104,12 +4660,15 @@ def main() -> None:
             f"mixtral: {flip_share:.4%} of (token, layer) routes differ between the kernel and "
             f"naive passes, or one first differs away from a near-tie: {flips}")
 
+    phase("12")
+
     # ----------- 13. Mixtral-8x7B under expert parallelism, 8 ranks on the card
     if EP_FORWARD_LAYERS < mcfg.n_layers:
         print(f"moe_ep: the forward (part b) runs {EP_FORWARD_LAYERS} of the "
               f"{mcfg.n_layers} layers the weights hold", flush=True)
     ep_rec, ep_k4 = ep_phase(dev, mparams, mcfg, SEED)
     release()
+    phase("13")
     if TP_FORWARD_TOKENS != MIXTRAL_TOKENS:
         print(f"moe_tp: the forward (part b) runs {TP_FORWARD_TOKENS} tokens, cut from "
               f"{MIXTRAL_TOKENS}: there 16 ranks ran out of the card's memory", flush=True)
@@ -4136,6 +4695,8 @@ def main() -> None:
     kernels["flash_attention"]["body_launches"]["wgmma"] += tp_k4
     release()
 
+    phase("14")
+
     # ------- 15. two Mixtral-8x7B tenants as guests of one fleet, 8 ranks on the card
     fleet_rec = fleet_phase(dev, mcfg, SEED)
     release()
@@ -4145,10 +4706,14 @@ def main() -> None:
         print(f"fleet: the phase took {fleet_rec['phase_s']:.0f} s, past its {FLEET_PHASE_S} s",
               flush=True)
 
+    phase("15")
+
     # ------------------------ 16. the per-shard all-reduce, 8 ranks on the card
     for name, rec in kernels.items():
         rec["launches"] = launches[name]
     kernels["ring_exchange"] = per_shard_phase(dev, SEED)
+
+    phase("16")
 
     # ------ 17. DeepSeek-V3 under expert parallelism, 16 ranks on the card, K4 on each
     ds_ep_rec, ds_ep_k4 = deepseek_ep_phase(dev, SEED)
@@ -4162,6 +4727,16 @@ def main() -> None:
     k4_rec["launches"] += ds_ep_k4
     k4_rec["launches_by_path"]["deepseek-v3-671b EP forward, all ranks"] = ds_ep_k4
     k4_rec["body_launches"]["wgmma"] += ds_ep_k4
+    phase("17")
+
+    # ------- 18. the sharded training step, 4 and 8 ranks on the card, no kernel
+    t18 = time.perf_counter()
+    runs.extend(train_sharded_phase(dev, all_counters + (cf.ring_put, cf.ring_signal,
+                                                         cf.ring_wait_add)))
+    if time.perf_counter() - t18 > TRAIN_SHARDED_PHASE_S:
+        print(f"train_sharded: the phase took {time.perf_counter() - t18:.0f} s, past its "
+              f"{TRAIN_SHARDED_PHASE_S} s", flush=True)
+    phase("18")
 
     # --------------------------------------------------------------- report
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",

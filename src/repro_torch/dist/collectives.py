@@ -45,6 +45,13 @@ and results move through ``runtime.combine.scatter_guests`` /
 
 ``device_trace(program)`` exports any of these programs as its validated
 per-device send/recv trace (``runtime.export``).
+
+Under autograd, ``native_all_to_all``, ``dragonfly_all_to_all``,
+``all_gather`` and ``all_reduce_sum`` have their SPMD transposes as
+backwards (an equal-split all-to-all is its own adjoint; an all-gather's
+is the rank's block of the summed cotangents; a sum's is the same sum),
+on the ``mesh``'s carrier where one is given: the MoE layers' exchanges
+and sums in the sharded train step (``train.train_step``).
 """
 
 from __future__ import annotations
@@ -255,26 +262,113 @@ def device_trace(program):
 
 
 # ------------------------------------------------------------- collectives
-def native_all_to_all(x: torch.Tensor, group=None) -> torch.Tensor:
-    """Reference: ``torch.distributed``'s own all-to-all, same (n, ...)
-    chunk layout (x[j] goes to rank j; out[j] came from rank j)."""
+class _Collective(torch.autograd.Function):
+    """A collective under autograd: ``forward(x)`` in the forward and
+    ``backward(g)``, its SPMD transpose, on the cotangent; both on the
+    ``mesh``'s carrier where one is given (moved there and back by
+    ``ProcessMesh.to_carrier`` and ``from_carrier``, counted). Without
+    grad it is ``forward`` on the carrier and nothing more."""
+
+    @staticmethod
+    def forward(ctx, x, forward, backward, mesh):
+        ctx.backward_fn, ctx.mesh = backward, mesh
+        return _on_carrier(forward, x, mesh)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _on_carrier(ctx.backward_fn, g.contiguous(), ctx.mesh), None, None, None
+
+
+def _on_carrier(fn, x, mesh):
+    if mesh is None:
+        return fn(x)
+    return mesh.from_carrier(fn(mesh.to_carrier(x)))
+
+
+def _native_exchange(x: torch.Tensor, group) -> torch.Tensor:
     out = torch.empty_like(x)
     dist.all_to_all_single(out, x.contiguous(), group=group)
     return out
 
 
+def native_all_to_all(x: torch.Tensor, group=None, mesh=None) -> torch.Tensor:
+    """Reference: ``torch.distributed``'s own all-to-all, same (n, ...)
+    chunk layout (x[j] goes to rank j; out[j] came from rank j). Under
+    autograd its backward is the same exchange of the cotangent (an
+    equal-split all-to-all is its own adjoint). With a ``mesh`` the
+    payload travels on its carrier both ways."""
+    def exchange(t):
+        return _native_exchange(t, group)
+
+    return _Collective.apply(x, exchange, exchange, mesh)
+
+
 def dragonfly_all_to_all(x, group, layout: DeviceLayout, backend=None,
-                         embedding: Embedding | None = None):
+                         embedding: Embedding | None = None, mesh=None):
     """§3 doubly-parallel all-to-all: K·M²/s rounds of s exchanges.
 
     ``x``: (n, ...) with x[j] = chunk for rank j; returns (n, ...) with
     out[j] = chunk from rank j (``native_all_to_all``'s layout). With an
     ``embedding``, ``layout`` is the guest and the exchange runs on the
-    host group (n = host routers); idle ranks pass zeros through."""
+    host group (n = host routers); idle ranks pass zeros through. Under
+    autograd its backward replays the same program on the cotangent;
+    with a ``mesh`` the payload travels on its carrier both ways."""
     be = _resolve_backend(backend)
     pipelined = 1 if getattr(be, "overlap_fused", False) else 0
-    return be.alltoall(
-        x, group, alltoall_program(layout, embedding, pipelined=pipelined))
+    prog = alltoall_program(layout, embedding, pipelined=pipelined)
+
+    def exchange(t):
+        return be.alltoall(t, group, prog)
+
+    return _Collective.apply(x, exchange, exchange, mesh)
+
+
+def _gather_cat(x: torch.Tensor, group) -> torch.Tensor:
+    parts = [torch.empty_like(x) for _ in range(dist.get_world_size(group))]
+    dist.all_gather(parts, x.contiguous(), group=group)
+    return torch.cat(parts)
+
+
+def _sum(x: torch.Tensor, group) -> torch.Tensor:
+    out = x.clone()
+    dist.all_reduce(out, group=group)
+    return out
+
+
+def _reduce_scatter_rows(g: torch.Tensor, group, inplace: bool = False) -> torch.Tensor:
+    """This rank's block of rows of the sum of every rank's ``g``: the
+    all-gather's transpose, one ``reduce`` of each block to its rank (half
+    an all-reduce's bytes). ``inplace`` lets it write into ``g``."""
+    n, r = dist.get_world_size(group), dist.get_rank(group)
+    blocks = (g if inplace else g.clone()).chunk(n)
+    for j, block in enumerate(blocks):
+        dist.reduce(block, dist.get_global_rank(group, j), group=group)
+    return blocks[r]
+
+
+def _gather_transpose(g: torch.Tensor, group) -> torch.Tensor:
+    """``all_gather``'s backward, by name, so that a check can plant a
+    fault in it."""
+    return _reduce_scatter_rows(g, group)
+
+
+def all_gather(x: torch.Tensor, group, mesh=None) -> torch.Tensor:
+    """Every rank's ``x`` of the group, concatenated along dim 0 in group
+    rank order. Under autograd the backward is its SPMD transpose: the
+    rank's block of the cotangents summed over the group (every rank's
+    copy of the output contributes). With a ``mesh``, on its carrier."""
+    return _Collective.apply(x, lambda t: _gather_cat(t, group),
+                             lambda g: _gather_transpose(g, group), mesh)
+
+
+def all_reduce_sum(x: torch.Tensor, group=None, mesh=None) -> torch.Tensor:
+    """The sum of every rank's ``x`` over the group, as a new tensor (the
+    input is not written). Under autograd its backward is the same sum of
+    the cotangents. With a ``mesh``, on its carrier."""
+    def total(t):
+        return _sum(t, group)
+
+    return _Collective.apply(x, total, total, mesh)
 
 
 def dragonfly_all_to_all_compute(x, group, layout: DeviceLayout,

@@ -10,6 +10,15 @@ one entry per dim: an axis name, a tuple of axis names, or None.
 ``local_slices`` turns a spec into the slices a rank holds, from its
 coordinates on the mesh.
 
+A per-layer spec may also open with a ``Holder``, one entry more than the
+layer has dims: the layer lies whole (as the rest of the spec cuts it) on
+one coordinate of the batch axes and nowhere else. It is what FSDP gives
+a layer of the stack where the JAX package's ``_maybe_fsdp`` shards the
+stacked group dim (``train.train_step.train_shardings``): the reference's
+stacked spec with its leading entry replaced by the data coordinate that
+holds this layer. ``held_slices`` answers, for any rank, which slices of
+such a leaf it holds, or None.
+
 Launchers call ``set_active(rules, mesh)`` so model code (the MoE
 dispatch) can fetch the live rules without threading them through every
 call; with none active, everything runs on one device. The port's mesh is
@@ -120,11 +129,68 @@ class ShardRules:
         return spec
 
 
+@dataclasses.dataclass(frozen=True)
+class Holder:
+    """The leading entry of a per-layer spec whose layer one coordinate of
+    ``axes`` (the batch axes: a name or a tuple, row-major, the first axis
+    slowest) holds whole. The layer is entry ``at`` of the JAX package's
+    stacked dim of ``of`` entries (group g of the stack's G groups, or
+    prefix layer i of ``first_dense_layers``), which the batch axes split
+    into equal runs: coordinate ``at // (of / n)`` holds it, n the
+    product of the batch axes' sizes."""
+
+    axes: str | tuple
+    at: int
+    of: int
+
+    def index(self, sizes: dict) -> int:
+        """The batch coordinate (row-major over ``axes``) that holds the layer."""
+        parts = math.prod(sizes[a] for a in spec_axes(self))
+        if self.of % parts:
+            raise ValueError(f"a stacked dim of {self.of} does not split over "
+                             f"{spec_axes(self)} ({parts})")
+        return self.at // (self.of // parts)
+
+    def holds(self, coords: dict, sizes: dict) -> bool:
+        at = 0
+        for a in spec_axes(self):
+            at = at * sizes[a] + coords[a]
+        return at == self.index(sizes)
+
+
+def spec_axes(entry) -> tuple:
+    """The mesh axes a spec entry names (a ``Holder``'s included)."""
+    if entry is None:
+        return ()
+    if isinstance(entry, Holder):
+        entry = entry.axes
+    return entry if isinstance(entry, tuple) else (entry,)
+
+
+def split_holder(spec: Spec) -> tuple[Holder | None, Spec]:
+    """(the spec's ``Holder`` or None, the spec of the leaf's own dims)."""
+    if spec and isinstance(spec[0], Holder):
+        return spec[0], tuple(spec[1:])
+    return None, tuple(spec)
+
+
+def held_slices(spec: Spec, shape, coords: dict, sizes: dict) -> tuple[slice, ...] | None:
+    """The slices of a ``shape`` leaf that the rank at ``coords`` holds
+    under ``spec`` (a ``Holder`` allowed), or None where it holds none."""
+    holder, own = split_holder(spec)
+    if holder is not None and not holder.holds(coords, sizes):
+        return None
+    return local_slices(own, shape, coords, sizes)
+
+
 def local_slices(spec: Spec, shape, coords: dict, sizes: dict) -> tuple[slice, ...]:
     """The slices of a ``shape`` array that the rank at ``coords`` (axis ->
     coordinate) holds under ``spec`` on a mesh of ``sizes`` (axis -> size).
     A dim sharded over several axes splits row-major over them, the first
-    axis slowest, as a ``PartitionSpec`` entry of a tuple does."""
+    axis slowest, as a ``PartitionSpec`` entry of a tuple does. A spec
+    that opens with a ``Holder`` goes through ``held_slices``."""
+    if spec and isinstance(spec[0], Holder):
+        raise ValueError("a spec with a Holder may hold nothing on this rank: use held_slices")
     out = []
     for i, dim in enumerate(shape):
         ax = spec[i] if i < len(spec) else None

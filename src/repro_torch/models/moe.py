@@ -42,6 +42,17 @@ model axis with one ``all_reduce``; ``moe_apply_tp_plain`` is its
 one-process counterpart. ``moe_apply_auto`` takes EP or TP as the
 reference's launcher does.
 
+Under autograd (the sharded train step, ``train.train_step.
+make_sharded_train_step``) ``moe_apply_ep`` in the ``xla``, ``dragonfly``
+and ``dragonfly_overlap`` modes and ``moe_apply_tp`` have a backward:
+every collective on their forward (the dispatch and combine exchanges,
+the output all-gather, the aux sums, TP's partial sum) is one of
+``dist.collectives``' differentiable collectives, whose backward is its
+SPMD transpose on the mesh's carrier; without grad they give the bits
+they gave before. ``dragonfly_overlap_fused``, named or picked by
+``auto``, raises under autograd: its backward would re-run the wave
+pipeline (ROADMAP Queue 1, item 5's refusals).
+
 The guest-embedded helpers (``moe_guest_dispatch``, ``moe_guest_combine``,
 ``guest_expert_ffn``) serve the multi-tenant fleet (``serve.fleet``): the
 routing runs host-side in NumPy around a program replay, as in the
@@ -344,6 +355,14 @@ def local_experts(params, cfg, rules, coords, sizes):
             if key in EXPERT_FF_DIM else w for key, w in params.items()}
 
 
+def _recording(x, params) -> bool:
+    """Whether autograd records this call: grad on, and the input or a
+    weight requires it."""
+    return torch.is_grad_enabled() and (
+        x.requires_grad or any(isinstance(w, torch.Tensor) and w.requires_grad
+                               for w in params.values()))
+
+
 def ep_auto_mode(cfg, T_loc: int, dtype, mesh, group) -> str:
     """The fixed mode the autotuner picks for ``moe_apply_ep``'s exchanges:
     the dispatch/combine all-to-all over the model axis' D3 view, keyed on
@@ -389,7 +408,7 @@ def moe_apply_ep(params, x, cfg):
 
     ``moe_collectives="auto"`` resolves to a fixed mode first
     (``ep_auto_mode``), on every rank of the mesh together."""
-    from repro_torch.dist.collectives import (dragonfly_all_to_all,
+    from repro_torch.dist.collectives import (all_gather, all_reduce_sum, dragonfly_all_to_all,
                                               dragonfly_all_to_all_compute, native_all_to_all)
     from repro_torch.dist.mesh import dragonfly_layout
     from repro_torch.runtime.backends.torch_dist import TorchDistBackend
@@ -423,6 +442,11 @@ def moe_apply_ep(params, x, cfg):
     layout = dragonfly_layout(n_model)
     if mode == "auto":
         mode = ep_auto_mode(cfg, T_loc, x.dtype, mesh, group)
+    if mode == "dragonfly_overlap_fused" and _recording(x, params):
+        raise RuntimeError(
+            "moe_collectives='dragonfly_overlap_fused' (named here or picked by 'auto') has no "
+            "backward in the port: its backward would re-run the wave pipeline (ROADMAP Queue 1, "
+            "item 5's refusals). Train with 'xla', 'dragonfly' or 'dragonfly_overlap'")
     with record_function("moe.dispatch"):
         r = _route(xt, params["router"], cfg, C)
         if _ROUTES is not None:
@@ -448,37 +472,34 @@ def moe_apply_ep(params, x, cfg):
     else:
         if mode == "xla":
             def a2a(t):
-                return native_all_to_all(t, group)
+                return native_all_to_all(t, group, mesh=mesh)
         else:
             be = TorchDistBackend(overlap=mode == "dragonfly_overlap")
 
             def a2a(t):
-                return dragonfly_all_to_all(t, group, layout, backend=be)
+                return dragonfly_all_to_all(t, group, layout, backend=be, mesh=mesh)
 
         with exchange, record_function("moe.exchange"):
-            recv = mesh.from_carrier(a2a(mesh.to_carrier(buf)))
+            recv = a2a(buf)
         with ffn, record_function("moe.experts"):
             h = recv.transpose(0, 1).reshape(E_loc, n_model * C, d)
             y = _expert_ffn(experts, h).reshape(E_loc, n_model, C, d).transpose(0, 1)
         with exchange, record_function("moe.exchange"):
-            back = mesh.from_carrier(a2a(mesh.to_carrier(y.contiguous())))
+            back = a2a(y.contiguous())
     with record_function("moe.combine"):
         out = _combine(back.reshape(E, C, d), r, T_loc)
         aux = load_balance_loss(r.logits, r.idx, E, m.top_k)
     gather = _Timer(x.device)
     with gather, record_function("moe.gather"):
-        part = mesh.to_carrier(out)
-        outs = [torch.empty_like(part) for _ in range(n_model)]
-        dist.all_gather(outs, part, group=group)
-        y = mesh.from_carrier(torch.cat(outs))
-        total = mesh.to_carrier(aux.reshape(1)).clone()
-        dist.all_reduce(total)  # over the whole mesh: every token shard
+        y = all_gather(out, group, mesh=mesh)
+        # over the whole mesh: every token shard
+        total = all_reduce_sum(aux.reshape(1), dist.group.WORLD, mesh=mesh)
     if _PARTS is not None:
         _PARTS["calls"] += 1
         _PARTS["exchange_ms"] += exchange.ms
         _PARTS["experts_ms"] += ffn.ms
         _PARTS["gather_ms"] += gather.ms
-    aux = mesh.from_carrier(total)[0] / math.prod(mesh.shape)
+    aux = total[0] / math.prod(mesh.shape)
     if "shared" in params:
         y = y + L.mlp_apply(params["shared"], xs)
     return y.reshape(B, S, d), aux
@@ -530,15 +551,17 @@ def moe_apply_ep_plain(params, x, cfg, n_data: int, n_model: int):
 def _batch_mean(value: torch.Tensor, rules, mesh) -> torch.Tensor:
     """The mean of a scalar over the batch axes (the reference's ``pmean``
     over ``rules.batch_axes``): summed over each batch axis' group in
-    turn, on the carrier."""
+    turn, on the carrier (differentiable: the backward sums likewise)."""
+    from repro_torch.dist.collectives import all_reduce_sum
+
     axes = rules.batch_axes if isinstance(rules.batch_axes, tuple) else (rules.batch_axes,)
-    total = mesh.to_carrier(value.reshape(1)).clone()
+    total = value.reshape(1)
     n = 1
     for axis in axes:
         if mesh.sizes.get(axis, 1) > 1:
-            dist.all_reduce(total, group=mesh.group(axis))
+            total = all_reduce_sum(total, mesh.group(axis), mesh=mesh)
             n *= mesh.sizes[axis]
-    return mesh.from_carrier(total)[0] / n
+    return total[0] / n
 
 
 def _ff_slice(params, n_model: int, j: int) -> dict:
@@ -575,6 +598,8 @@ def moe_apply_tp(params, x, cfg):
     gloo sums in an order of its own, not in rank order: the output is
     ``moe_apply_tp_plain``'s bit for bit when that sums in the order
     ``ObservedSumOrder`` reads off the same group."""
+    from repro_torch.dist.collectives import all_reduce_sum
+
     act = SH.active()
     if act is None:
         raise RuntimeError("moe_apply_tp needs active sharding rules: dist.sharding.set_active")
@@ -606,9 +631,7 @@ def moe_apply_tp(params, x, cfg):
         y_part = _expert_ffn(experts, buf).to(xt.dtype)  # partial over the ff shards
     reduce = _Timer(x.device)
     with reduce, record_function("moe.allreduce"):
-        y_buf = mesh.to_carrier(y_part)  # y_part is this call's own: summed in place
-        dist.all_reduce(y_buf, group=mesh.group(rules.tensor_axis))
-        y_buf = mesh.from_carrier(y_buf)
+        y_buf = all_reduce_sum(y_part, mesh.group(rules.tensor_axis), mesh=mesh)
     with record_function("moe.combine"):
         out = _combine(y_buf, r, T_loc)
         aux = _batch_mean(load_balance_loss(r.logits, r.idx, E, m.top_k), rules, mesh)

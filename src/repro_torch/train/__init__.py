@@ -1,12 +1,14 @@
 """Training substrate: optimizer, train step factory, checkpointing,
 data pipeline, fault tolerance, gradient compression, elastic trainer.
 
-The port of ``repro.train`` for one process. Not ported: the sharding
-spec trees (``optimizer.state_specs``, ``train_step.train_shardings``),
-which wait for the multi-process step (ROADMAP Queue 1 item 5)."""
+The port of ``repro.train``: one process, and the sharded step on a mesh
+of processes (``train_step.make_sharded_train_step`` on the specs of
+``train_step.train_shardings`` and ``optimizer.state_specs``; ROADMAP
+Queue 1 item 5)."""
 
 from repro_torch.train.optimizer import OptConfig, init_state, apply_updates
-from repro_torch.train.train_step import TrainSettings, make_train_step, init_train_state
+from repro_torch.train.train_step import (TrainSettings, make_train_step, init_train_state,
+                                         make_sharded_train_step, train_shardings)
 from repro_torch.train import checkpoint
 from repro_torch.train.data import DataState, SyntheticLM
 
@@ -17,6 +19,8 @@ __all__ = [
     "TrainSettings",
     "make_train_step",
     "init_train_state",
+    "make_sharded_train_step",
+    "train_shardings",
     "checkpoint",
     "DataState",
     "SyntheticLM",

@@ -12,9 +12,15 @@ still move and it still decays, as under ``jax.value_and_grad``.
 The port keeps one parameter dict per layer where the JAX package stacks
 each member of ``stack`` over its layer groups and the dense ``prefix``
 over its layers; decay and factorability are decided on the reference's
-stacked shape (``reference_ndim``). ``state_specs`` (sharding, built on
-``models.param_specs``) is not ported: it waits for the multi-process
-step.
+stacked shape (``reference_ndim``). ``state_specs`` mirrors the
+parameters' specs (``models.param_specs``, or ``train.train_step.
+train_shardings``' with their ``dist.sharding.Holder``) into the
+optimizer state's, deciding factorability on the same stacked shapes.
+``apply_updates`` also runs on a rank's shards in the sharded step
+(``train.train_step.make_sharded_train_step``): given the global
+gradient norm and a ``mean`` that reduces a factored leaf's statistics
+across the shards of a dim, it updates the slices the rank holds and
+skips the leaves it holds none of (``None``).
 """
 
 from __future__ import annotations
@@ -23,6 +29,8 @@ import dataclasses
 import math
 
 import torch
+
+from repro_torch.dist import sharding as SH
 
 #: Top-level keys whose per-layer dicts the JAX package stacks into one
 #: leaf a member, with the layers on a new leading axis.
@@ -105,6 +113,21 @@ def _factored_leaf(path, shape, cfg: OptConfig) -> bool:
     return _factorable(shape)
 
 
+def map_specs(specs, fn, path=()):
+    """``fn(path, spec)`` over a tree of specs (dicts and lists of spec
+    tuples), in the tree's shape."""
+    if isinstance(specs, dict):
+        return {key: map_specs(val, fn, path + (key,)) for key, val in specs.items()}
+    if isinstance(specs, list):
+        return [map_specs(val, fn, path + (i,)) for i, val in enumerate(specs)]
+    return fn(path, specs)
+
+
+def shape_of(node) -> tuple:
+    """A leaf's shape: a tensor's (meta tensors too) or a shape itself."""
+    return tuple(node.shape) if hasattr(node, "shape") else tuple(node)
+
+
 # ---------------------------------------------------------------- schedule
 def lr_at(cfg: OptConfig, step):
     """The warmup-then-cosine learning rate at ``step`` (an int or a
@@ -137,6 +160,32 @@ def init_state(params, cfg: OptConfig):
     return {"mu": unflatten(params, mu), "step": torch.zeros((), dtype=torch.int32, device=device)}
 
 
+def state_specs(param_specs, cfg: OptConfig, param_shapes=None, zero_fn=None):
+    """Optimizer-state specs mirroring the parameter specs (optionally
+    ZeRO-extended by ``zero_fn``: spec -> spec), in ``init_state``'s tree.
+    ``param_shapes`` (a matching tree of tensors, meta ones too, or
+    shapes) decides each leaf's factorability on the reference's stacked
+    shape (``_factored_leaf``). A factored leaf's ``vr`` keeps the spec
+    without its last dim's entry and ``vc`` without its second-to-last's,
+    as ``repro.train.optimizer.state_specs`` takes them from the spec
+    before ``zero_fn``; a leading ``Holder`` stays on both."""
+    zf = zero_fn or (lambda spec: spec)
+
+    def leaf(path, spec):
+        full = zf(spec)
+        if param_shapes is not None:
+            shape = shape_of(get(param_shapes, path))
+            if _factored_leaf(path, shape, cfg):
+                holder, own = SH.split_holder(spec)
+                axes = list(own) + [None] * (len(shape) - len(own))
+                lead = () if holder is None else (holder,)
+                return {"m": full, "vr": lead + tuple(axes[:-1]),
+                        "vc": lead + tuple(axes[:-2] + axes[-1:])}
+        return {"m": full, "v": full}
+
+    return {"mu": map_specs(param_specs, leaf), "step": ()}
+
+
 def global_norm(tree):
     """sqrt of the float32 sum of every leaf's squares (``None`` leaves
     count as zeros)."""
@@ -149,11 +198,20 @@ def global_norm(tree):
 
 
 # ------------------------------------------------------------------ update
-def apply_updates(params, grads, state, cfg: OptConfig):
-    """One AdamW/AdaFactor step. Returns (new_params, new_state, metrics)."""
+def _local_mean(path, x, dim, param_dim):
+    return x.mean(dim)
+
+
+def apply_updates(params, grads, state, cfg: OptConfig, *, gnorm=None, mean=_local_mean):
+    """One AdamW/AdaFactor step. Returns (new_params, new_state, metrics).
+
+    On a rank's shards: ``gnorm`` is the global gradient norm, ``mean(path,
+    x, dim, param_dim)`` the mean of ``x`` over its ``dim``, which spans
+    the parameter's dim ``param_dim``, across every shard of that dim; a
+    leaf the rank holds none of is ``None`` and stays so."""
     step = state["step"] + 1
     b1, b2 = cfg.betas
-    gnorm = global_norm(grads)
+    gnorm = global_norm(grads) if gnorm is None else gnorm
     scale = torch.clamp(cfg.grad_clip / (gnorm + 1e-9), max=1.0)
     lr = lr_at(cfg, step)
     stepf = step.float()
@@ -161,6 +219,8 @@ def apply_updates(params, grads, state, cfg: OptConfig):
     c2 = 1 - b2 ** stepf
 
     def leaf(path, p, g, s):
+        if p is None:  # a leaf this rank holds no slice of
+            return None, s
         g = torch.zeros(p.shape, dtype=torch.float32, device=p.device) if g is None else g
         g = g.float() * scale
         m = b1 * s["m"].float() + (1 - b1) * g
@@ -171,10 +231,10 @@ def apply_updates(params, grads, state, cfg: OptConfig):
             new_s = {"m": m.to(s["m"].dtype), "v": v.to(s["v"].dtype)}
         else:
             gg = g * g
-            vr = b2 * s["vr"].float() + (1 - b2) * gg.mean(-1)
-            vc = b2 * s["vc"].float() + (1 - b2) * gg.mean(-2)
+            vr = b2 * s["vr"].float() + (1 - b2) * mean(path, gg, -1, -1)
+            vc = b2 * s["vc"].float() + (1 - b2) * mean(path, gg, -2, -2)
             rc = vr[..., None] * vc[..., None, :] / torch.clamp(
-                vr.mean(-1)[..., None, None], min=1e-30)
+                mean(path, vr, -1, -2)[..., None, None], min=1e-30)
             upd = mhat / (torch.sqrt(rc / c2) + cfg.eps)
             new_s = {"m": m.to(s["m"].dtype), "vr": vr.to(s["vr"].dtype),
                      "vc": vc.to(s["vc"].dtype)}

@@ -1,0 +1,582 @@
+"""The sharded training step (``train.train_step.make_sharded_train_step``)
+on 8 gloo ranks, against the JAX package's sharded ``jax.jit`` of
+``make_train_step`` and against the port's one-process step.
+
+Eight gloo ranks on the CPU (spawned once for the module through
+``repro_torch.launch.mesh.spawn``) lay themselves out as (data, model)
+meshes, register the case's rules with ``dist.sharding.set_active``, cut
+the JAX package's initial parameters (carried across by
+``models.convert.params_from_jax``) and zero optimizer state to their
+shards with ``shard_train_state``, take their rows with ``shard_batch``,
+run two steps and put the state back whole with ``gather_train_state``.
+The JAX side runs this file as a script on 8 forced host devices:
+
+    XLA_FLAGS=--xla_force_host_platform_device_count=8 \\
+        python tests/test_torch_train_sharded.py OUT.npz PARAMS.npz CASE...
+
+which runs ``jax.jit(make_train_step(...), in_shardings=train_shardings
+(...), out_shardings=...)`` under ``set_active(rules, mesh)``, as
+``repro.launch.dryrun.lower_train`` builds it. The module runs it three
+times at once on ``JAX_PARTS``; the first writes the initial parameters
+and the tokens first, which the ranks wait for.
+
+Cases (``CASES``): TinyLlama smoke at (2, 4) with FSDP, with ZeRO-1 and
+with neither, and at (4, 2) with two microbatches; Mixtral smoke at (2, 4)
+under EP (FSDP, so each data coordinate holds one whole layer, experts
+included) in ``xla``, ``dragonfly`` and ``dragonfly_overlap``, and at
+(1, 8) under TP (4 experts do not split over 8); DeepSeek smoke at (2, 4)
+(MLA, the shared expert, the dense prefix, the MTP block); Jamba smoke at
+(2, 4) (Mamba's ``_SelectiveScan`` under the step); and the factored
+optimizer on TinyLlama smoke widened to d 128 and d_ff 256, so that
+``_factorable`` holds on leaves whose last or second-to-last dim is
+sharded (``wq``, the MLP, the embedding). The JAX side runs the EP cases'
+``xla`` mode only: its three exchange-only modes are bit-identical
+(``tests/test_torch_moe_ep.py``).
+
+Tolerances: every leaf of the gathered parameters and optimizer state
+within ``MODEL_TOL`` (1e-4, ||Δ|| relative to the leaf's norm) of the
+reference's after two steps, ``loss`` and ``grad_norm`` within
+``LOSS_TOL`` (1e-5 relative) at each step; the same against the port's
+one-process step (whose MoE layers are ``moe_apply_ep_plain`` or
+``moe_apply_tp_plain`` at the case's mesh), where the routes and drops of
+step 1 are exact. The ranks also hold the differentiable collectives'
+adjoints (float64, ``ADJOINT_TOL``), three planted faults that must fail
+the comparison and the refusals.
+"""
+
+import dataclasses
+import os
+import pathlib
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.configs import get_smoke_config
+from repro_torch.dist import collectives as CL
+from repro_torch.dist import sharding as SH
+from repro_torch.dist.mesh import dragonfly_layout
+from repro_torch.launch import mesh as LM
+from repro_torch.models import moe as TMOE
+from repro_torch.models import transformer as TT
+from repro_torch.models.convert import params_from_jax
+from repro_torch.runtime.backends.torch_dist import TorchDistBackend
+from repro_torch.train import optimizer as O
+from repro_torch.train import train_step as TS
+from test_torch_moe_ep import SEP, flatten as flat_tree, unflatten as unflat, wait_for
+
+TESTS = pathlib.Path(__file__).resolve().parent
+SRC = TESTS.parent / "src"
+MODEL_TOL = 1e-4
+LOSS_TOL = 1e-5
+ADJOINT_TOL = 1e-12
+SEQ = 32
+STEPS = 2
+#: name -> (arch, mesh (data, model), ShardRules changes, microbatches,
+#: batch rows, factored optimizer)
+CASES = {
+    "tiny_fsdp": ("tinyllama-1.1b", (2, 4), {"fsdp": True}, 1, 4, False),
+    "tiny_zero1": ("tinyllama-1.1b", (2, 4), {"zero1": True}, 1, 4, False),
+    "tiny_plain": ("tinyllama-1.1b", (2, 4), {}, 1, 4, False),
+    "tiny_mb": ("tinyllama-1.1b", (4, 2), {}, 2, 8, False),
+    "mix_xla": ("mixtral-8x7b", (2, 4), {"fsdp": True, "moe_collectives": "xla"}, 1, 4, False),
+    "mix_dragonfly": ("mixtral-8x7b", (2, 4), {"fsdp": True, "moe_collectives": "dragonfly"},
+                      1, 4, False),
+    "mix_overlap": ("mixtral-8x7b", (2, 4),
+                    {"fsdp": True, "moe_collectives": "dragonfly_overlap"}, 1, 4, False),
+    "mix_tp": ("mixtral-8x7b", (1, 8), {}, 1, 4, False),
+    "deepseek": ("deepseek-v3-671b", (2, 4), {"fsdp": True}, 1, 4, False),
+    "jamba": ("jamba-1.5-large-398b", (2, 4), {"fsdp": True}, 1, 4, False),
+    "factored": ("tinyllama-1.1b", (2, 4), {"fsdp": True}, 1, 4, True),
+}
+#: the EP cases whose reference is the ``xla`` mode's
+SAME_AS = {"mix_dragonfly": "mix_xla", "mix_overlap": "mix_xla"}
+#: the JAX side's three subprocesses: (writes the weights, the cases it runs)
+JAX_PARTS = ((True, ("jamba", "tiny_mb")), (False, ("deepseek", "mix_xla", "mix_tp")),
+             (False, ("tiny_fsdp", "tiny_zero1", "tiny_plain", "factored")))
+WIDE = {"d_model": 128, "d_ff": 256}  # the factored case's widths
+
+
+def case_cfg(cfg, name):
+    """The case's config, the same change on both sides."""
+    return dataclasses.replace(cfg, **WIDE) if CASES[name][5] else cfg
+
+
+#: the optimizer of ``tests/test_torch_train_loop.py``. At step 1 Adam moves
+#: every parameter by about lr·sign(g), so a gradient of ~1e-10 whose sign
+#: differs by rounding moves it by 2·lr: the parameters' distance after a
+#: step grows with lr, while the moments do not move with it.
+OPT = dict(lr=3e-3, warmup_steps=2, total_steps=10)
+
+
+def opt_cfg(OptConfig, name):
+    return OptConfig(factored=CASES[name][5], **OPT)
+
+
+def tokens(name, vocab):
+    rows = CASES[name][4]
+    return np.random.default_rng(7).integers(1, vocab, (rows, SEQ)).astype(np.int32)
+
+
+def n_moe(cfg) -> int:
+    """MoE layers of a forward: the first this many routes a recording
+    holds are the forward's (remat's recompute records them again)."""
+    return sum(1 for _, ffn in TT.layer_kinds(cfg) if ffn == "moe")
+
+
+# ------------------------------------------------- the port's side: a rank
+def _setup(name, flat):
+    arch, shape, kw, mb, _, _ = CASES[name]
+    cfg = case_cfg(get_smoke_config(arch), name)
+    mesh = LM.make_mesh(shape, ("data", "model"), device="cpu")
+    SH.set_active(SH.ShardRules(**kw), mesh)
+    rules = SH.active()[0]
+    oc = opt_cfg(O.OptConfig, name)
+    settings = TS.TrainSettings(microbatches=mb)
+    params = params_from_jax(unflat(flat, f"params{SEP}{name}"), cfg, device="cpu")
+    specs = TS.train_shardings(cfg, rules, oc, settings)
+    p, s = TS.shard_train_state(params, O.init_state(params, oc), specs[:2], mesh)
+    t = torch.from_numpy(flat[f"tokens{SEP}{name}"]).long()
+    batch = TS.shard_batch({"tokens": t, "labels": t}, specs[2], mesh)
+    return cfg, mesh, oc, settings, specs, p, s, batch
+
+
+def run_case(name, flat, rank, steps=STEPS):
+    cfg, mesh, oc, settings, specs, p, s, batch = _setup(name, flat)
+    step = TS.make_sharded_train_step(cfg, oc, settings)
+    metrics, routes = [], None
+    for i in range(steps):
+        if i == 0 and cfg.moe is not None:
+            with TMOE.recording_routes() as rec:
+                p, s, m = step(p, s, batch)
+            routes = [(idx.numpy(), keep.numpy()) for idx, keep, _ in rec[:n_moe(cfg)]]
+        else:
+            p, s, m = step(p, s, batch)
+        metrics.append({k: float(v) for k, v in m.items()})
+    gp, gs = TS.gather_train_state(p, s, specs[:2], TS.state_shapes(cfg, oc), mesh)
+    out = {"metrics": metrics, "routes": routes, "coords": mesh.coords}
+    if rank == 0:
+        state = {}
+        flat_tree(gp, "params", state)
+        flat_tree(gs, "opt", state)
+        out["state"] = state
+    SH.clear_active()
+    return out
+
+
+def adjoints(rank):
+    """<A x, y> and <x, Aᵀ y> on this rank, float64, for every
+    differentiable collective: A's forward, Aᵀ through autograd."""
+    mesh = LM.make_mesh((2, 4), ("data", "model"), device="cpu")
+    group = mesh.group("model")
+    layout = dragonfly_layout(4)
+    gen = torch.Generator().manual_seed(100 + rank)
+    ops = {
+        "native_all_to_all": lambda x: CL.native_all_to_all(x, group, mesh=mesh),
+        "dragonfly_all_to_all": lambda x: CL.dragonfly_all_to_all(x, group, layout,
+                                                                  mesh=mesh),
+        "dragonfly_all_to_all_overlap": lambda x: CL.dragonfly_all_to_all(
+            x, group, layout, backend=TorchDistBackend(overlap=True), mesh=mesh),
+        "all_gather": lambda x: CL.all_gather(x, group, mesh=mesh),
+        "all_reduce_sum": lambda x: CL.all_reduce_sum(x, torch.distributed.group.WORLD,
+                                                      mesh=mesh),
+    }
+    out = {}
+    for op, fn in ops.items():
+        x = torch.randn((4, 3, 5), generator=gen, dtype=torch.float64).requires_grad_(True)
+        ax = fn(x)
+        y = torch.randn(ax.shape, generator=gen, dtype=torch.float64)
+        (aty,) = torch.autograd.grad(ax, x, y)
+        out[op] = (float((ax * y).sum()), float((x * aty).sum()))
+    return out
+
+
+def planted(name, flat, rank, fault):
+    """One step of ``name`` with a planted fault; returns what
+    ``run_case`` returns, or the error it raised."""
+    saved = {}
+
+    def patch(module, attr, value):
+        saved[(module, attr)] = getattr(module, attr)
+        setattr(module, attr, value)
+
+    if fault == "seed_unscaled":  # summed over the model axis, the seed not scaled for it
+        patch(TS, "_seed", lambda mesh: 1.0 / mesh.sizes["data"])
+    elif fault == "gather_no_sum":  # the output gather's backward: the rank's slice alone
+        def slice_only(g, group):
+            n, r = torch.distributed.get_world_size(group), torch.distributed.get_rank(group)
+            return g.chunk(n)[r].contiguous()
+
+        patch(CL, "_gather_transpose", slice_only)
+    elif fault in ("no_backward", "none_as_zeros"):  # the exchanges invisible to autograd
+        def no_backward(x, group=None, mesh=None):
+            return CL._on_carrier(lambda t: CL._native_exchange(t, group), x.detach(), mesh)
+
+        patch(CL, "native_all_to_all", no_backward)
+        if fault == "none_as_zeros":
+            patch(TS, "_missing_grad", lambda path, batch, leaf: torch.zeros(
+                leaf.shape, dtype=torch.float32, device=leaf.device))
+    try:
+        return run_case(name, flat, rank, steps=1)
+    except (RuntimeError, NotImplementedError) as e:
+        SH.clear_active()
+        return {"error": f"{type(e).__name__}: {e}"}
+    finally:
+        for (module, attr), value in saved.items():
+            setattr(module, attr, value)
+
+
+def refusal(name, flat, rank, what):
+    """The step asked for a refused mode or setting: the error it raises."""
+    arch, shape, kw, mb, _, _ = CASES[name]
+    cfg, mesh, oc, settings, specs, p, s, batch = _setup(name, flat)
+    if what == "fused":
+        SH.set_active(SH.ShardRules(**dict(kw, moe_collectives="dragonfly_overlap_fused")), mesh)
+    else:
+        settings = dataclasses.replace(settings, compress_grads=True)
+    try:
+        TS.make_sharded_train_step(cfg, oc, settings)(p, s, batch)
+        return None
+    except (RuntimeError, NotImplementedError) as e:
+        return f"{type(e).__name__}: {e}"
+    finally:
+        SH.clear_active()
+
+
+FAULTS = {"seed_unscaled": "tiny_fsdp", "gather_no_sum": "mix_xla", "no_backward": "mix_xla",
+          "none_as_zeros": "mix_xla"}
+
+
+def run_rank(rank, group, layout, params_path):
+    torch.set_num_threads(1)
+    with np.load(params_path) as f:
+        flat = dict(f)
+    out = {"cases": {name: run_case(name, flat, rank) for name in CASES}}
+    out["adjoints"] = adjoints(rank)
+    out["faults"] = {fault: planted(name, flat, rank, fault) for fault, name in FAULTS.items()}
+    out["refusals"] = {"fused": refusal("mix_xla", flat, rank, "fused"),
+                       "compress": refusal("tiny_fsdp", flat, rank, "compress")}
+    return out
+
+
+# ------------------------------------- the JAX side: this file as a script
+def jax_main(out: str, params_out: str, parts) -> None:
+    """The initial parameters and tokens of every case to ``params_out``
+    first (unless it is "-"), then each case of ``parts``: two steps of the
+    reference's sharded jit on 8 forced host devices. Saved to ``out``."""
+    os.environ.setdefault("XLA_FLAGS", "--xla_force_host_platform_device_count=8")
+    import jax
+    from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
+
+    from repro.configs import get_smoke_config as j_smoke
+    from repro.dist import sharding as JSH
+    from repro.models import model as JM
+    from repro.train import optimizer as JO
+    from repro.train import train_step as JTS
+
+    assert jax.device_count() >= 8, jax.devices()
+    cfgs = {name: case_cfg(j_smoke(CASES[name][0]), name) for name in CASES}
+    init = {name: JM.init_params(jax.random.key(0), cfg) for name, cfg in cfgs.items()}
+    if params_out != "-":
+        flat = {}
+        for name, p in init.items():
+            flat_tree(jax.tree.map(np.asarray, p), f"params{SEP}{name}", flat)
+            flat[f"tokens{SEP}{name}"] = tokens(name, cfgs[name].vocab)
+        tmp = params_out + ".tmp.npz"
+        np.savez(tmp, **flat)
+        os.replace(tmp, params_out)
+
+    results = {}
+    for name in parts:
+        _, shape, kw, mb, _, _ = CASES[name]
+        cfg = cfgs[name]
+        mesh = Mesh(np.array(jax.devices()[:8]).reshape(shape), ("data", "model"))
+        JSH.set_active(JSH.ShardRules(**kw), mesh)
+        rules = JSH.active()[0]
+        oc = opt_cfg(JO.OptConfig, name)
+        settings = JTS.TrainSettings(microbatches=mb, use_kernel=False)
+        ps, os_, bs, _ = JTS.train_shardings(cfg, rules, oc, settings)
+
+        def named(tree):
+            return jax.tree.map(lambda sp: NamedSharding(mesh, sp), tree,
+                                is_leaf=lambda x: isinstance(x, P))
+
+        step = jax.jit(JTS.make_train_step(cfg, oc, settings),
+                       in_shardings=(named(ps), named(os_), named(bs)),
+                       out_shardings=(named(ps), named(os_), None))
+        t = tokens(name, cfg.vocab)
+        batch = jax.device_put({"tokens": t, "labels": t}, named(bs))
+        p = jax.device_put(init[name], named(ps))
+        s = jax.device_put(JO.init_state(init[name], oc), named(os_))
+        for i in range(STEPS):
+            p, s, m = step(p, s, batch)
+            for key, val in m.items():
+                results[f"{name}{SEP}metrics{SEP}{i}{SEP}{key}"] = np.asarray(val)
+        flat_tree(jax.tree.map(np.asarray, p), f"{name}{SEP}params", results)
+        flat_tree(jax.tree.map(np.asarray, s), f"{name}{SEP}opt", results)
+        JSH.clear_active()
+    np.savez(out, **results)
+
+
+if __name__ == "__main__":
+    jax_main(sys.argv[1], sys.argv[2], sys.argv[3:])
+
+
+# ------------------------------------------------------------------ tests
+@pytest.fixture(scope="module")
+def runs(tmp_path_factory):
+    """(per-rank results, {key: JAX result}, the initial parameters and
+    tokens): the JAX subprocesses start first, one writes the parameters,
+    and the 8 gloo ranks run beside them once those are there."""
+    root = tmp_path_factory.mktemp("train_sharded")
+    params = root / "params.npz"
+    path = os.pathsep.join([str(SRC), str(TESTS), os.environ.get("PYTHONPATH", "")])
+    env = dict(os.environ, XLA_FLAGS="--xla_force_host_platform_device_count=8",
+               JAX_PLATFORMS="cpu", PYTHONPATH=path)
+    procs = [subprocess.Popen([sys.executable, __file__, str(root / f"ref{i}.npz"),
+                               str(params) if writes else "-", *parts],
+                              env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                              text=True)
+             for i, (writes, parts) in enumerate(JAX_PARTS)]
+    try:
+        wait_for(params, procs[0])
+        ranks = LM.spawn(run_rank, 8, device="cpu", args=(str(params),))
+    finally:
+        logs = [proc.communicate(timeout=900)[0] for proc in procs]
+    ref = {}
+    for i, (proc, log) in enumerate(zip(procs, logs)):
+        assert proc.returncode == 0, log[-6000:]
+        with np.load(root / f"ref{i}.npz") as part:
+            ref.update(part)
+    with np.load(params) as flat:
+        return ranks, ref, dict(flat)
+
+
+def gathered(ranks, name):
+    """Rank 0's gathered (params, opt_state), in the port's layout."""
+    state = ranks[0]["cases"][name]["state"]
+    return unflat(state, "params"), unflat(state, "opt")
+
+
+def assert_tree_close(got, want, tol, what):
+    want = dict(O.flatten(want))
+    got = dict(O.flatten(got))
+    assert set(got) == set(want), (what, set(got) ^ set(want))
+    for path, w in want.items():
+        g, w = np.asarray(got[path], np.float64), np.asarray(w, np.float64)
+        assert g.shape == w.shape, (what, path)
+        err = float(np.linalg.norm(g - w))
+        assert err <= tol * float(np.linalg.norm(w)) + 1e-12, (what, path, err,
+                                                                float(np.linalg.norm(w)))
+
+
+def reference_state(ref, name):
+    from repro_torch.models.convert import opt_state_from_jax
+
+    cfg = case_cfg(get_smoke_config(CASES[name][0]), name)
+    key = SAME_AS.get(name, name)
+    p = params_from_jax(unflat(ref, f"{key}{SEP}params"), cfg, device="cpu")
+    s = opt_state_from_jax(unflat(ref, f"{key}{SEP}opt"), cfg, device="cpu")
+    return p, s
+
+
+def oracle(name, flat, steps=STEPS):
+    """The port's one-process step on the whole batch, ``steps`` steps, with
+    the case's MoE layers in their one-process form at its mesh: (params,
+    opt_state, metrics a step, routes of step 1)."""
+    arch, shape, _, mb, _, _ = CASES[name]
+    cfg = case_cfg(get_smoke_config(arch), name)
+    oc = opt_cfg(O.OptConfig, name)
+    p = params_from_jax(unflat(flat, f"params{SEP}{name}"), cfg, device="cpu")
+    s = O.init_state(p, oc)
+    t = torch.from_numpy(flat[f"tokens{SEP}{name}"]).long()
+    batch = {"tokens": t, "labels": t}
+    real = TMOE.moe_apply_auto
+    if cfg.moe is not None and cfg.moe.num_experts % shape[1] == 0:
+        TMOE.moe_apply_auto = lambda pp, x, c: TMOE.moe_apply_ep_plain(pp, x, c, *shape)
+    elif cfg.moe is not None:
+        TMOE.moe_apply_auto = lambda pp, x, c: TMOE.moe_apply_tp_plain(pp, x, c, *shape)
+    SH.clear_active()
+    try:
+        step = TS.make_train_step(cfg, oc, TS.TrainSettings(microbatches=mb))
+        metrics, routes = [], None
+        for i in range(steps):
+            with TMOE.recording_routes() as rec:
+                p, s, m = step(p, s, batch)
+            if i == 0:
+                routes = [(idx.numpy(), keep.numpy()) for idx, keep, _ in rec[:n_moe(cfg)]]
+            metrics.append({k: float(v) for k, v in m.items()})
+    finally:
+        TMOE.moe_apply_auto = real
+    return p, s, metrics, routes
+
+
+@pytest.fixture(scope="module")
+def oracles(runs):
+    torch.set_num_threads(1)
+    _, _, flat = runs
+    return {name: oracle(name, flat) for name in CASES}
+
+
+def _numpy(tree):
+    return O.unflatten(tree, [x.numpy() for _, x in O.flatten(tree)])
+
+
+@pytest.mark.parametrize("name", list(CASES))
+def test_sharded_step_matches_the_reference_jit(runs, name):
+    """Two steps, gathered: every leaf of the parameters and the optimizer
+    state within MODEL_TOL of the reference's sharded jit, loss and
+    grad_norm within LOSS_TOL at each step, on every rank."""
+    ranks, ref, _ = runs
+    want_p, want_s = reference_state(ref, name)
+    got_p, got_s = gathered(ranks, name)
+    assert_tree_close(got_p, _numpy(want_p), MODEL_TOL, "params")
+    assert_tree_close(got_s["mu"], _numpy(want_s["mu"]), MODEL_TOL, "opt")
+    assert int(got_s["step"]) == int(want_s["step"]) == STEPS
+    key = SAME_AS.get(name, name)
+    for r in ranks:
+        for i, m in enumerate(r["cases"][name]["metrics"]):
+            for k in ("loss", "grad_norm"):
+                want = float(ref[f"{key}{SEP}metrics{SEP}{i}{SEP}{k}"])
+                assert abs(m[k] - want) <= LOSS_TOL * abs(want), (name, i, k, m[k], want)
+            assert set(m) == {k.split(SEP)[-1] for k in ref
+                              if k.startswith(f"{key}{SEP}metrics{SEP}{i}{SEP}")}
+
+
+@pytest.mark.parametrize("name", list(CASES))
+def test_sharded_step_matches_the_one_process_step(runs, oracles, name):
+    """The same against the port's one-process step; the routes and drops
+    of step 1 exact, shard by shard; every rank's metrics the same."""
+    ranks, _, _ = runs
+    p, s, metrics, routes = oracles[name]
+    got_p, got_s = gathered(ranks, name)
+    assert_tree_close(got_p, _numpy(p), MODEL_TOL, "params")
+    assert_tree_close(got_s["mu"], _numpy(s["mu"]), MODEL_TOL, "opt")
+    for r in ranks:
+        assert r["cases"][name]["metrics"] == ranks[0]["cases"][name]["metrics"]
+        for i, m in enumerate(r["cases"][name]["metrics"]):
+            for k, want in metrics[i].items():
+                assert abs(m[k] - want) <= LOSS_TOL * abs(want) + 1e-7, (name, i, k, m[k], want)
+    moe = get_smoke_config(CASES[name][0]).moe
+    if moe is None:
+        assert not routes and ranks[0]["cases"][name]["routes"] is None
+        return
+    shape = CASES[name][1]
+    ep = moe.num_experts % shape[1] == 0
+    # EP: rank r routes token shard r (data-major); TP: a data shard a model group
+    shards = ranks if ep else ranks[::shape[1]]
+    for layer, (idx, keep) in enumerate(routes):
+        np.testing.assert_array_equal(
+            np.concatenate([r["cases"][name]["routes"][layer][0] for r in shards]), idx)
+        np.testing.assert_array_equal(
+            np.concatenate([r["cases"][name]["routes"][layer][1] for r in shards]), keep)
+
+
+def test_ep_modes_are_bit_identical(runs):
+    """Only the transport differs between xla, dragonfly and
+    dragonfly_overlap, in the backward too: the same bits."""
+    ranks, _, _ = runs
+    want = ranks[0]["cases"]["mix_xla"]["state"]
+    for name in ("mix_dragonfly", "mix_overlap"):
+        got = ranks[0]["cases"][name]["state"]
+        assert set(got) == set(want)
+        for key in want:
+            np.testing.assert_array_equal(np.ascontiguousarray(got[key]).reshape(-1).view(np.uint8),
+                                          np.ascontiguousarray(want[key]).reshape(-1).view(np.uint8))
+        for r in ranks:
+            assert r["cases"][name]["metrics"] == r["cases"]["mix_xla"]["metrics"]
+
+
+def test_fsdp_places_whole_layers_on_their_holder(runs):
+    """Mixtral smoke at data 2 (G = 2): each data coordinate holds one whole
+    layer, its expert stacks cut 1 an expert a model rank."""
+    from repro_torch.configs import get_smoke_config as smoke
+
+    cfg = smoke("mixtral-8x7b")
+    rules = SH.ShardRules(fsdp=True, data_axis_size=2, model_axis_size=4)
+    pspecs, _, _, _ = TS.train_shardings(cfg, rules, O.OptConfig(), TS.TrainSettings())
+    sizes = {"data": 2, "model": 4}
+    for i, layer in enumerate(pspecs["stack"]):
+        spec = layer["ffn"]["w_in"]
+        assert spec == (SH.Holder("data", i, 2), "model", None, None)
+        for d in range(2):
+            got = SH.held_slices(spec, (4, 64, 128), {"data": d, "model": 3}, sizes)
+            assert (got is not None) == (d == i)
+            if got is not None:
+                assert got[0] == slice(3, 4)
+
+
+@pytest.mark.parametrize("op", ["native_all_to_all", "dragonfly_all_to_all",
+                                "dragonfly_all_to_all_overlap", "all_gather", "all_reduce_sum"])
+def test_collective_adjoints(runs, op):
+    """<A x, y> = <x, Aᵀ y> summed over the 8 ranks, in float64."""
+    ranks, _, _ = runs
+    lhs = sum(r["adjoints"][op][0] for r in ranks)
+    rhs = sum(r["adjoints"][op][1] for r in ranks)
+    assert abs(lhs - rhs) <= ADJOINT_TOL * max(1.0, abs(lhs)), (op, lhs, rhs)
+
+
+def _fails_comparison(res, p, s, m):
+    """Whether a planted fault's one step is off the one-process step: its
+    state, its loss or its grad_norm."""
+    got_p, got_s = unflat(res["state"], "params"), unflat(res["state"], "opt")
+    try:
+        assert_tree_close(got_p, _numpy(p), MODEL_TOL, "params")
+        assert_tree_close(got_s["mu"], _numpy(s["mu"]), MODEL_TOL, "opt")
+        for k in ("loss", "grad_norm"):
+            assert abs(res["metrics"][0][k] - m[k]) <= LOSS_TOL * abs(m[k])
+    except AssertionError:
+        return True
+    return False
+
+
+@pytest.mark.parametrize("fault", ["seed_unscaled", "gather_no_sum", "none_as_zeros"])
+def test_planted_faults_fail_the_comparison(runs, fault):
+    """A seed not scaled for the model axis (the loss counted 4 times: under
+    the clip the update is the same, grad_norm 4 times over), an output
+    gather whose backward takes the rank's slice without the sum, and a
+    missing expert gradient taken as zeros (the exchange invisible to
+    autograd) each move the step off the one-process step (the unfaulted
+    step is within the tolerances, above)."""
+    ranks, _, flat = runs
+    torch.set_num_threads(1)
+    p, s, (m,), _ = oracle(FAULTS[fault], flat, steps=1)
+    res = ranks[0]["faults"][fault]
+    assert "error" not in res, res
+    assert _fails_comparison(res, p, s, m)
+    if fault == "seed_unscaled":  # every gradient 4 times over
+        np.testing.assert_allclose(res["metrics"][0]["grad_norm"], 4 * m["grad_norm"],
+                                   rtol=1e-5)
+
+
+def test_a_missing_gradient_raises(runs):
+    """With the exchange invisible to autograd the expert stacks get no
+    gradient, and the step says so instead of training them on zeros."""
+    ranks, _, _ = runs
+    for r in ranks:
+        err = r["faults"]["no_backward"]["error"]
+        assert err.startswith("RuntimeError: no gradient reached stack/0/ffn/w_"), err
+
+
+def test_refuses_the_fused_mode_under_autograd(runs):
+    ranks, _, _ = runs
+    for r in ranks:
+        assert r["refusals"]["fused"].startswith("RuntimeError: moe_collectives="
+                                                 "'dragonfly_overlap_fused'"), r["refusals"]
+
+
+def test_refuses_compress_grads(runs):
+    ranks, _, _ = runs
+    for r in ranks:
+        assert r["refusals"]["compress"].startswith("NotImplementedError: compress_grads"), \
+            r["refusals"]
+
+
+def test_refuses_without_an_active_mesh():
+    cfg = get_smoke_config("tinyllama-1.1b")
+    SH.clear_active()
+    step = TS.make_sharded_train_step(cfg, O.OptConfig(), TS.TrainSettings())
+    with pytest.raises(RuntimeError, match="set_active"):
+        step({}, {}, {})
