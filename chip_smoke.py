@@ -332,14 +332,32 @@ one NVIDIA card, end to end.
    tokens/s, the carrier's bytes a step, the peak a rank and the free
    memory before the ranks. c) Mixtral-8x7B at its published widths with
    1 of 32 layers, mesh (2, 4) (8 experts, 2 a rank: EP; the model axis
-   D3(4,1)) with ZeRO-1, one step in each of ``xla`` and ``dragonfly`` on
-   tokens (2, 2048) from the seed (T_loc 512), against the one-process
-   step whose MoE layer is ``moe_apply_ep_plain(..., 2, 4)``: loss,
-   moe_aux and grad_norm within ``SHARDED_REL``, the first moment of the
-   router and of each expert stack within ``SHARDED_M_REL`` and zero
-   nowhere the oracle's is above the noise, the two modes the same bits;
+   D3(4,1)) with ZeRO-1, one step in each of ``xla``, ``dragonfly`` and
+   ``dragonfly_overlap_fused`` (since PR 25: its round trip differentiated
+   wave by wave) on tokens (2, 2048) from the seed (T_loc 512), against
+   the one-process step whose MoE layer is ``moe_apply_ep_plain(..., 2,
+   4)``: in ``xla`` and in the fused mode loss, moe_aux and grad_norm
+   within ``SHARDED_REL``, the first moment of the router and of each
+   expert stack within ``SHARDED_M_REL`` and zero nowhere the oracle's is
+   above the noise; ``dragonfly`` the same bits as ``xla``, the fused
+   mode's distance from ``xla`` printed;
    its ms a step, the forward's exchange share (``moe.timing_parts``), the
    carrier's copies and bytes and the peak a rank.
+
+19. (since PR 25) the dry run (``launch.dryrun``) in a process of its
+   own, whose fake process group is process-global: a) on the meta
+   device, rank by rank of the production meshes, TinyLlama-1.1B's
+   train_4k (the sharded step), DeepSeek-V3's prefill_32k (EP, 16 experts
+   a rank), Mixtral-8x7B's decode_32k (TP and the cache specs) on (16,
+   16), each ``ok``, and OLMo-1B's train_4k on (2, 16, 16) with FSDP,
+   ``FAILED`` as in the reference (16 stacked layers over pod·data = 32),
+   one line each with its seconds; b) ``--on-card``: TinyLlama-1.1B's
+   prefill_32k, rank 0's share (2 × 32768 tokens, 22 K4 launches) run on
+   the card under the fake world (the collectives' outputs unwritten, so
+   only memory, counts and time are checked): the meta trace's peak within
+   ``DRYRUN_PEAK_REL`` of ``torch.cuda.max_memory_allocated``, the FLOPs
+   counted on the card equal to the meta count, its ms beside the
+   roofline's ``compute_s`` and ``memory_s``.
 
 Every step ends with a ``phase: <step> <seconds> s`` line.
 
@@ -490,11 +508,25 @@ MIXTRAL_TRAIN_MESH = (2, 4)  # c: 8 experts, 2 a model rank: EP; the model axis 
 MIXTRAL_TRAIN_TOKENS = (2, 2048)  # c: (1, 2048) a data rank, T_loc 512; cut from (2, 4096),
 # where 8 ranks' plain attention (float32 (1, 32, 4096, 4096) scores, 2 GiB a copy) ran the card
 # out of memory (on one H100: 7.6 GiB a rank allocated when one asked for 2 more)
-MIXTRAL_TRAIN_MODES = ("xla", "dragonfly")
+MIXTRAL_TRAIN_MODES = ("xla", "dragonfly", "dragonfly_overlap_fused")
+#: c: the modes held to the first mode's bits (only the transport differs); the fused mode
+#: differentiates its wave pipeline wave by wave, another float order: held to the oracle
+MIXTRAL_SAME_BITS = ("dragonfly",)
 SHARDED_REL = 1e-3  # b, c: loss, grad_norm and moe_aux against the one-process step, relative
 SHARDED_M_REL = 3e-2  # c: each watched leaf's first moment, ||Δ|| / ||m||: bf16 gradients; the
 # bf16 control (the one-process step in bf16 against float32) put its worst leaf's m 2.83e-2 off
 TRAIN_SHARDED_PHASE_S = 300  # step 18's time budget
+#: 19 a: (arch, shape, multi-pod, rules changes, tag, expected status) of the dry run on meta
+DRYRUN_CELLS = (
+    ("tinyllama-1.1b", "train_4k", False, {}, "", "ok"),          # the sharded step
+    ("deepseek-v3-671b", "prefill_32k", False, {}, "", "ok"),     # EP, 16 experts a rank
+    ("mixtral-8x7b", "decode_32k", False, {}, "", "ok"),          # TP, the cache specs
+    ("olmo-1b", "train_4k", True, {"fsdp": True}, "fsdp", "FAILED"),  # 16 layers over 32
+)
+#: 19 b: the cell run on the card as well, its rank's share
+DRYRUN_CARD_CELL = ("tinyllama-1.1b", "prefill_32k", False, {}, "", "ok")
+DRYRUN_PEAK_REL = 0.10  # b: the meta trace's peak against max_memory_allocated, relative
+DRYRUN_PHASE_S = 90  # step 19's time budget
 
 
 def require(cond: bool, what: str) -> None:
@@ -2595,7 +2627,7 @@ def _train_sharded_job(rank, mesh, job, seed):
             rec["step_parts"] = dict(step_parts)
         rec["launches"] = {c.__name__: c.launches for c in counters}
         rec["peak_gib"] = gib(torch.cuda.max_memory_allocated())
-        if job["watch"] and kept is None:  # the first moment against the oracle's, slice by slice
+        if job["watch"]:  # the first moment against the oracle's, slice by slice
             cmp = {}
             for name in job["watch"]:
                 path = tuple(int(k) if k.isdigit() else k for k in name.split("/"))
@@ -2618,15 +2650,18 @@ def _train_sharded_job(rank, mesh, job, seed):
             p, s = _to(p, "cpu"), _to(s, "cpu")
         if kept is None:
             kept = (p, s)
-        else:  # another mode: the first mode's bits, every held slice
+        else:  # another mode: the first mode's bits, every held slice, and its distance
+            pairs = list(zip(list(_flat_named(p).values()) + list(_mu(s, "m").values())
+                             + list(_mu(s, "v").values()),
+                             list(_flat_named(kept[0]).values()) + list(_mu(kept[1], "m").values())
+                             + list(_mu(kept[1], "v").values())))
             rec["same_bits_as_first"] = all(
                 torch.equal(x.contiguous().reshape(-1).view(torch.uint8),
-                            y.contiguous().reshape(-1).view(torch.uint8))
-                for x, y in zip(list(_flat_named(p).values()) + list(_mu(s, "m").values())
-                                + list(_mu(s, "v").values()),
-                                list(_flat_named(kept[0]).values()) + list(_mu(kept[1], "m").values())
-                                + list(_mu(kept[1], "v").values())))
-            del p, s
+                            y.contiguous().reshape(-1).view(torch.uint8)) for x, y in pairs)
+            rec["worst_leaf_rel_to_first"] = max(
+                float((x.float() - y.float()).norm() / y.float().norm().clamp(min=1e-30))
+                for x, y in pairs)
+            del p, s, pairs
         out["modes"][mode] = rec
     if job["part"] == "a":  # the whole state, every leaf against the oracle's
         gp, gs = TS.gather_train_state(kept[0], kept[1], specs[:2], like, mesh)
@@ -2658,7 +2693,7 @@ def train_sharded_phase(dev, counters):
     whole layer), one step against the one-process step on the card;
     b) TinyLlama-1.1B whole, bf16, mesh (2, 2) with FSDP, 2 steps on (4,
     2048); c) Mixtral-8x7B at its published widths with 1 layer, mesh (2, 4)
-    under EP with ZeRO-1, one step in each of ``xla`` and ``dragonfly``.
+    under EP with ZeRO-1, one step in each of ``MIXTRAL_TRAIN_MODES``.
     Each one-process oracle runs first and only its outputs are kept.
     ``counters`` are the kernel wrappers: every part launches none.
     Returns the runs' records."""
@@ -2870,23 +2905,37 @@ def train_sharded_phase(dev, counters):
     ranks = [r["c"] for r in ranks]
     first = MIXTRAL_TRAIN_MODES[0]
     got = ranks[0]["modes"][first]["metrics"][0]
-    for key in ("loss", "moe_aux", "grad_norm"):
-        require(rel(got[key], want[0][key]) <= SHARDED_REL,
-                f"step 18 c: {key} {got[key]} against the one-process {want[0][key]}")
-    m_rel, m_zero = {}, {}
-    for name in watch:  # the first mode's; the others are held to its bits below
-        parts = [r["modes"][first]["m_vs_oracle"][name] for r in ranks]
-        m_rel[name] = (sum(p[0] for p in parts) / max(sum(p[1] for p in parts), 1e-30)) ** 0.5
-        m_zero[name] = [sum(p[k] for p in parts) for k in (2, 3, 4)]
-        require(m_rel[name] <= SHARDED_M_REL and m_zero[name][0] == 0,
-                f"step 18 c, {first}: the first moment of {name}: {m_rel[name]:.3g} off the "
-                f"oracle's; zero at {m_zero[name][0]} of its entries above the noise, at "
-                f"{m_zero[name][2]} of its {m_zero[name][1]} nonzero ones")
-    for mode in MIXTRAL_TRAIN_MODES[1:]:
+    held = [mode for mode in MIXTRAL_TRAIN_MODES if mode not in MIXTRAL_SAME_BITS]
+    m_rel, m_zero, metrics_rel = {}, {}, {}
+    for mode in held:  # against the oracle; the same-bits modes are held to the first's below
+        m = ranks[0]["modes"][mode]["metrics"][0]
+        metrics_rel[mode] = {key: rel(m[key], want[0][key])
+                             for key in ("loss", "moe_aux", "grad_norm")}
+        for key, err in metrics_rel[mode].items():
+            require(err <= SHARDED_REL,
+                    f"step 18 c, {mode}: {key} {m[key]} against the one-process {want[0][key]}")
+        m_rel[mode], m_zero[mode] = {}, {}
+        for name in watch:
+            parts = [r["modes"][mode]["m_vs_oracle"][name] for r in ranks]
+            err = (sum(p[0] for p in parts) / max(sum(p[1] for p in parts), 1e-30)) ** 0.5
+            zeros = [sum(p[k] for p in parts) for k in (2, 3, 4)]
+            m_rel[mode][name], m_zero[mode][name] = err, zeros
+            require(err <= SHARDED_M_REL and zeros[0] == 0,
+                    f"step 18 c, {mode}: the first moment of {name}: {err:.3g} off the "
+                    f"oracle's; zero at {zeros[0]} of its entries above the noise, at "
+                    f"{zeros[2]} of its {zeros[1]} nonzero ones")
+    for mode in MIXTRAL_SAME_BITS:
         require(all(r["modes"][mode]["same_bits_as_first"] for r in ranks),
                 f"step 18 c: {mode} does not give {first}'s bits")
         require(ranks[0]["modes"][mode]["metrics"] == ranks[0]["modes"][first]["metrics"],
                 f"step 18 c: {mode}'s metrics differ from {first}'s")
+    from_first = {mode: {"worst_leaf_rel": max(r["modes"][mode]["worst_leaf_rel_to_first"]
+                                               for r in ranks),
+                         "metrics_rel": {key: rel(ranks[0]["modes"][mode]["metrics"][0][key],
+                                                  got[key])
+                                         for key in ("loss", "moe_aux", "grad_norm")}}
+                  for mode in MIXTRAL_TRAIN_MODES[1:]}
+    print(f"train_sharded c: each mode against {first}: {from_first}", flush=True)
     tokens_c = MIXTRAL_TRAIN_TOKENS[0] * MIXTRAL_TRAIN_TOKENS[1]
     by_mode = {}
     for mode in MIXTRAL_TRAIN_MODES:
@@ -2903,7 +2952,8 @@ def train_sharded_phase(dev, counters):
     runs.append({"run": "train_sharded c", "model": f"{mcfg.name}, {mcfg.n_layers} of "
                  f"{mfull.n_layers} layers", "params": n_params, "mesh": list(MIXTRAL_TRAIN_MESH),
                  "rules": "zero1, EP", "tokens": list(MIXTRAL_TRAIN_TOKENS), "metrics": got,
-                 "oracle_metrics": want[0], "m_rel": m_rel,
+                 "oracle_metrics": want[0], "metrics_rel": metrics_rel, "m_rel": m_rel,
+                 "from_first": from_first,
                  # zero where the oracle's is: above the noise, nonzero, of its nonzero
                  "m_zeros_where_oracle_nonzero": m_zero,
                  "modes": by_mode, "oracle_ms": orc["ms"], "oracle_peak_gib": orc["peak_gib"],
@@ -3686,6 +3736,86 @@ def train_phase(dev, kit, counters):
     print(f"train: phase_s {phase_s:.1f}", flush=True)
     runs[0]["train_phase_s"] = phase_s
     return runs
+
+
+def dryrun_cells(cells, out_dir) -> list:
+    """Step 19's child process: each cell of ``cells`` through
+    ``launch.dryrun.analyze_cell`` (the last one also ``--on-card`` when
+    its flag says so), with its seconds. Returns the results."""
+    from repro_torch.launch import dryrun as D
+
+    out = []
+    for arch, shape, multi_pod, variant, tag, on_card in cells:
+        t0 = time.perf_counter()
+        r = D.analyze_cell(arch, shape, multi_pod, force=True, variant=dict(variant) or None,
+                           tag=tag, out_dir=out_dir, on_card=on_card)
+        r["seconds"] = time.perf_counter() - t0
+        out.append(r)
+    return out
+
+
+def dryrun_phase(dev) -> tuple[list, int, dict]:
+    """Step 19: the dry run in a spawned process (the fake world is
+    process-global), ``DRYRUN_CELLS`` on meta and ``DRYRUN_CARD_CELL`` on
+    the card too. Returns (the records, K4 launches of the on-card run's
+    counted forward, and those launches by body)."""
+    import concurrent.futures
+    import multiprocessing
+
+    import torch
+
+    t_phase = time.perf_counter()
+    cells = [c[:5] + (False,) for c in DRYRUN_CELLS] + [DRYRUN_CARD_CELL[:5] + (True,)]
+    want = [c[5] for c in DRYRUN_CELLS] + [DRYRUN_CARD_CELL[5]]
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_dryrun-") as out_dir, \
+            concurrent.futures.ProcessPoolExecutor(
+                1, mp_context=multiprocessing.get_context("spawn")) as pool:
+        results = pool.submit(dryrun_cells, cells, out_dir).result()
+    runs = []
+    for (arch, shape, mp_, variant, tag, card), status, r in zip(cells, want, results):
+        cell = f"{arch} {shape} {'pod2' if mp_ else 'pod1'}{' ' + tag if tag else ''}"
+        require(r["status"] == status, f"dryrun {cell}: {r['status']} where {status} is "
+                f"expected: {r.get('error', '')[:300]}")
+        rec = {"run": f"dryrun {cell}{' on card' if card else ''}", "status": r["status"],
+               "seconds": r["seconds"]}
+        if status == "FAILED":
+            require("does not split" in r["error"], f"dryrun {cell}: {r['error'][:300]}")
+            rec["error"] = r["error"][:300]
+        else:
+            rec.update({k: r[k] for k in ("rank", "memory", "cost", "collectives", "roofline",
+                                          "trace_seconds")})
+            rf = r["roofline"]
+            require(all(rf[k] >= 0 and rf[k] < float("inf")
+                        for k in ("compute_s", "memory_s", "collective_s")),
+                    f"dryrun {cell}: roofline {rf}")
+        if card:
+            c = r["on_card"]
+            rec["on_card"] = c
+            rec["ms_median"] = statistics.median(c["ms"])
+            require(c["peak_rel_diff"] <= DRYRUN_PEAK_REL,
+                    f"dryrun {cell}: the meta trace's peak {c['meta_peak_bytes']} is "
+                    f"{c['peak_rel_diff']:.3g} off max_memory_allocated "
+                    f"{c['max_memory_allocated']}")
+            require(c["flops_equal"], f"dryrun {cell}: {c['flops']} FLOPs on the card, "
+                    f"{r['cost']['flops']} on meta")
+            require(c["k4_launches"] > 0, f"dryrun {cell}: the card's forward launched no K4")
+            require(sum(c["k4_bodies"].values()) == c["k4_launches"],
+                    f"dryrun {cell}: K4's bodies {c['k4_bodies']} do not sum to its "
+                    f"{c['k4_launches']} launches")
+            print(f"dryrun {cell}: {rec['ms_median']:.1f} ms on the card beside compute_s "
+                  f"{rf['compute_s'] * 1e3:.1f} ms and memory_s {rf['memory_s'] * 1e3:.1f} ms",
+                  flush=True)
+        emit(rec)
+        runs.append(rec)
+    if "all-to-all" not in results[1]["collectives"]:
+        require(False, f"dryrun: DeepSeek's EP prefill has no all-to-all: {results[1]}")
+    phase_s = time.perf_counter() - t_phase
+    print(f"dryrun: phase_s {phase_s:.1f}", flush=True)
+    if phase_s > DRYRUN_PHASE_S:
+        print(f"dryrun: the phase took {phase_s:.0f} s, past its {DRYRUN_PHASE_S} s", flush=True)
+    card_run = results[-1]["on_card"]
+    return runs, card_run["k4_launches"], card_run["k4_bodies"]
 
 
 def main() -> None:
@@ -4737,6 +4867,15 @@ def main() -> None:
         print(f"train_sharded: the phase took {time.perf_counter() - t18:.0f} s, past its "
               f"{TRAIN_SHARDED_PHASE_S} s", flush=True)
     phase("18")
+
+    # ---------------- 19. the dry run on meta, and one rank's share on the card
+    dry_runs, dry_k4, dry_bodies = dryrun_phase(dev)
+    runs.extend(dry_runs)
+    k4_rec["launches"] += dry_k4
+    k4_rec["launches_by_path"]["tinyllama-1.1b prefill_32k, rank 0's share (dry run)"] = dry_k4
+    for body, n in dry_bodies.items():
+        k4_rec["body_launches"][body] += n
+    phase("19")
 
     # --------------------------------------------------------------- report
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",

@@ -1,5 +1,5 @@
 """Architecture registry — one module per assigned arch + the shape grid,
-copied as data from the JAX package (``input_specs`` stays there)."""
+copied as data from the JAX package, and ``input_specs``."""
 
 from repro_torch.configs.base import (
     ModelConfig,
@@ -14,6 +14,7 @@ from repro_torch.configs.base import (
     get_config,
     get_smoke_config,
     cell_supported,
+    input_specs,
 )
 
 __all__ = [
@@ -29,4 +30,5 @@ __all__ = [
     "get_config",
     "get_smoke_config",
     "cell_supported",
+    "input_specs",
 ]

@@ -1,6 +1,7 @@
 """Config system: ModelConfig (architecture), ShapeConfig (workload) and
-the arch registry, copied as data from the JAX package. ``input_specs``
-(the dry-run's ShapeDtypeStruct builder) is not ported.
+the arch registry, copied as data from the JAX package, and
+``input_specs``, the dry run's stand-ins for a cell's inputs (empty
+tensors, on the meta device unless asked otherwise).
 """
 
 from __future__ import annotations
@@ -238,3 +239,34 @@ def get_config(arch: str) -> ModelConfig:
 def get_smoke_config(arch: str) -> ModelConfig:
     mod = importlib.import_module(f"repro_torch.configs.{_MOD[arch]}")
     return mod.SMOKE
+
+
+# ------------------------------------------------------------ input specs
+def input_specs(cfg: ModelConfig, shape: ShapeConfig, device="meta") -> dict:
+    """Empty tensors of the shapes and dtypes of every model input of the
+    cell (the JAX package's ``ShapeDtypeStruct`` stand-ins), on ``device``:
+    the meta device allocates nothing."""
+    import torch
+
+    B, S = shape.global_batch, shape.seq_len
+
+    def f(dims, dtype):
+        return torch.empty(dims, dtype=dtype, device=device)
+
+    if shape.kind in ("train", "prefill"):
+        specs = {}
+        if cfg.embeds_input:
+            # modality frontend stub: precomputed frame/patch embeddings
+            specs["embeds"] = f((B, S, cfg.d_model), torch.bfloat16)
+        else:
+            specs["tokens"] = f((B, S), torch.int32)
+        specs["labels"] = f((B, S), torch.int32)
+        if cfg.rope == "mrope":
+            specs["mrope_positions"] = f((3, B, S), torch.int32)
+        return specs
+    # decode: one new token against a seq_len KV cache
+    specs = {"embed": f((B, cfg.d_model), torch.bfloat16)} if cfg.embeds_input else \
+        {"token": f((B,), torch.int32)}
+    if cfg.rope == "mrope":
+        specs["mrope_positions"] = f((3, B, 1), torch.int32)
+    return specs

@@ -52,6 +52,9 @@ backwards (an equal-split all-to-all is its own adjoint; an all-gather's
 is the rank's block of the summed cotangents; a sum's is the same sum),
 on the ``mesh``'s carrier where one is given: the MoE layers' exchanges
 and sums in the sharded train step (``train.train_step``).
+``dragonfly_round_trip`` differentiates the fused round trip: its
+backward replays the same wave pipeline on the cotangent, each wave's
+compute the VJP of the forward's at that wave's arrivals.
 """
 
 from __future__ import annotations
@@ -387,11 +390,86 @@ def dragonfly_all_to_all_compute(x, group, layout: DeviceLayout,
 
     With an ``embedding``, ``layout`` is the guest and the round trip runs
     on the host group; idle ranks contribute nothing and their rows stay
-    zero."""
+    zero. ``dragonfly_round_trip`` is the same round trip under autograd."""
     be = _resolve_backend(backend)
     return be.alltoall_compute(
         x, group,
         alltoall_program(layout, embedding, pipelined=offset), compute)
+
+
+class _RoundTrip(torch.autograd.Function):
+    """The fused round trip under autograd. The forward runs the wave
+    pipeline (``run(x, compute)``) with ``fn(weights, arrivals)`` as each
+    wave's compute, no grad inside, and, where a gradient is wanted, saves
+    each wave's arrivals in call order (``save_for_backward``, so that a
+    non-reentrant checkpoint frees them and its recompute makes them
+    again; a forward without grad keeps none). The backward runs the same
+    pipeline on the cotangent: the compute of wave k becomes the VJP of
+    ``fn`` in its arrivals at wave k's saved arrivals (``fn`` run again
+    with grad), so each chunk's input cotangent goes back to its sender;
+    the weights' gradient, the sum over the waves on this rank, which owns
+    them, is one VJP of ``fn`` over every wave's arrivals and cotangents
+    stacked (``fn`` takes any stack of chunks), so it is rounded to the
+    weights' dtype once, as the unfused exchange's expert product rounds
+    it."""
+
+    @staticmethod
+    def forward(ctx, x, run, fn, *weights):
+        keep = any(ctx.needs_input_grad)
+        arrivals = []
+
+        def compute(h):
+            if keep:
+                arrivals.append(h)
+            return fn(weights, h)
+
+        out = run(x, compute)
+        ctx.run, ctx.fn, ctx.n_weights = run, fn, len(weights)
+        ctx.save_for_backward(*weights, *arrivals)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        saved = ctx.saved_tensors
+        weights, arrivals = saved[:ctx.n_weights], saved[ctx.n_weights:]
+        kept = iter(arrivals)
+        cotangents = []
+
+        def vjp(gh):
+            h = next(kept).detach().requires_grad_(True)
+            cotangents.append(gh)
+            with torch.enable_grad():
+                (gx,) = torch.autograd.grad(ctx.fn(weights, h), h, gh)
+            return gx
+
+        gx = ctx.run(g.contiguous(), vjp)
+        if next(kept, None) is not None:
+            raise AssertionError("the backward's pipeline ran fewer waves than the forward's")
+        wgrads = [None] * len(weights)
+        need = [i for i, w in enumerate(weights) if ctx.needs_input_grad[3 + i]]
+        if need:
+            ws = [w.detach().requires_grad_(i in need) for i, w in enumerate(weights)]
+            with torch.enable_grad():
+                y = ctx.fn(ws, torch.cat(arrivals))
+            for i, gw in zip(need, torch.autograd.grad(y, [ws[i] for i in need],
+                                                      torch.cat(cotangents))):
+                wgrads[i] = gw
+        return (gx, None, None, *wgrads)
+
+
+def dragonfly_round_trip(x, weights, fn, group, layout: DeviceLayout, backend, mesh=None):
+    """``dragonfly_all_to_all_compute`` with ``compute = fn(weights, ·)``
+    on ``backend`` (a fused one), differentiable in ``x`` and in
+    ``weights`` (``_RoundTrip``): out[j] = fn(weights of rank j, x[j]).
+    Without grad it gives the bits of ``dragonfly_all_to_all_compute``.
+    With a ``mesh`` the payload travels on its carrier both ways; ``fn``
+    takes and returns carrier tensors."""
+
+    def run(t, compute):
+        return _on_carrier(lambda c: dragonfly_all_to_all_compute(
+            c, group, layout, compute, backend=backend), t, mesh)
+
+    return _RoundTrip.apply(x, run, fn, *weights)
 
 
 def dragonfly_all_reduce(x, group, layout: DeviceLayout, backend=None,

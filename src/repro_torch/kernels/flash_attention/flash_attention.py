@@ -15,7 +15,11 @@ of q's head dim.
 Kernel: ``csrc/flash_attention.cu`` (a block per (batch·head, q tile) at a
 time, a loop over key tiles inside it; it says what bounds it on the H100).
 ``flash_attention`` takes the plain version for CPU tensors only; on a
-CUDA tensor it launches the kernel or raises. Which of the kernel's two
+CUDA tensor it launches the kernel or raises. On the card and on the
+meta device it runs as the op ``torch.ops.repro_torch.flash_attention``:
+the meta device (the dry run, ``launch.dryrun``) gets the output's shape
+and dtype, and ``FlopCounterMode`` counts the op by
+``flash_attention_flops``. Which of the kernel's two
 bodies runs is a rule on dtype (``body_for``), never the outcome of a
 build or a launch:
 
@@ -55,7 +59,9 @@ from __future__ import annotations
 
 import ctypes
 
+import numpy as np
 import torch
+from torch.utils.flop_counter import register_flop_formula
 
 from repro_torch.kernels import build
 
@@ -169,17 +175,19 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int | None = None,
     (v may be a strided view, as MLA's is).
     The body follows ``body_for``. Every launch adds one to
     ``flash_attention.launches`` and to its body's entry of
-    ``flash_attention.body_launches``."""
+    ``flash_attention.body_launches``. On the card and on the meta device
+    it runs as the ``torch.ops.repro_torch.flash_attention`` op
+    (``flash_attention_op``)."""
     if q.device.type == "cpu" and k.device.type == "cpu" and v.device.type == "cpu":
         return flash_attention_plain(q, k, v, causal=causal, window=window, scale=scale)
     _check(q, k, v, window)
-    B, Sq, Hq, D = q.shape
-    Sk, Hkv, Dv = k.shape[1], k.shape[2], v.shape[3]
+    D, Dv = q.shape[3], v.shape[3]
     if (D, Dv) not in HEAD_DIM_PAIRS:
         raise ValueError(f"flash_attention takes (head_dim, value head_dim) in "
                          f"{HEAD_DIM_PAIRS}, got {(D, Dv)}")
-    if q.device.type != "cuda" or k.device != q.device or v.device != q.device:
-        raise ValueError(f"flash_attention takes CPU or same-card CUDA tensors, got "
+    if (q.device.type not in ("cuda", "meta") or k.device != q.device
+            or v.device != q.device):
+        raise ValueError(f"flash_attention takes CPU, meta or same-card CUDA tensors, got "
                          f"{q.device}, {k.device} and {v.device}")
     refuse_grad(q, k, v)
     if q.dtype not in _DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
@@ -187,16 +195,30 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int | None = None,
                         f"got {q.dtype}, {k.dtype} and {v.dtype}")
     per16 = 16 // q.element_size()
     for t in (q, k, v):
-        if t.stride(3) != 1 or any(s % per16 for s in t.stride()[:3]) or t.data_ptr() % 16:
+        if (t.stride(3) != 1 or any(s % per16 for s in t.stride()[:3])
+                or (t.device.type == "cuda" and t.data_ptr() % 16)):
             raise ValueError("flash_attention takes operands whose rows are contiguous "
                              "and 16-byte aligned")
+    if scale is None:
+        scale = 1.0 / (D ** 0.5)
+    # positional, as the flop formula takes them
+    return torch.ops.repro_torch.flash_attention(q, k, v, causal, window, float(scale))
+
+
+@torch.library.custom_op("repro_torch::flash_attention", mutates_args=(), device_types="cuda")
+def flash_attention_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool,
+                       window: int | None, scale: float) -> torch.Tensor:
+    """The kernel's launch, as a torch op: the card runs this, the meta
+    device its fake (``_flash_attention_fake``), and ``FlopCounterMode``
+    counts it by ``flash_attention_flops``. ``flash_attention`` checks the
+    operands first."""
+    B, Sq, Hq, D = q.shape
+    Sk, Hkv, Dv = k.shape[1], k.shape[2], v.shape[3]
     out = torch.empty((B, Sq, Hq, Dv), dtype=q.dtype, device=q.device)
     if out.numel() == 0:
         return out
     if Sk == 0:
         return out.zero_()
-    if scale is None:
-        scale = 1.0 / (D ** 0.5)
     body = body_for(q.dtype)
     lib = build.load("flash_attention")
     with torch.cuda.device(q.device):
@@ -210,6 +232,31 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int | None = None,
     flash_attention.launches += 1
     flash_attention.body_launches[body] += 1
     return out
+
+
+@flash_attention_op.register_fake
+def _flash_attention_fake(q, k, v, causal, window, scale):
+    return q.new_empty((*q.shape[:3], v.shape[3]))
+
+
+def key_pairs(Sq: int, Sk: int, causal: bool, window: int | None) -> int:
+    """The (query, key) pairs the mask lets through, counted exactly: query
+    i and key j (both from position 0) with j <= i where causal and
+    i - j < window where a window is given."""
+    i = np.arange(Sq, dtype=np.int64)
+    hi = np.minimum(i, Sk - 1) if causal else np.full(Sq, Sk - 1)
+    lo = np.maximum(0, i - window + 1) if window is not None else np.zeros(Sq, np.int64)
+    return int(np.clip(hi - lo + 1, 0, None).sum())
+
+
+@register_flop_formula(torch.ops.repro_torch.flash_attention)
+def flash_attention_flops(q_shape, k_shape, v_shape, causal, window, scale, *args,
+                          out_shape=None, **kwargs) -> int:
+    """The work PERF.md's K4 bounds count: 2·D for the score and 2·Dv for
+    the value product of every visible key pair and query head (4·D where
+    Dv = D)."""
+    B, Sq, Hq, D = q_shape
+    return B * Hq * key_pairs(Sq, k_shape[1], causal, window) * (2 * D + 2 * v_shape[3])
 
 
 flash_attention.launches = 0

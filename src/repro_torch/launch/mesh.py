@@ -54,13 +54,14 @@ def dragonfly_runtime_backend(name: str = "torch_dist", *, overlap: bool = False
 
 
 def rank_device(rank: int, device: str = "cuda") -> torch.device:
-    """Where rank ``rank``'s tensors live: the CPU, or card
+    """Where rank ``rank``'s tensors live: the CPU, the meta device (shapes
+    and dtypes only, for the dry run's fake world), or card
     ``rank % torch.cuda.device_count()``. Raises where there is no card."""
     kind = torch.device(device).type
-    if kind == "cpu":
-        return torch.device("cpu")
+    if kind in ("cpu", "meta"):
+        return torch.device(kind)
     if kind != "cuda":
-        raise ValueError(f"dragonfly groups run on 'cuda' or 'cpu', not {device!r}")
+        raise ValueError(f"dragonfly groups run on 'cuda', 'cpu' or 'meta', not {device!r}")
     if not torch.cuda.is_available():
         raise RuntimeError("a dragonfly group on the card needs a CUDA card and found none; "
                            "pass device='cpu' for gloo ranks on the CPU")
@@ -122,11 +123,13 @@ def spawn(fn, n: int, *, device: str = "cuda", args=()) -> list:
 # ------------------------------------------------------------ process meshes
 def carrier_device(transport: str, device: torch.device) -> torch.device:
     """Where a group of this transport carries tensors between ranks: gloo
-    carries host tensors point to point, NCCL the rank's card. A rule on
-    the transport, never a choice made by a failed call."""
+    carries host tensors point to point, NCCL the rank's card, and torch's
+    fake process group (``launch.dryrun``) carries nothing, so the carrier
+    is the rank's own device. A rule on the transport, never a choice made
+    by a failed call."""
     if transport == "gloo":
         return torch.device("cpu")
-    if transport == "nccl":
+    if transport in ("nccl", "fake"):
         return device
     raise ValueError(f"no carrier rule for the {transport!r} transport")
 
@@ -215,12 +218,19 @@ def make_mesh(shape, axes, *, device: str = "cuda") -> ProcessMesh:
     return mesh
 
 
+def production_layout(multi_pod: bool = False) -> tuple[tuple[int, ...], tuple[str, ...]]:
+    """(shape, axes) of a production mesh: (16, 16) over ("data", "model"),
+    or (2, 16, 16) over ("pod", "data", "model")."""
+    if multi_pod:
+        return (2, 16, 16), ("pod", "data", "model")
+    return (16, 16), ("data", "model")
+
+
 def make_production_mesh(*, multi_pod: bool = False, device: str = "cuda") -> ProcessMesh:
-    """The production meshes: (16, 16) over ("data", "model"), 256 ranks,
-    or (2, 16, 16) over ("pod", "data", "model"), 512 ranks. Raises, naming
-    the size it needs, in a world of any other size."""
-    shape = (2, 16, 16) if multi_pod else (16, 16)
-    axes = ("pod", "data", "model") if multi_pod else ("data", "model")
+    """The production meshes (``production_layout``): 256 ranks, or 512
+    with the pod axis. Raises, naming the size it needs, in a world of any
+    other size."""
+    shape, axes = production_layout(multi_pod)
     need = math.prod(shape)
     have = dist.get_world_size() if dist.is_initialized() else 0
     if have != need:

@@ -43,15 +43,15 @@ one-process counterpart. ``moe_apply_auto`` takes EP or TP as the
 reference's launcher does.
 
 Under autograd (the sharded train step, ``train.train_step.
-make_sharded_train_step``) ``moe_apply_ep`` in the ``xla``, ``dragonfly``
-and ``dragonfly_overlap`` modes and ``moe_apply_tp`` have a backward:
-every collective on their forward (the dispatch and combine exchanges,
-the output all-gather, the aux sums, TP's partial sum) is one of
-``dist.collectives``' differentiable collectives, whose backward is its
-SPMD transpose on the mesh's carrier; without grad they give the bits
-they gave before. ``dragonfly_overlap_fused``, named or picked by
-``auto``, raises under autograd: its backward would re-run the wave
-pipeline (ROADMAP Queue 1, item 5's refusals).
+make_sharded_train_step``) ``moe_apply_ep`` in every mode and
+``moe_apply_tp`` have a backward: every collective on their forward (the
+dispatch and combine exchanges, the output all-gather, the aux sums, TP's
+partial sum) is one of ``dist.collectives``' differentiable collectives,
+whose backward is its SPMD transpose on the mesh's carrier; the fused
+mode's round trip (``dist.collectives.dragonfly_round_trip``) replays its
+wave pipeline on the cotangent, each wave's expert FFN differentiated at
+that wave's arrivals, so its weight gradients differ from ``dragonfly``'s
+by float order only. Without grad they give the bits they gave before.
 
 The guest-embedded helpers (``moe_guest_dispatch``, ``moe_guest_combine``,
 ``guest_expert_ffn``) serve the multi-tenant fleet (``serve.fleet``): the
@@ -355,14 +355,6 @@ def local_experts(params, cfg, rules, coords, sizes):
             if key in EXPERT_FF_DIM else w for key, w in params.items()}
 
 
-def _recording(x, params) -> bool:
-    """Whether autograd records this call: grad on, and the input or a
-    weight requires it."""
-    return torch.is_grad_enabled() and (
-        x.requires_grad or any(isinstance(w, torch.Tensor) and w.requires_grad
-                               for w in params.values()))
-
-
 def ep_auto_mode(cfg, T_loc: int, dtype, mesh, group) -> str:
     """The fixed mode the autotuner picks for ``moe_apply_ep``'s exchanges:
     the dispatch/combine all-to-all over the model axis' D3 view, keyed on
@@ -409,7 +401,7 @@ def moe_apply_ep(params, x, cfg):
     ``moe_collectives="auto"`` resolves to a fixed mode first
     (``ep_auto_mode``), on every rank of the mesh together."""
     from repro_torch.dist.collectives import (all_gather, all_reduce_sum, dragonfly_all_to_all,
-                                              dragonfly_all_to_all_compute, native_all_to_all)
+                                              dragonfly_round_trip, native_all_to_all)
     from repro_torch.dist.mesh import dragonfly_layout
     from repro_torch.runtime.backends.torch_dist import TorchDistBackend
 
@@ -442,11 +434,6 @@ def moe_apply_ep(params, x, cfg):
     layout = dragonfly_layout(n_model)
     if mode == "auto":
         mode = ep_auto_mode(cfg, T_loc, x.dtype, mesh, group)
-    if mode == "dragonfly_overlap_fused" and _recording(x, params):
-        raise RuntimeError(
-            "moe_collectives='dragonfly_overlap_fused' (named here or picked by 'auto') has no "
-            "backward in the port: its backward would re-run the wave pipeline (ROADMAP Queue 1, "
-            "item 5's refusals). Train with 'xla', 'dragonfly' or 'dragonfly_overlap'")
     with record_function("moe.dispatch"):
         r = _route(xt, params["router"], cfg, C)
         if _ROUTES is not None:
@@ -455,19 +442,20 @@ def moe_apply_ep(params, x, cfg):
     ffn = _Timer(x.device, events=True)
     exchange = _Timer(x.device)
     if mode == "dragonfly_overlap_fused":
-        def expert_chunk(chunks):
+        def expert_chunk(weights, chunks):
             # one wave's (V, E_loc, C, d) arrivals, on the carrier: to the
             # device once, the same gated FFN, and back
             h = mesh.from_carrier(chunks)
             V = h.shape[0]
             with ffn, record_function("moe.experts"):
-                y = _expert_ffn(experts, h.transpose(0, 1).reshape(E_loc, V * C, d))
+                y = _expert_ffn(dict(zip(EXPERT_FF_DIM, weights)),
+                                h.transpose(0, 1).reshape(E_loc, V * C, d))
             return mesh.to_carrier(y.reshape(E_loc, V, C, d).transpose(0, 1))
 
         with exchange, record_function("moe.exchange"):
-            back = mesh.from_carrier(dragonfly_all_to_all_compute(
-                mesh.to_carrier(buf), group, layout, expert_chunk,
-                backend=TorchDistBackend(overlap_fused=True)))
+            back = dragonfly_round_trip(buf, [experts[k] for k in EXPERT_FF_DIM], expert_chunk,
+                                        group, layout, TorchDistBackend(overlap_fused=True),
+                                        mesh=mesh)
         exchange.ms -= ffn.ms
     else:
         if mode == "xla":

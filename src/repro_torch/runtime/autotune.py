@@ -948,12 +948,15 @@ _DEFAULT: Autotuner | None = None
 
 def get_autotuner(device=None) -> Autotuner:
     """The process-wide tuner, made on first use on ``device`` (the card by
-    default). Asked for another type of device than it measures on, it
-    raises: install one with ``set_autotuner``."""
+    default). Asked for another type of device than it measures on, a
+    measuring tuner raises (install one with ``set_autotuner``); one that
+    measures nothing (analytic, off or forced) answers for any device, the
+    dry run's meta device included."""
     global _DEFAULT
     if _DEFAULT is None:
         _DEFAULT = Autotuner(device="cuda" if device is None else device)
-    elif device is not None and torch.device(device).type != _DEFAULT.device.type:
+    elif (device is not None and torch.device(device).type != _DEFAULT.device.type
+          and _DEFAULT.mode == "measure" and _DEFAULT.force is None):
         raise ValueError(f"the process-wide autotuner measures on {_DEFAULT.device}, not "
                          f"{torch.device(device)}: install one with set_autotuner")
     return _DEFAULT

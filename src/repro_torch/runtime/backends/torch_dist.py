@@ -52,8 +52,9 @@ from repro_torch.runtime.program import (
     check_kind as _check_kind,
 )
 
-#: device types each torch.distributed transport carries for send and recv.
-_CARRIES = {"gloo": ("cpu",), "nccl": ("cuda",)}
+#: device types each torch.distributed transport carries for send and recv
+#: (torch's fake process group, which the dry run traces on, moves nothing)
+_CARRIES = {"gloo": ("cpu",), "nccl": ("cuda",), "fake": ("cpu", "cuda", "meta")}
 
 
 def check_transport(t: torch.Tensor, group) -> None:
@@ -89,7 +90,19 @@ def _issue(send: torch.Tensor, pairs, group, rank: int, tag: int):
             ops.append(dist.P2POp(dist.irecv, recv, global_rank(group, s), group, tag))
     if recv is None:
         recv = torch.zeros_like(send)
-    return (dist.batch_isend_irecv(ops) if ops else []), recv
+    return _start(ops, group), recv
+
+
+def _start(ops, group) -> list:
+    """Start one stage's sends and receives. The fake process group has no
+    backend for the meta device, where ``batch_isend_irecv`` looks one up,
+    so there each op starts on its own: what ``batch_isend_irecv`` itself
+    does for a transport that does not coalesce (gloo)."""
+    if not ops:
+        return []
+    if str(dist.get_backend(group)) == "fake":
+        return [op.op(op.tensor, op.peer, op.group, op.tag) for op in ops]
+    return dist.batch_isend_irecv(ops)
 
 
 def _wait(works) -> None:

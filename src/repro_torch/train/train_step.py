@@ -8,7 +8,8 @@ microbatches run one after another and their float32 gradients are
 summed (the JAX package's ``lax.scan``), and the loss is the mean over
 the microbatches. The step runs under the profiler labels
 ``train.forward``, ``train.backward`` and ``train.optimizer``. Not
-ported: ``unroll`` (XLA cost analysis, for the dry run).
+ported: ``unroll`` (XLA cost analysis; the port's dry run,
+``launch.dryrun``, counts every layer as it runs).
 
 **Shardings.** ``train_shardings(cfg, rules, opt_cfg, settings)`` gives
 ``(param_specs, opt_specs, batch_specs, None)`` as the reference does, in
@@ -67,14 +68,16 @@ The design is simple and right first:
   metrics are the global ones, the same on every rank;
 * microbatches run one after another: microbatch i is the reference's,
   rows block i of the global batch, of which each rank takes its data
-  shard (the batch is all-gathered over the data axes first, tokens only);
+  shard (the batch is all-gathered over the data axes first, tokens only;
+  a microbatch with fewer rows than data coordinates gives each row to an
+  equal run of them);
 * a ``None`` gradient is zeros only for the ``embed`` table when the
   batch holds ``embeds``; any other raises.
 
 It refuses ``compress_grads`` (the reference's 256-value blocks span a
-whole stacked leaf and do not align with shards) and, through
-``models.moe``, the ``dragonfly_overlap_fused`` exchange under autograd
-(ROADMAP Queue 1, item 5's refusals). Collectives of a group raise after
+whole stacked leaf and do not align with shards; ROADMAP Queue 1, item
+5's refusals). Every MoE exchange mode trains, the fused one through
+``dist.collectives.dragonfly_round_trip``. Collectives of a group raise after
 ``launch.mesh.GROUP_TIMEOUT_S``. It launches none of K1–K5: the plain
 attention (``use_kernel=False``), and the gradient sums are
 ``torch.distributed`` on the axis groups, on the mesh's carrier.
@@ -539,7 +542,10 @@ def _missing_grad(path, batch, leaf):
 def _batch_rows(batch, bspecs, mesh, mb_n: int):
     """The rank's rows of each microbatch: microbatch i is rows block i of
     the global batch (the reference's split), cut as ``bspecs`` cuts a
-    batch. With one microbatch, the rank's own rows."""
+    batch. With one microbatch, the rank's own rows. A microbatch with
+    fewer rows than the batch axes have coordinates (16 rows over pod·data
+    = 32) gives each row to that many coordinates in turn: every row
+    counts equally often, so the mean loss is the global one."""
     if mb_n == 1:
         return [batch]
     whole = {}
@@ -550,7 +556,32 @@ def _batch_rows(batch, bspecs, mesh, mb_n: int):
             if mesh.sizes[a] > 1:
                 x = CL.all_gather(x.movedim(dim, 0), mesh.group(a), mesh=mesh).movedim(0, dim)
         whole[key] = x
-    return [shard_batch(mb, bspecs, mesh) for mb in split_microbatches(whole, mb_n)]
+    return [_microbatch_rows(mb, bspecs, mesh) for mb in split_microbatches(whole, mb_n)]
+
+
+def _microbatch_rows(mb, bspecs, mesh):
+    """The rank's rows of one whole microbatch: ``shard_batch`` where its
+    rows split over the batch axes, else (fewer rows than coordinates, a
+    whole number of coordinates a row) row ``b // (n / rows)`` of batch
+    coordinate b of n."""
+    out = {}
+    for key, x in mb.items():
+        dim = 1 if key == "mrope_positions" else 0
+        axes = SH.spec_axes(_entry(bspecs[key], dim))
+        n = math.prod(mesh.sizes[a] for a in axes)
+        rows = x.shape[dim]
+        if rows % n == 0:
+            out[key] = shard_batch({key: x}, bspecs, mesh)[key]
+            continue
+        if n % rows:
+            raise ValueError(f"a microbatch of {rows} rows neither splits over nor repeats "
+                             f"evenly on the batch axes {axes} ({n})")
+        b = 0
+        for a in axes:
+            b = b * mesh.sizes[a] + mesh.coords[a]
+        row = b // (n // rows)
+        out[key] = x.narrow(dim, row, 1).to(mesh.device)
+    return out
 
 
 def _global_metrics(metrics, rules, mesh):

@@ -346,9 +346,10 @@ def test_make_dragonfly_group_on_the_card_raises_without_one(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA card"):
         mesh.make_dragonfly_group(0, 8, init_method="file:///nonexistent")
-    with pytest.raises(ValueError, match="'cuda' or 'cpu'"):
-        mesh.rank_device(0, "meta")
+    with pytest.raises(ValueError, match="'cuda', 'cpu' or 'meta'"):
+        mesh.rank_device(0, "xpu")
     assert mesh.rank_device(3, "cpu") == torch.device("cpu")
+    assert mesh.rank_device(3, "meta") == torch.device("meta")  # the dry run's fake world
 
 
 def test_runtime_backend_and_registry():

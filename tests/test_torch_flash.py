@@ -118,10 +118,14 @@ def test_flash_head_dim_96_matches_pallas(dtype):
 
 
 def test_wrapper_refuses_devices_without_a_kernel():
-    """No silent fallback: only CPU tensors take the plain version."""
+    """No silent fallback: only CPU tensors take the plain version; the
+    meta device takes the kernel's op (its fake: shapes only), and
+    operands on two devices are refused."""
     x = torch.empty((2, 64, 4, 64), device="meta")
+    out = flash_attention(x, x, x)
+    assert out.is_meta and out.shape == x.shape
     with pytest.raises(ValueError, match="CUDA"):
-        flash_attention(x, x, x)
+        flash_attention(x, x, torch.empty((2, 64, 4, 64)))
     with pytest.raises(ValueError, match="impl"):
         t_ops.gqa_attention_impl(x, x, x, impl="xla")
 

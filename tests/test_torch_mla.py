@@ -155,9 +155,9 @@ def test_wrapper_refuses_unsupported_head_dim_pairs(d, dv):
     v = torch.empty((1, 64, 2, dv), device="meta")
     with pytest.raises(ValueError, match="head_dim"):
         flash_attention(q, q, v)
-    x = torch.empty((1, 64, 2, 64), device="meta")  # a pair it takes: the device is refused
+    x = torch.empty((1, 64, 2, 64), device="meta")  # a pair it takes: two devices are refused
     with pytest.raises(ValueError, match="CUDA"):
-        flash_attention(x, x, x)
+        flash_attention(x, x, torch.empty((1, 64, 2, 64)))
 
 
 # ------------------------------------------------------------- the model

@@ -21,17 +21,21 @@ times at once on ``JAX_PARTS``; the first writes the initial parameters
 and the tokens first, which the ranks wait for.
 
 Cases (``CASES``): TinyLlama smoke at (2, 4) with FSDP, with ZeRO-1 and
-with neither, and at (4, 2) with two microbatches; Mixtral smoke at (2, 4)
+with neither, and at (4, 2) with two microbatches, of 4 rows and of 2
+(each row then on two data coordinates); Mixtral smoke at (2, 4)
 under EP (FSDP, so each data coordinate holds one whole layer, experts
 included) in ``xla``, ``dragonfly`` and ``dragonfly_overlap``, and at
-(1, 8) under TP (4 experts do not split over 8); DeepSeek smoke at (2, 4)
+(1, 8) under TP (4 experts do not split over 8); the same EP case in
+``dragonfly_overlap_fused`` (its round trip differentiated wave by wave)
+and in ``auto`` with the ranks' tuner forced to that mode; DeepSeek smoke at (2, 4)
 (MLA, the shared expert, the dense prefix, the MTP block); Jamba smoke at
 (2, 4) (Mamba's ``_SelectiveScan`` under the step); and the factored
 optimizer on TinyLlama smoke widened to d 128 and d_ff 256, so that
 ``_factorable`` holds on leaves whose last or second-to-last dim is
 sharded (``wq``, the MLP, the embedding). The JAX side runs the EP cases'
-``xla`` mode only: its three exchange-only modes are bit-identical
-(``tests/test_torch_moe_ep.py``).
+``xla`` mode and its fused mode: its three exchange-only modes are
+bit-identical (``tests/test_torch_moe_ep.py``), and ``auto`` forced to the
+fused mode runs the fused mode.
 
 Tolerances: every leaf of the gathered parameters and optimizer state
 within ``MODEL_TOL`` (1e-4, ||Δ|| relative to the leaf's norm) of the
@@ -40,8 +44,10 @@ reference's after two steps, ``loss`` and ``grad_norm`` within
 one-process step (whose MoE layers are ``moe_apply_ep_plain`` or
 ``moe_apply_tp_plain`` at the case's mesh), where the routes and drops of
 step 1 are exact. The ranks also hold the differentiable collectives'
-adjoints (float64, ``ADJOINT_TOL``), three planted faults that must fail
-the comparison and the refusals.
+adjoints (float64, ``ADJOINT_TOL``), the fused round trip's among them,
+what that round trip saves for its backward, its layer's gradients
+against ``dragonfly``'s, three planted faults
+that must fail the comparison and the refusal of ``compress_grads``.
 """
 
 import dataclasses
@@ -53,6 +59,7 @@ import sys
 import numpy as np
 import pytest
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs import get_smoke_config
 from repro_torch.dist import collectives as CL
@@ -81,20 +88,28 @@ CASES = {
     "tiny_zero1": ("tinyllama-1.1b", (2, 4), {"zero1": True}, 1, 4, False),
     "tiny_plain": ("tinyllama-1.1b", (2, 4), {}, 1, 4, False),
     "tiny_mb": ("tinyllama-1.1b", (4, 2), {}, 2, 8, False),
+    "tiny_mb_rows": ("tinyllama-1.1b", (4, 2), {}, 2, 4, False),  # 2 rows a microbatch, 4 shards
     "mix_xla": ("mixtral-8x7b", (2, 4), {"fsdp": True, "moe_collectives": "xla"}, 1, 4, False),
     "mix_dragonfly": ("mixtral-8x7b", (2, 4), {"fsdp": True, "moe_collectives": "dragonfly"},
                       1, 4, False),
     "mix_overlap": ("mixtral-8x7b", (2, 4),
                     {"fsdp": True, "moe_collectives": "dragonfly_overlap"}, 1, 4, False),
+    "mix_fused": ("mixtral-8x7b", (2, 4),
+                  {"fsdp": True, "moe_collectives": "dragonfly_overlap_fused"}, 1, 4, False),
+    "mix_auto": ("mixtral-8x7b", (2, 4), {"fsdp": True, "moe_collectives": "auto"}, 1, 4, False),
     "mix_tp": ("mixtral-8x7b", (1, 8), {}, 1, 4, False),
     "deepseek": ("deepseek-v3-671b", (2, 4), {"fsdp": True}, 1, 4, False),
     "jamba": ("jamba-1.5-large-398b", (2, 4), {"fsdp": True}, 1, 4, False),
     "factored": ("tinyllama-1.1b", (2, 4), {"fsdp": True}, 1, 4, True),
 }
-#: the EP cases whose reference is the ``xla`` mode's
-SAME_AS = {"mix_dragonfly": "mix_xla", "mix_overlap": "mix_xla"}
+#: the EP cases whose reference is another case's: the exchange-only modes
+#: the ``xla`` mode's, ``auto`` (forced to the fused mode: ``AUTO_FORCE``)
+#: the fused mode's
+SAME_AS = {"mix_dragonfly": "mix_xla", "mix_overlap": "mix_xla", "mix_auto": "mix_fused"}
+#: the strategy the ranks' autotuner is forced to in the ``auto`` case
+AUTO_FORCE = "overlap_fused"
 #: the JAX side's three subprocesses: (writes the weights, the cases it runs)
-JAX_PARTS = ((True, ("jamba", "tiny_mb")), (False, ("deepseek", "mix_xla", "mix_tp")),
+JAX_PARTS = ((True, ("jamba", "tiny_mb", "mix_fused", "tiny_mb_rows")), (False, ("deepseek", "mix_xla", "mix_tp")),
              (False, ("tiny_fsdp", "tiny_zero1", "tiny_plain", "factored")))
 WIDE = {"d_model": 128, "d_ff": 256}  # the factored case's widths
 
@@ -144,6 +159,17 @@ def _setup(name, flat):
 
 
 def run_case(name, flat, rank, steps=STEPS):
+    from repro_torch.runtime import autotune
+
+    if CASES[name][2].get("moe_collectives") == "auto":
+        autotune.set_autotuner(autotune.Autotuner(force=AUTO_FORCE, device="cpu"))
+    try:
+        return _run_case(name, flat, rank, steps)
+    finally:
+        autotune.set_autotuner(None)
+
+
+def _run_case(name, flat, rank, steps):
     cfg, mesh, oc, settings, specs, p, s, batch = _setup(name, flat)
     step = TS.make_sharded_train_step(cfg, oc, settings)
     metrics, routes = [], None
@@ -190,7 +216,91 @@ def adjoints(rank):
         y = torch.randn(ax.shape, generator=gen, dtype=torch.float64)
         (aty,) = torch.autograd.grad(ax, x, y)
         out[op] = (float((ax * y).sum()), float((x * aty).sum()))
+    # the fused round trip with a chunk transform linear in x and in the
+    # rank's weights w: <RT(x; w), y> = <x, d/dx> = <w, d/dw>
+    x = torch.randn((4, 3, 5), generator=gen, dtype=torch.float64).requires_grad_(True)
+    w = torch.randn((5, 5), generator=gen, dtype=torch.float64).requires_grad_(True)
+    rt = CL.dragonfly_round_trip(x, [w], lambda ws, h: h @ ws[0], group, layout,
+                                 TorchDistBackend(overlap_fused=True), mesh=mesh)
+    y = torch.randn(rt.shape, generator=gen, dtype=torch.float64)
+    gx, gw = torch.autograd.grad(rt, (x, w), y)
+    out["dragonfly_round_trip"] = (float((rt * y).sum()), float((x * gx).sum()))
+    out["dragonfly_round_trip_weights"] = (float((rt * y).sum()), float((w * gw).sum()))
     return out
+
+
+def round_trip_saves(rank):
+    """What the fused round trip saves for its backward, through the
+    saved-tensor hooks that a non-reentrant checkpoint uses: the number of
+    tensors packed against 1 weight plus the number of waves that ran
+    ``fn``, with grad and under ``no_grad``; and whether the gradients
+    under ``checkpoint`` (arrivals freed, then made again by the
+    recompute) are the plain backward's bits."""
+    mesh = LM.make_mesh((2, 4), ("data", "model"), device="cpu")
+    group, layout = mesh.group("model"), dragonfly_layout(4)
+    gen = torch.Generator().manual_seed(200 + rank)
+    x = torch.randn((4, 3, 5), generator=gen, dtype=torch.float64).requires_grad_(True)
+    w = torch.randn((5, 5), generator=gen, dtype=torch.float64).requires_grad_(True)
+    y = torch.randn((4, 3, 5), generator=gen, dtype=torch.float64)
+    waves = []
+
+    def fn(ws, h):
+        waves.append(h.shape[0])
+        return torch.tanh(h @ ws[0])
+
+    def rt(x, w):
+        return CL.dragonfly_round_trip(x, [w], fn, group, layout,
+                                       TorchDistBackend(overlap_fused=True), mesh=mesh)
+
+    packed = []
+
+    def pack(t):
+        packed.append(tuple(t.shape))
+        return t
+
+    out = {}
+    for grad in (True, False):
+        packed.clear()
+        waves.clear()
+        with torch.set_grad_enabled(grad), \
+                torch.autograd.graph.saved_tensors_hooks(pack, lambda t: t):
+            rt(x, w)
+        out["with_grad" if grad else "no_grad"] = {"packed": len(packed),
+                                                   "waves": len(waves)}
+    plain = torch.autograd.grad((rt(x, w) * y).sum(), (x, w))
+    remat = torch.autograd.grad((checkpoint(rt, x, w, use_reentrant=False) * y).sum(), (x, w))
+    out["checkpoint_same_grads"] = all(torch.equal(a, b) for a, b in zip(plain, remat))
+    return out
+
+
+def fused_layer_grads(rank):
+    """Mixtral smoke's MoE layer on (2, 4) in float64 under
+    ``dragonfly`` and ``dragonfly_overlap_fused``: each gradient's
+    ||Δ|| / ||dragonfly's|| (the input, the router, the three expert
+    stacks) and whether the outputs agree bit for bit."""
+    from repro_torch.models import model as M
+
+    cfg = get_smoke_config("mixtral-8x7b")
+    mesh = LM.make_mesh((2, 4), ("data", "model"), device="cpu")
+    ffn = M.init_params(torch.Generator().manual_seed(0), cfg, device="cpu")["stack"][0]["ffn"]
+    ffn = {k: v.double() for k, v in ffn.items()}
+    gen = torch.Generator().manual_seed(1 + mesh.coords["data"])
+    x0 = torch.randn((2, 16, cfg.d_model), generator=gen, dtype=torch.float64)
+    probe = torch.randn((2, 16, cfg.d_model), generator=torch.Generator().manual_seed(5),
+                        dtype=torch.float64)
+    got = {}
+    for mode in ("dragonfly", "dragonfly_overlap_fused"):
+        SH.set_active(SH.ShardRules(moe_collectives=mode), mesh)
+        leaves = {k: v.clone().requires_grad_(True) for k, v in ffn.items()}
+        x = x0.clone().requires_grad_(True)
+        y, aux = TMOE.moe_apply_ep(leaves, x, cfg)
+        grads = torch.autograd.grad((y * probe).sum() + aux, [x, *leaves.values()])
+        got[mode] = (y.detach(), dict(zip(["x", *leaves], grads)))
+    SH.clear_active()
+    (y_d, g_d), (y_f, g_f) = got["dragonfly"], got["dragonfly_overlap_fused"]
+    return {"same_output": bool(torch.equal(y_d, y_f)),
+            "rel": {k: float((g_f[k] - g).norm() / g.norm().clamp(min=1e-300))
+                    for k, g in g_d.items()}}
 
 
 def planted(name, flat, rank, fault):
@@ -228,14 +338,10 @@ def planted(name, flat, rank, fault):
             setattr(module, attr, value)
 
 
-def refusal(name, flat, rank, what):
-    """The step asked for a refused mode or setting: the error it raises."""
-    arch, shape, kw, mb, _, _ = CASES[name]
+def refusal(name, flat, rank):
+    """The step asked for ``compress_grads``: the error it raises."""
     cfg, mesh, oc, settings, specs, p, s, batch = _setup(name, flat)
-    if what == "fused":
-        SH.set_active(SH.ShardRules(**dict(kw, moe_collectives="dragonfly_overlap_fused")), mesh)
-    else:
-        settings = dataclasses.replace(settings, compress_grads=True)
+    settings = dataclasses.replace(settings, compress_grads=True)
     try:
         TS.make_sharded_train_step(cfg, oc, settings)(p, s, batch)
         return None
@@ -255,9 +361,10 @@ def run_rank(rank, group, layout, params_path):
         flat = dict(f)
     out = {"cases": {name: run_case(name, flat, rank) for name in CASES}}
     out["adjoints"] = adjoints(rank)
+    out["fused_layer"] = fused_layer_grads(rank)
+    out["round_trip_saves"] = round_trip_saves(rank)
     out["faults"] = {fault: planted(name, flat, rank, fault) for fault, name in FAULTS.items()}
-    out["refusals"] = {"fused": refusal("mix_xla", flat, rank, "fused"),
-                       "compress": refusal("tiny_fsdp", flat, rank, "compress")}
+    out["refusals"] = {"compress": refusal("tiny_fsdp", flat, rank)}
     return out
 
 
@@ -509,9 +616,11 @@ def test_fsdp_places_whole_layers_on_their_holder(runs):
 
 
 @pytest.mark.parametrize("op", ["native_all_to_all", "dragonfly_all_to_all",
-                                "dragonfly_all_to_all_overlap", "all_gather", "all_reduce_sum"])
+                                "dragonfly_all_to_all_overlap", "all_gather", "all_reduce_sum",
+                                "dragonfly_round_trip", "dragonfly_round_trip_weights"])
 def test_collective_adjoints(runs, op):
-    """<A x, y> = <x, Aᵀ y> summed over the 8 ranks, in float64."""
+    """<A x, y> = <x, Aᵀ y> summed over the 8 ranks, in float64; for the
+    fused round trip, linear in x and in the weights, against both."""
     ranks, _, _ = runs
     lhs = sum(r["adjoints"][op][0] for r in ranks)
     rhs = sum(r["adjoints"][op][1] for r in ranks)
@@ -560,11 +669,29 @@ def test_a_missing_gradient_raises(runs):
         assert err.startswith("RuntimeError: no gradient reached stack/0/ffn/w_"), err
 
 
-def test_refuses_the_fused_mode_under_autograd(runs):
+@pytest.mark.parametrize("what", ["x", "router", "w_in", "w_gate", "w_out"])
+def test_fused_gradients_are_dragonflys(runs, what):
+    """The fused mode's MoE layer in float64: the same output bits as
+    ``dragonfly``, and each gradient within ADJOINT_TOL of its (the expert
+    stacks' summed over the waves: float order only), on every rank."""
     ranks, _, _ = runs
     for r in ranks:
-        assert r["refusals"]["fused"].startswith("RuntimeError: moe_collectives="
-                                                 "'dragonfly_overlap_fused'"), r["refusals"]
+        assert r["fused_layer"]["same_output"]
+        assert r["fused_layer"]["rel"][what] <= ADJOINT_TOL, r["fused_layer"]
+
+
+def test_round_trip_saves_its_arrivals_for_checkpoint(runs):
+    """With grad the fused round trip saves its weight and each wave's
+    arrivals through the saved-tensor hooks, so a non-reentrant checkpoint
+    frees them and its recompute makes them again (the gradients keep
+    their bits); without grad it saves nothing."""
+    ranks, _, _ = runs
+    for r in ranks:
+        got = r["round_trip_saves"]
+        assert got["with_grad"]["waves"] >= 2, got
+        assert got["with_grad"]["packed"] == 1 + got["with_grad"]["waves"], got
+        assert got["no_grad"] == {"packed": 0, "waves": got["with_grad"]["waves"]}, got
+        assert got["checkpoint_same_grads"], got
 
 
 def test_refuses_compress_grads(runs):
