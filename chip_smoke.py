@@ -48,9 +48,10 @@ one NVIDIA card, end to end.
    tuner on a cache in a temporary directory decides each collective at
    a cut of its cell's bytes (the matmul at X = ``AUTO_MATMUL_BLOCK`` =
    128, not 512: its ``sendrecv`` candidate, the NumPy trace interpreter,
-   would move 16 times the bytes there; the all-to-all at a
-   quarter of its chunk, ``AUTO_CHUNK``, and the all-reduce and broadcast
-   at a quarter of the bucket, ``AUTO_BUCKET``), timing every candidate one process can run
+   would move 16 times the bytes there; the all-to-all at an eighth of
+   its chunk, ``AUTO_CHUNK``, and the all-reduce and broadcast at an
+   eighth of the bucket, ``AUTO_BUCKET``), timing every candidate one
+   process can run
    (``fused``, ``cuda_fused``, ``sendrecv``): per key every candidate's
    measured µs beside its analytic seed, the decision and the wall time it
    took; a second call of each (a memo hit) with the launch counts set to
@@ -141,7 +142,7 @@ one NVIDIA card, end to end.
    the scan's training form within 1e-5 (relative norm) of autograd
    through the step-by-step recurrence, both timed, peak GiB above the
    weights; c) TinyLlama-1.1B whole (22 layers, published widths, bf16),
-   ``TRAIN_STEPS`` (6) steps on tokens (8, 2048) through
+   ``TRAIN_STEPS`` (4) steps on tokens (8, 2048) through
    ``launch.train.main``: the loss falls from the first step to the last;
    ms a step (median after the first),
    tokens/s, model TFLOP/s (6·N·tokens plus the causal attention's,
@@ -153,11 +154,12 @@ one NVIDIA card, end to end.
    step 5, then ``--restore`` from step 5, the resumed losses within 1e-4
    of the uninterrupted ones (bit equality printed), and one step each of
    ``--microbatches 2``, ``--compress-grads`` and ``--straggler-drop``,
-   finite; e) the elastic drill on the 2-layer model (0.22 B parameters,
-   a 0.9 GB float32 payload in 8 rows): host D3(2,2), devices 1 and 4
+   finite (every checkpoint but step 5's, which nothing reads, not
+   written: ``unwritten_save``); e) the elastic drill on the 2-layer model (0.22 B
+   parameters, a 0.9 GB float32 payload in 8 rows): host D3(2,2), devices 1 and 4
    killed at steps 3 and 7, the §5 broadcast on ``cuda_fused``: shapes
    D3(1,2) then D3(2,1), zero derivations, losses within 1e-4 of an
-   uninterrupted run;
+   uninterrupted run (whose checkpoints, never restored, are not written);
 12. runs Mixtral-8x7B at its published widths (d 4096, 32 heads, 8 KV
    heads of 128, 8 experts top-2 of d_ff 14336, vocab 32000, window 4096,
    bf16) with the depth cut from 32 layers to 8 (all 32 layers of bf16
@@ -245,7 +247,7 @@ one NVIDIA card, end to end.
    guest (n_guest 4, 2 experts a guest device, 2 slots, C 16), every rank
    driving the same fleet with the tenants' weights shared by CUDA IPC
    (each rank's expert shard a view, cast to float32 per call). Each
-   tenant gets 3 requests (prompts of 3–8 tokens, 8 new tokens each); the
+   tenant gets 3 requests (prompts of 3–8 tokens, 4 new tokens each); the
    combined arm, each tenant alone, the time-multiplexed arm and the
    churn drill (tenant 1 evicted after 3 steps, then re-admitted). Checks
    every tenant's tokens against its solo fleet's, the combined tokens
@@ -322,12 +324,24 @@ one NVIDIA card, end to end.
    m and v, every leaf within 1e-4 of the one-process step on the card
    relative to its norm, the loss within 1e-5, grad_norm and lr within
    1e-4; beside it the bf16 control, the same one-process step with bf16
-   weights against float32. b) TinyLlama-1.1B whole, bf16 weights and
-   float32 Adam state, mesh (2, 2) with FSDP (11 whole layers a data
-   coordinate; the embedding split by vocab over data and by d over model,
-   the unembedding by d over data and by vocab over model), 2 steps on
-   ``SyntheticLM`` tokens (4, 2048): loss and grad_norm within
-   ``SHARDED_REL`` of the one-process step at each step, every rank's
+   weights against float32; then one step with
+   ``compress_grads`` from the same state, against the one-process
+   compressed step on the card: loss and grad_norm within ``SHARDED_REL``,
+   every code within one of the oracle's (the codes that differ, each a
+   value at a half-step of its block's scale, counted, at most
+   ``FLIP_SHARE`` of the values, and set aside), the parameters and the
+   error-feedback state within 1e-4 (the error relative to the gradient it
+   was cut from, its error plus the dequantized gradient), its ms and
+   carrier bytes a step beside the uncompressed step's; a planted fault,
+   the one-process step with its codes cast to int8 without rounding
+   (``truncating_quantize``), must exceed ``FLIP_SHARE``. b)
+   TinyLlama-1.1B whole, bf16 weights and float32 Adam state, mesh (2, 2)
+   with FSDP (11 whole layers a data coordinate; the embedding split by
+   vocab over data and by d over model, the unembedding by d over data and
+   by vocab over model), one step on
+   ``SyntheticLM`` tokens (4, 2048) (cut from 2 steps for the script's
+   time; the CPU tests run the second): loss and grad_norm within
+   ``SHARDED_REL`` of the one-process step, every rank's
    parameter bytes the reference device's at those specs; its ms a step,
    tokens/s, the carrier's bytes a step, the peak a rank and the free
    memory before the ranks. c) Mixtral-8x7B at its published widths with
@@ -358,6 +372,11 @@ one NVIDIA card, end to end.
    ``DRYRUN_PEAK_REL`` of ``torch.cuda.max_memory_allocated``, the FLOPs
    counted on the card equal to the meta count, its ms beside the
    roofline's ``compute_s`` and ``memory_s``.
+
+20. ``examples/torch/serve_moe.py`` as a user runs it, in a
+   process of its own with its default device, the card: Mixtral smoke, 3
+   slots, 5 requests of 4–8 prompt tokens: exit 0, every request served
+   its 8 tokens; its seconds, start-up included.
 
 Every step ends with a ``phase: <step> <seconds> s`` line.
 
@@ -412,6 +431,7 @@ import gc
 import json
 import os
 import pathlib
+import re
 import statistics
 import subprocess
 import sys
@@ -458,7 +478,8 @@ TRAIN_CHECK_TOKENS = (2, 256)  # a: the float32 step on the card against the CPU
 TRAIN_GRAD_TOL, TRAIN_LOSS_TOL = 1e-4, 1e-5  # a: ||Δ|| / ||g|| per leaf; the loss, relative
 MAMBA_GRAD_TOL = 1e-5  # b: ||Δ|| / ||want|| of the output and of each input's gradient
 TRAIN_TOKENS = (8, 2048)  # c, d, e: the prefill cell's tokens (TinyLlama's published context)
-TRAIN_STEPS = 6  # c: launcher steps; the final checkpoint follows the last
+TRAIN_STEPS = 4  # c: launcher steps, all inside the warmup; the final checkpoint follows the
+# last. Cut from 6 for the script's time
 TRAIN_LR = 4e-4  # c, d, e: TinyLlama's published peak learning rate (arXiv:2401.02385); the
 # launcher's default 3e-3 is the smoke configs' and made the whole model's loss swing 8-15
 RESTART_TOL = 1e-4  # d, e: resumed and elastic losses (tests/test_elastic.py's bound)
@@ -486,22 +507,24 @@ DS_EP_PHASE_S = 300  # step 17's time budget
 CHECKSUM_CHUNK = 1 << 24  # int16 values a bits checksum sums at once (128 MiB of int64)
 FLEET_HOST, FLEET_GUEST = (2, 2), (1, 2)  # D3(2,2): 8 ranks; two D3(1,2) guests of 4 devices
 FLEET_LAYERS = 2  # of Mixtral's 32, per tenant: 6.3 GB of bf16 weights each
-FLEET_SLOTS, FLEET_REQUESTS, FLEET_NEW, FLEET_MAX_SEQ = 2, 3, 8, 32
+FLEET_SLOTS, FLEET_REQUESTS, FLEET_NEW, FLEET_MAX_SEQ = 2, 3, 4, 32  # FLEET_NEW cut from 8
+# for the script's time: every arm still decodes after its prefill, the evict comes mid-traffic
 FLEET_FFN_TOL = 1e-4  # float32 expert FFN, the replay's wave batches against one batch
 FLEET_PHASE_S = 300  # the fleet phase's time budget
 AUTO_MATMUL_BLOCK = 128  # the autotuner's matmul key: X = 128, not the cell's 512. Its sendrecv
 # candidate, the NumPy trace interpreter, replays 2.7–2.9 s a call at X = 128 (the autotune line),
 # X = 512 has 16 times the bytes and 64 times the block products, and the tuner times 4 calls
 AUTO_PHASE_S = 240  # the global-site autotuner step's time budget
-AUTO_CHUNK = CHUNK // 4  # the autotuner's all-to-all key: 64 KiFloat a (src, dst) chunk (16
-# tokens × 4096), and its all-reduce and broadcast key: a quarter of the bucket. Cut
+AUTO_CHUNK = CHUNK // 8  # the autotuner's all-to-all key: 32 KiFloat a (src, dst) chunk (8
+# tokens × 4096), and its all-reduce and broadcast key: an eighth of the bucket. Cut
 # for the script's time, as AUTO_MATMUL_BLOCK was: at the cells' bytes the sendrecv candidate
-# took 77 s of the all-reduce's decision and 36 s of the all-to-all's (measured on one H100)
-AUTO_BUCKET = BUCKET // 4
+# took 77 s of the all-reduce's decision and 36 s of the all-to-all's (measured on one H100);
+# at a quarter 8.7 and 11.8 s
+AUTO_BUCKET = BUCKET // 8
 TRAIN_SHARDED_MESH = (2, 2)  # step 18 a, b: (data, model) with FSDP; G = 2 and 22 split over data
 TRAIN_SHARDED_CHECK_TOKENS = (4, 256)  # a: the float32 step, SyntheticLM
 TRAIN_SHARDED_TOKENS = (4, 2048)  # b: TinyLlama's published context, (2, 2048) a data rank
-TRAIN_SHARDED_STEPS = 2  # b
+TRAIN_SHARDED_STEPS = 1  # b: cut from 2 for the script's time; the CPU tests run 2 steps
 MIXTRAL_TRAIN_LAYERS = 1  # c: of 32; the one-process oracle's weights, gradients and Adam state
 # take about 20 GB at one layer, 38 at two
 MIXTRAL_TRAIN_MESH = (2, 4)  # c: 8 experts, 2 a model rank: EP; the model axis is D3(4,1)
@@ -515,6 +538,9 @@ MIXTRAL_SAME_BITS = ("dragonfly",)
 SHARDED_REL = 1e-3  # b, c: loss, grad_norm and moe_aux against the one-process step, relative
 SHARDED_M_REL = 3e-2  # c: each watched leaf's first moment, ||Δ|| / ||m||: bf16 gradients; the
 # bf16 control (the one-process step in bf16 against float32) put its worst leaf's m 2.83e-2 off
+FLIP_SHARE = 1e-4  # a, compressed: the largest share of values whose code may differ from the
+# one-process step's (a value at a half-step, rounded the other way after the sharded sum):
+# 1.67e-5 measured on the card; the planted truncating cast reads about 0.5
 TRAIN_SHARDED_PHASE_S = 300  # step 18's time budget
 #: 19 a: (arch, shape, multi-pod, rules changes, tag, expected status) of the dry run on meta
 DRYRUN_CELLS = (
@@ -527,6 +553,8 @@ DRYRUN_CELLS = (
 DRYRUN_CARD_CELL = ("tinyllama-1.1b", "prefill_32k", False, {}, "", "ok")
 DRYRUN_PEAK_REL = 0.10  # b: the meta trace's peak against max_memory_allocated, relative
 DRYRUN_PHASE_S = 90  # step 19's time budget
+EXAMPLE_TIMEOUT_S = 180  # step 20: the serve_moe example's process, start-up included
+EXAMPLE_REQUESTS, EXAMPLE_NEW_TOKENS = 5, 8  # what the example serves
 
 
 def require(cond: bool, what: str) -> None:
@@ -2545,6 +2573,71 @@ def reference_device_bytes(cfg, pspecs, like, sizes) -> int:
     return total
 
 
+@contextlib.contextmanager
+def recorded(module, name):
+    """The output of every call of ``module.name`` made inside the block,
+    in a list."""
+    real, calls = getattr(module, name), []
+
+    def record(*args):
+        calls.append(real(*args))
+        return calls[-1]
+
+    setattr(module, name, record)
+    try:
+        yield calls
+    finally:
+        setattr(module, name, real)
+
+
+def codes_vs_oracle(codes, want, cfg):
+    """The sharded step's codes (by JAX path) against the one-process
+    step's (``want["q/<path>"]``, ``want["s/<path>"]``): every code within
+    one of its (a value at a half-step of its block's scale may round the
+    other way when the gradient sums add in another order), each JAX
+    leaf's scales ||Δ|| / ||scales|| (``scale_rel``, the worst leaf) and
+    the worst block's relative difference, and how many of the values
+    (the blocks' padding left out) have a code that differs (``flips``).
+    Returns (a record, {port leaf path string: mask of those values})."""
+    from repro_torch.train import compression as C
+    from repro_torch.train import train_step as TS
+
+    rec = {"blocks": 0, "max_code_diff": 0, "scale_rel": 0.0, "scale_rel_worst_block": 0.0}
+    differ = {}
+    for ref_path, (q, sc) in codes.items():
+        key = "/".join(map(str, ref_path))
+        wq, ws = want[f"q/{key}"], want[f"s/{key}"]
+        diff = (q.int() - wq.int()).abs()
+        rec["blocks"] += q.shape[0]
+        rec["max_code_diff"] = max(rec["max_code_diff"], int(diff.max()))
+        rec["scale_rel"] = max(rec["scale_rel"], float((sc - ws).norm() / ws.norm()))
+        rec["scale_rel_worst_block"] = max(rec["scale_rel_worst_block"],
+                                           float(((sc - ws).abs() / ws).max()))
+        differ[ref_path] = (diff != 0).reshape(-1)
+    masks = {"/".join(map(str, path)): m for path, m in C.by_port_leaf(
+        differ.__getitem__, TS.param_shapes(cfg), len(cfg.layer_kinds())).items()}
+    rec["values"] = sum(m.numel() for m in masks.values())
+    rec["flips"] = sum(int(m.sum()) for m in masks.values())
+    return rec, masks
+
+
+def truncating_quantize(g):
+    """A planted fault in ``train.compression.quantize``'s place: the codes
+    cast to int8 without rounding (a cast truncates). Every code is within
+    one of the right one and every scale is the same: only the share of
+    codes that differ (``FLIP_SHARE``) tells it from the sharded sum's
+    rounding."""
+    import torch
+
+    from repro_torch.train import compression as C
+
+    flat = g.float().reshape(-1)
+    blocks = torch.nn.functional.pad(flat, (0, (-flat.numel()) % C.BLOCK)).reshape(-1, C.BLOCK)
+    scale = blocks.abs().amax(dim=1) / 127.0
+    scale = torch.where(scale == 0, torch.ones_like(scale), scale)
+    return torch.clamp(blocks / scale[:, None], -127, 127).to(torch.int8), scale
+
+
 def train_sharded_rank(rank, group, layout, jobs, mesh_shape, seed):
     """One rank of step 18: lays the ranks out as a ``mesh_shape`` mesh of
     (data, model) and runs each job of ``jobs`` (``_train_sharded_job``) in
@@ -2568,8 +2661,9 @@ def _train_sharded_job(rank, mesh, job, seed):
     launch count of K1–K5 at 0 first. ``want`` holds the oracle's tensors
     on the card, shared by CUDA IPC: the first moment of each leaf it names
     is held against the rank's slice of it in the first mode (the other
-    modes are held to the first's bits), and part "a" gathers the whole
-    state and holds every leaf against it. The rank empties ``want`` before
+    modes are held to the first's bits), and parts "a" and "a_compress"
+    gather the whole state and hold every leaf against it (``a_compress``
+    its codes too, ``codes_vs_oracle``). The rank empties ``want`` before
     it returns (``_release_shared``). Returns host data."""
     import torch
 
@@ -2587,15 +2681,20 @@ def _train_sharded_job(rank, mesh, job, seed):
     cfg, opt_cfg, rules_kw, modes = job["cfg"], job["opt_cfg"], job["rules_kw"], job["modes"]
     dev = mesh.device
     gib = lambda n: n / 2**30
-    settings = TS.TrainSettings(use_kernel=False, remat=True)
+    settings = TS.TrainSettings(use_kernel=False, remat=True, compress_grads=job["compress"])
     SH.set_active(SH.ShardRules(**dict(rules_kw, moe_collectives=modes[0])), mesh)
     rules = SH.active()[0]
     specs = TS.train_shardings(cfg, rules, opt_cfg, settings)
     like = TS.state_shapes(cfg, opt_cfg)
+    fresh = like[1]
+    if job["compress"]:  # the error-feedback state: zeros of the parameters' shapes, float32
+        fresh = dict(fresh, err=O.unflatten(like[0], [
+            torch.empty(x.shape, dtype=torch.float32, device="meta")
+            for _, x in O.flatten(like[0])]))
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
     whole = M.init_params(torch.Generator(device=dev).manual_seed(seed), cfg, device=dev)
-    p0, s0 = TS.shard_train_state(whole, like[1], specs[:2], mesh)
+    p0, s0 = TS.shard_train_state(whole, fresh, specs[:2], mesh)
     del whole
     torch.cuda.empty_cache()
     out = {"coords": mesh.coords, "init_s": time.perf_counter() - t0, "modes": {},
@@ -2615,7 +2714,8 @@ def _train_sharded_job(rank, mesh, job, seed):
         rec = {"metrics": [], "ms": [], "carrier_bytes": [], "carrier_copies": []}
         for _ in range(job["steps"]):
             c0, k0 = mesh.carrier_bytes, mesh.carrier_copies
-            with MOE.timing_parts() as parts, TS.timing_parts() as step_parts:
+            with MOE.timing_parts() as parts, TS.timing_parts() as step_parts, \
+                    recorded(TS, "_compress") as codes:
                 t0 = time.perf_counter()
                 p, s, m = step(p, s, b)
                 torch.cuda.synchronize()
@@ -2646,36 +2746,48 @@ def _train_sharded_job(rank, mesh, job, seed):
                              int(((want != 0) & (got == 0)).sum()))
                 del want, got, above
             rec["m_vs_oracle"] = cmp
-        if len(modes) > 1:
-            p, s = _to(p, "cpu"), _to(s, "cpu")
         if kept is None:
-            kept = (p, s)
-        else:  # another mode: the first mode's bits, every held slice, and its distance
-            pairs = list(zip(list(_flat_named(p).values()) + list(_mu(s, "m").values())
-                             + list(_mu(s, "v").values()),
-                             list(_flat_named(kept[0]).values()) + list(_mu(kept[1], "m").values())
-                             + list(_mu(kept[1], "v").values())))
-            rec["same_bits_as_first"] = all(
-                torch.equal(x.contiguous().reshape(-1).view(torch.uint8),
-                            y.contiguous().reshape(-1).view(torch.uint8)) for x, y in pairs)
-            rec["worst_leaf_rel_to_first"] = max(
-                float((x.float() - y.float()).norm() / y.float().norm().clamp(min=1e-30))
-                for x, y in pairs)
-            del p, s, pairs
+            kept = (_to(p, "cpu"), _to(s, "cpu")) if len(modes) > 1 else (p, s)
+        else:  # another mode: the first mode's bits, every held slice, and its distance, on
+            # the card a leaf of the first mode's at a time (on the host, 8 ranks' comparisons
+            # took longer than the step)
+            same, worst = True, 0.0
+            for x, y in zip(list(_flat_named(p).values()) + list(_mu(s, "m").values())
+                            + list(_mu(s, "v").values()),
+                            list(_flat_named(kept[0]).values()) + list(_mu(kept[1], "m").values())
+                            + list(_mu(kept[1], "v").values())):
+                y = y.to(dev)
+                same = same and torch.equal(x.contiguous().reshape(-1).view(torch.uint8),
+                                            y.contiguous().reshape(-1).view(torch.uint8))
+                worst = max(worst, float((x.float() - y.float()).norm()
+                                         / y.float().norm().clamp(min=1e-30)))
+                del y
+            rec["same_bits_as_first"], rec["worst_leaf_rel_to_first"] = same, worst
+        del p, s
         out["modes"][mode] = rec
-    if job["part"] == "a":  # the whole state, every leaf against the oracle's
+    if job["part"] in ("a", "a_compress"):  # the whole state, every leaf against the oracle's
         gp, gs = TS.gather_train_state(kept[0], kept[1], specs[:2], like, mesh)
         errs = {}
         if rank == 0:
             want = job["want"]
             got = {**{f"p/{k}": v for k, v in _flat_named(gp).items()},
                    **{f"m/{k}": v for k, v in _mu(gs, "m").items()},
-                   **{f"v/{k}": v for k, v in _mu(gs, "v").items()}}
-            require(set(got) == set(want),
+                   **{f"v/{k}": v for k, v in _mu(gs, "v").items()},
+                   **{f"e/{k}": v for k, v in _flat_named(gs.get("err", {})).items()}}
+            skip, norm_of = {}, {}
+            if job["compress"]:  # the codes, and what a value at a half-step moves
+                out["codes"], skip = codes_vs_oracle(codes[-1][0], want, cfg)
+                norm_of = {k: want[k].float() + want[f"d/{k[2:]}"].float() for k in got
+                           if k.startswith("e/")}
+            require(set(got) == {k for k in want if k[:2] in ("p/", "m/", "v/", "e/")},
                     f"the gathered state's leaves {sorted(set(got) ^ set(want))}")
-            for k, w in want.items():
-                w = w.to(dev).float()
-                errs[k] = float((got[k].float() - w).norm() / w.norm().clamp(min=1e-30))
+            for k in got:
+                w, g = want[k].to(dev).float(), got[k].float()
+                ref = norm_of.get(k, w)
+                if not k.startswith("p/") and k[2:] in skip:  # each flip's own value set aside
+                    keep = ~skip[k[2:]]
+                    w, g, ref = w[keep], g[keep], ref[keep]
+                errs[k] = float((g - w).norm() / ref.norm().clamp(min=1e-30))
         out["leaf_rel_err"] = errs
         del gp, gs
     del kept, p0, s0, b
@@ -2704,6 +2816,7 @@ def train_sharded_phase(dev, counters):
     from repro_torch.launch.mesh import spawn
     from repro_torch.models import model as M
     from repro_torch.models import moe as MOE
+    from repro_torch.train import compression as C
     from repro_torch.train import optimizer as O
     from repro_torch.train import train_step as TS
     from repro_torch.train.data import DataState, SyntheticLM
@@ -2718,11 +2831,15 @@ def train_sharded_phase(dev, counters):
     settings = TS.TrainSettings(use_kernel=False, remat=True)
     runs = []
 
-    def oracle(cfg, opt_cfg, batch, steps, moe=None):
+    def oracle(cfg, opt_cfg, batch, steps, moe=None, compress=False):
         """The one-process step on the card from the same seed: (params,
-        state, metrics a step), the MoE layers as ``moe`` gives them."""
+        state, metrics a step, its ms, peak and, with ``compress``, the
+        last step's codes and dequantized gradient), the MoE layers as
+        ``moe`` gives them."""
         params = M.init_params(torch.Generator(device=dev).manual_seed(SEED), cfg, device=dev)
         state = O.init_state(params, opt_cfg)
+        if compress:
+            state = dict(state, err=C.init_error(params))
         b = {k: torch.from_numpy(v).to(dev) for k, v in batch.items()}
         auto = MOE.moe_apply_auto
         if moe is not None:
@@ -2730,21 +2847,25 @@ def train_sharded_phase(dev, counters):
         zero_counts(counters)
         torch.cuda.reset_peak_memory_stats()
         try:
-            step = TS.make_train_step(cfg, opt_cfg, settings)
+            step = TS.make_train_step(cfg, opt_cfg,
+                                      dataclasses.replace(settings, compress_grads=compress))
             metrics, ms = [], []
-            for _ in range(steps):
-                torch.cuda.synchronize()
-                t0 = time.perf_counter()
-                params, state, m = step(params, state, b)
-                torch.cuda.synchronize()
-                ms.append((time.perf_counter() - t0) * 1e3)
-                metrics.append({k: float(v) for k, v in m.items()})
+            with recorded(C, "compress_tree") as codes, recorded(C, "decompress_tree") as deq:
+                for _ in range(steps):
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    params, state, m = step(params, state, b)
+                    torch.cuda.synchronize()
+                    ms.append((time.perf_counter() - t0) * 1e3)
+                    metrics.append({k: float(v) for k, v in m.items()})
         finally:
             MOE.moe_apply_auto = auto
         launches = {c.__name__: c.launches for c in counters}
         require(not any(launches.values()), f"the one-process step launched {launches}")
         peak = gib(torch.cuda.max_memory_allocated())
-        return params, state, metrics, {"ms": ms, "peak_gib": peak}
+        return params, state, metrics, {"ms": ms, "peak_gib": peak,
+                                        "codes": codes[-1][0] if codes else None,
+                                        "deq": deq[-1] if deq else None}
 
     def run_ranks(jobs, mesh_shape):
         """The jobs on one spawn of ``mesh_shape`` ranks: (per-rank {part:
@@ -2776,10 +2897,11 @@ def train_sharded_phase(dev, counters):
                             f"step 18 {part}: rank {r}'s metrics differ from rank 0's")
         return ranks, free, time.perf_counter() - t0
 
-    def job(part, cfg, opt_cfg, rules_kw, batch, modes=("xla",), steps=1, watch=(), want=None):
+    def job(part, cfg, opt_cfg, rules_kw, batch, modes=("xla",), steps=1, watch=(), want=None,
+            compress=False):
         return {"part": part, "cfg": cfg, "opt_cfg": opt_cfg, "rules_kw": rules_kw,
                 "batch": batch, "modes": modes, "steps": steps, "watch": tuple(watch),
-                "want": want or {}}
+                "want": want or {}, "compress": compress}
 
     def rel(a, b):
         return abs(a - b) / max(abs(b), 1e-30)
@@ -2814,7 +2936,25 @@ def train_sharded_phase(dev, counters):
     print(f"train_sharded a: the bf16 control, one-process bf16 against float32: {control}",
           flush=True)
     del p16, s16, m32
-    # b) TinyLlama-1.1B whole, bf16 weights and float32 Adam state, 2 steps
+    # a, compressed: the one-process compressed step; its codes and dequantized gradient too
+    params, state, want_ac, orc_ac = oracle(cfg32, opt_cfg, data_a, 1, compress=True)
+    want_compress = {**{f"p/{k}": v for k, v in _flat_named(params).items()},
+                     **{f"m/{k}": v for k, v in _mu(state, "m").items()},
+                     **{f"v/{k}": v for k, v in _mu(state, "v").items()},
+                     **{f"e/{k}": v for k, v in _flat_named(state["err"]).items()},
+                     **{f"d/{k}": v for k, v in _flat_named(orc_ac["deq"]).items()}}
+    for ref_path, (q, sc) in orc_ac["codes"].items():
+        key = "/".join(map(str, ref_path))
+        want_compress[f"q/{key}"], want_compress[f"s/{key}"] = q, sc
+    del params, state, orc_ac["codes"], orc_ac["deq"]
+    # the planted fault FLIP_SHARE must reject: the same step, its codes cast without rounding
+    with patched(C, "quantize", truncating_quantize):
+        _, _, _, orc_t = oracle(cfg32, opt_cfg, data_a, 1, compress=True)
+    planted, _ = codes_vs_oracle(orc_t["codes"], want_compress, cfg32)
+    del orc_t
+    require(planted["max_code_diff"] <= 1 and planted["flips"] > FLIP_SHARE * planted["values"],
+            f"step 18 a, compressed: the truncating cast's codes {planted} pass the cap")
+    # b) TinyLlama-1.1B whole, bf16 weights and float32 Adam state, TRAIN_SHARDED_STEPS steps
     data_b = SyntheticLM(DataState(seed=SEED, batch=TRAIN_SHARDED_TOKENS[0],
                                    seq=TRAIN_SHARDED_TOKENS[1], vocab=full.vocab)).next_batch()
     params, state, want_b, orc_b = oracle(full, opt_cfg, data_b, TRAIN_SHARDED_STEPS)
@@ -2822,6 +2962,8 @@ def train_sharded_phase(dev, counters):
     oracles_s = time.perf_counter() - t_part
     ranks, free_ab, ranks_s = run_ranks(
         [job("a", cfg32, opt_cfg, {"fsdp": True}, data_a, want=want_state),
+         job("a_compress", cfg32, opt_cfg, {"fsdp": True}, data_a, want=want_compress,
+             compress=True),
          job("b", full, opt_cfg, {"fsdp": True}, data_b, steps=TRAIN_SHARDED_STEPS)], mesh_ab)
 
     got = ranks[0]["a"]["modes"]["xla"]["metrics"][0]
@@ -2840,6 +2982,42 @@ def train_sharded_phase(dev, counters):
                  "ms": ranks[0]["a"]["modes"]["xla"]["ms"], "oracle_ms": orc_a["ms"],
                  "peak_gib_a_rank": max(r["a"]["modes"]["xla"]["peak_gib"] for r in ranks),
                  "launches": ranks[0]["a"]["modes"]["xla"]["launches"]})
+    emit(runs[-1])
+
+    plain_a, got_c = ranks[0]["a"]["modes"]["xla"], ranks[0]["a_compress"]["modes"]["xla"]
+    errs, codes = ranks[0]["a_compress"]["leaf_rel_err"], ranks[0]["a_compress"]["codes"]
+    worst = max(errs, key=errs.get)
+    require(codes["max_code_diff"] <= 1 and codes["scale_rel"] <= TRAIN_GRAD_TOL
+            and codes["flips"] <= FLIP_SHARE * codes["values"],
+            f"step 18 a, compressed: codes {codes} against the one-process step's")
+    require(errs[worst] <= TRAIN_GRAD_TOL, f"step 18 a, compressed: leaf {worst} "
+                                           f"{errs[worst]:.3g} off the one-process step")
+    for key in ("loss", "grad_norm"):
+        require(rel(got_c["metrics"][0][key], want_ac[0][key]) <= SHARDED_REL,
+                f"step 18 a, compressed: {key} {got_c['metrics'][0][key]} against the "
+                f"one-process {want_ac[0][key]}")
+    runs.append({"run": "train_sharded a compressed", "model": f"{full.name}, {cfg32.n_layers} "
+                 "layers, float32", "mesh": list(mesh_ab), "rules": "fsdp, compress_grads",
+                 "tokens": list(TRAIN_SHARDED_CHECK_TOKENS), "metrics": got_c["metrics"][0],
+                 "oracle_metrics": want_ac[0], "codes": codes,
+                 "flip_share": codes["flips"] / codes["values"], "flip_share_cap": FLIP_SHARE,
+                 "planted_truncating_cast": dict(
+                     planted, flip_share=planted["flips"] / planted["values"]),
+                 "leaves": len(errs),
+                 "worst_leaf": [worst, errs[worst]],
+                 "worst_by_kind": {kind: max(v for k, v in errs.items() if k.startswith(kind))
+                                   for kind in ("p/", "m/", "v/", "e/")},
+                 "ms": got_c["ms"], "uncompressed_ms": plain_a["ms"],
+                 "carrier_bytes_a_step": got_c["carrier_bytes"],
+                 "uncompressed_carrier_bytes_a_step": plain_a["carrier_bytes"],
+                 "carrier_copies_a_step": got_c["carrier_copies"],
+                 "uncompressed_carrier_copies_a_step": plain_a["carrier_copies"],
+                 "step_parts_rank0": got_c["step_parts"],
+                 "uncompressed_step_parts_rank0": plain_a["step_parts"],
+                 "oracle_ms": orc_ac["ms"],
+                 "peak_gib_a_rank": max(r["a_compress"]["modes"]["xla"]["peak_gib"]
+                                        for r in ranks),
+                 "launches": got_c["launches"]})
     emit(runs[-1])
 
     got = ranks[0]["b"]["modes"]["xla"]
@@ -2876,7 +3054,7 @@ def train_sharded_phase(dev, counters):
                  "rank_init_s": max(r["b"]["init_s"] for r in ranks),
                  "launches": got["launches"], "parts_a_b_s": time.perf_counter() - t_part})
     emit(runs[-1])
-    del want_state
+    del want_state, want_compress
     torch.cuda.ipc_collect()
     torch.cuda.empty_cache()
 
@@ -3384,6 +3562,12 @@ def patched(module, name, value):
         setattr(module, name, old)
 
 
+def unwritten_save(ckpt_dir, step, tree, **kwargs) -> str:
+    """``train.checkpoint.save`` in a run whose checkpoints nothing reads:
+    writes nothing and returns the path it would have written."""
+    return str(pathlib.Path(ckpt_dir) / f"step_{step:08d}")
+
+
 @contextlib.contextmanager
 def launcher_probe(launcher):
     """Runs of ``launch.train.main`` with each step's loss and wall ms
@@ -3678,20 +3862,26 @@ def train_phase(dev, kit, counters):
     t0 = time.perf_counter()
     argv = ["--arch", arch, "--batch", str(B), "--seq", str(S), "--seed", str(SEED),
             "--lr", str(TRAIN_LR)]
+    write = ckpt.save
+
+    def resume_point_only(ckpt_dir, step, tree, **kwargs):  # for time: only step 5 is read
+        return (write if step == 5 else unwritten_save)(ckpt_dir, step, tree, **kwargs)
+
     with patched(launcher, "get_config", lambda arch: small):
-        with launcher_probe(launcher) as whole:
+        with launcher_probe(launcher) as whole, \
+                patched(launcher.ckpt, "save", resume_point_only):
             launcher.main(argv + ["--steps", "10", "--ckpt-every", "5",
                                   "--ckpt-dir", str(work / "restart")])
-        shutil.rmtree(work / "restart" / "step_00000010")
-        with launcher_probe(launcher) as resumed:
+        with launcher_probe(launcher) as resumed, patched(launcher.ckpt, "save", unwritten_save):
             launcher.main(argv + ["--steps", "10", "--restore",
                                   "--ckpt-dir", str(work / "restart")])
         paths = {}
         for name, extra in (("microbatches 2", ["--microbatches", "2"]),
                             ("compress-grads", ["--compress-grads"]),
                             ("straggler-drop", ["--microbatches", "2", "--straggler-drop"])):
-            paths[name] = launcher.main(argv + ["--steps", "1", *extra,
-                                                "--ckpt-dir", str(work / name.split()[0])])
+            with patched(launcher.ckpt, "save", unwritten_save):  # for time: nothing reads it
+                paths[name] = launcher.main(argv + ["--steps", "1", *extra,
+                                                    "--ckpt-dir", str(work / name.split()[0])])
     diffs = [abs(a - b) for a, b in zip(whole.losses[5:], resumed.losses)]
     rec = {"run": "train: restart and step paths, 2 layers", "layers": small.n_layers,
            "tokens": [B, S], "losses": whole.losses, "resumed_losses": resumed.losses,
@@ -3708,7 +3898,8 @@ def train_phase(dev, kit, counters):
     drill = dict(host=D3(2, 2), batch=B, seq=S, seed=SEED, ckpt_every=5, device=dev)
     drill_opt = OptConfig(lr=TRAIN_LR, warmup_steps=2, total_steps=10)
     base = ElasticTrainer(small, drill_opt, settings, ckpt_dir=work / "base", **drill)
-    base_losses = base.run(10)
+    with patched(ckpt, "save", unwritten_save):  # for time: the uninterrupted run never restores
+        base_losses = base.run(10)
     el = ElasticTrainer(small, drill_opt, settings, ckpt_dir=work / "elastic",
                         injector=FaultInjector(ELASTIC_FAILURES), **drill)
     el_losses = el.run(10)
@@ -3816,6 +4007,33 @@ def dryrun_phase(dev) -> tuple[list, int, dict]:
         print(f"dryrun: the phase took {phase_s:.0f} s, past its {DRYRUN_PHASE_S} s", flush=True)
     card_run = results[-1]["on_card"]
     return runs, card_run["k4_launches"], card_run["k4_bodies"]
+
+
+def serve_example_phase() -> dict:
+    """Step 20: ``examples/torch/serve_moe.py`` in a process of its own,
+    as a user runs it (its default device is the card): it must exit 0
+    and serve every request its tokens. Returns its record."""
+    root = pathlib.Path(__file__).resolve().parent
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [str(root / "src"), os.environ.get("PYTHONPATH", "")]))
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, str(root / "examples" / "torch" / "serve_moe.py")],
+                          env=env, capture_output=True, text=True, timeout=EXAMPLE_TIMEOUT_S)
+    seconds = time.perf_counter() - t0
+    require(proc.returncode == 0, f"examples/torch/serve_moe.py exited {proc.returncode}: "
+                                  f"{proc.stderr[-2000:]}")
+    lines = proc.stdout.strip().splitlines()
+    served = [re.fullmatch(r"rid=(\d+) prompt=.* -> generated \[([\d, ]*)\]", line)
+              for line in lines[:-1]]
+    last = re.fullmatch(r"(\d+) requests served in (\d+) engine steps .*", lines[-1])
+    require(last is not None and int(last.group(1)) == EXAMPLE_REQUESTS
+            and len(served) == EXAMPLE_REQUESTS
+            and all(m is not None and len(m.group(2).split(",")) == EXAMPLE_NEW_TOKENS
+                    for m in served),
+            f"examples/torch/serve_moe.py printed {lines}")
+    return {"run": "example serve_moe", "command": "python examples/torch/serve_moe.py",
+            "returncode": proc.returncode, "requests": int(last.group(1)),
+            "engine_steps": int(last.group(2)), "seconds": seconds}
 
 
 def main() -> None:
@@ -4876,6 +5094,11 @@ def main() -> None:
     for body, n in dry_bodies.items():
         k4_rec["body_launches"][body] += n
     phase("19")
+
+    # ------------- 20. the serve_moe example as a user runs it, on the card
+    runs.append(serve_example_phase())
+    emit(runs[-1])
+    phase("20")
 
     # --------------------------------------------------------------- report
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",

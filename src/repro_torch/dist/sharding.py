@@ -52,7 +52,7 @@ class ShardRules:
     pod_axis: str | None = None
     fsdp: bool = False
     zero1: bool = False
-    seq_parallel: bool = False
+    seq_parallel: bool = False  # refused by models.transformer.member_train (ROADMAP Queue 3)
     # "xla" (the native all-to-all) | "dragonfly" (§3 program on
     # torch_dist) | "dragonfly_overlap" (same program, start_step order)
     # | "dragonfly_overlap_fused" (dispatch + expert FFN + combine as ONE

@@ -35,6 +35,7 @@ import torch.nn.functional as F
 from torch.autograd.profiler import record_function
 from torch.utils.checkpoint import checkpoint
 
+from repro_torch.dist import sharding as SH
 from repro_torch.models import attention as A
 from repro_torch.models import layers as L
 from repro_torch.models import mamba as MB
@@ -114,7 +115,16 @@ def _ffn(params, h2, cfg, ffn):
 
 def member_train(params, x, cfg, mixer, ffn, positions, mrope_positions, use_kernel):
     """-> (x, aux): aux is the MoE load-balance loss, a float32 zero for
-    any other FFN."""
+    any other FFN. Raises ``NotImplementedError`` under active rules with
+    ``seq_parallel``, where the reference splits the residual stream over
+    the tensor axis."""
+    act = SH.active()
+    if act is not None and act[0].seq_parallel:
+        raise NotImplementedError(
+            "seq_parallel: the reference splits the residual stream over the tensor axis "
+            "here, and the port has no residual stream to split: it has no tensor "
+            "parallelism of the dense layers, and the sharded step gathers every leaf "
+            "whole (ROADMAP Queue 3)")
     _check_kinds(mixer, ffn)
     norm = _norm(cfg)
     h = norm(params["norm1"], x)

@@ -60,19 +60,30 @@ def reference_leaves(tree, period: int):
     return out
 
 
-def _stacked(tree, paths):
-    """The float32 concatenation of the leaves at ``paths``, flattened."""
-    parts = [get(tree, path).float().reshape(-1) for path in paths]
+def _stacked(leaves):
+    """The float32 concatenation of ``leaves``, flattened."""
+    parts = [x.float().reshape(-1) for x in leaves]
     return torch.cat(parts) if len(parts) > 1 else parts[0]
 
 
-def _split(flat, paths, like):
-    out, lo = {}, 0
-    for path in paths:
-        ref = get(like, path)
-        out[path] = flat[lo:lo + ref.numel()].reshape(ref.shape)
+def _split(flat, like: list) -> list:
+    """``flat`` cut into pieces shaped as the leaves of ``like``, in order."""
+    out, lo = [], 0
+    for ref in like:
+        out.append(flat[lo:lo + ref.numel()].reshape(ref.shape))
         lo += ref.numel()
     return out
+
+
+def compress_stacked(grads: list, errs: list):
+    """One JAX leaf's error-feedback quantization: ``grads`` and ``errs``
+    are the port leaves it stacks, in group order. Returns ((q, scale), the
+    dequantized leaves in ``grads``' dtypes, the new errors in float32)."""
+    corrected = _stacked(grads) + _stacked(errs)
+    q, s = quantize(corrected)
+    deq = dequantize(q, s, corrected.shape, corrected.numel())
+    return ((q, s), [d.to(g.dtype) for d, g in zip(_split(deq, grads), grads)],
+            _split(corrected - deq, errs))
 
 
 def compress_tree(grads, err, period: int):
@@ -81,21 +92,29 @@ def compress_tree(grads, err, period: int):
     to its (q, scale) pair, new_err per layer as ``err``."""
     codes, new_err = {}, {}
     for ref_path, paths in reference_leaves(err, period):
-        corrected = _stacked(grads, paths) + _stacked(err, paths)
-        q, s = quantize(corrected)
-        codes[ref_path] = (q, s)
-        new_err.update(_split(corrected - dequantize(q, s, corrected.shape, corrected.numel()),
-                              paths, err))
+        codes[ref_path], _, errs = compress_stacked([get(grads, p) for p in paths],
+                                                    [get(err, p) for p in paths])
+        new_err.update(zip(paths, errs))
     return codes, unflatten(err, [new_err[path] for path, _ in flatten(err)])
+
+
+def by_port_leaf(per_ref, like, period: int) -> dict:
+    """{port path: piece}: ``per_ref(ref_path)``, a flat tensor or array
+    for the JAX leaf at ``ref_path`` (at least as long as the leaves it
+    stacks), cut into the port leaves of ``like`` that it stacks."""
+    out = {}
+    for ref_path, paths in reference_leaves(like, period):
+        out.update(zip(paths, _split(per_ref(ref_path), [get(like, path) for path in paths])))
+    return out
 
 
 def decompress_tree(codes, like, period: int):
     """The dequantized gradients in ``like``'s layout and dtypes."""
-    out = {}
-    for ref_path, paths in reference_leaves(like, period):
+    def flat(ref_path):  # padded to whole blocks: by_port_leaf cuts the leaves off the front
         q, s = codes[ref_path]
-        size = sum(get(like, path).numel() for path in paths)
-        out.update(_split(dequantize(q, s, (size,), size), paths, like))
+        return dequantize(q, s, (q.numel(),), q.numel())
+
+    out = by_port_leaf(flat, like, period)
     return unflatten(like, [out[path].to(leaf.dtype) for path, leaf in flatten(like)])
 
 

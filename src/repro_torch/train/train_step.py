@@ -74,9 +74,21 @@ The design is simple and right first:
 * a ``None`` gradient is zeros only for the ``embed`` table when the
   batch holds ``embeds``; any other raises.
 
-It refuses ``compress_grads`` (the reference's 256-value blocks span a
-whole stacked leaf and do not align with shards; ROADMAP Queue 1, item
-5's refusals). Every MoE exchange mode trains, the fused one through
+With ``compress_grads`` the step quantizes as the reference's jit does
+under its shardings, each 256-value block of a JAX leaf whole (a block
+may span two layers, which FSDP may place on different data
+coordinates): for each leaf of the JAX package's layout
+(``compression.reference_leaves``), the summed, averaged gradient of
+every port leaf it stacks is all-reduced whole over its copies (an
+expert stack then all-gathered over the tensor axis) and its error
+gathered whole from the ``err`` shards (the parameters' specs), every
+rank quantizes their concatenation with ``compression.compress_stacked``
+(the one-process step's code, so each rank makes the same codes), and
+cuts the dequantized gradient to the optimizer state's shard and the new
+error to its ``err`` shard locally. ``grad_norm`` is read from the
+dequantized gradient, as in one process.
+
+Every MoE exchange mode trains, the fused one through
 ``dist.collectives.dragonfly_round_trip``. Collectives of a group raise after
 ``launch.mesh.GROUP_TIMEOUT_S``. It launches none of K1–K5: the plain
 attention (``use_kernel=False``), and the gradient sums are
@@ -372,7 +384,17 @@ def gather_train_state(params, opt_state, specs, like, mesh):
         held, spec = O.get(opt_state["mu"], path), O.get(ospecs["mu"], path)
         mu.append({key: whole(None if held is None else held[key], spec[key], (), val)
                    for key, val in O.get(like_s["mu"], path).items()})
-    return out_p, {"mu": O.unflatten(like_p, mu), "step": opt_state["step"]}
+    out_s = {"mu": O.unflatten(like_p, mu), "step": opt_state["step"]}
+    if "err" in opt_state:
+        out_s["err"] = O.unflatten(like_p, [
+            whole(O.get(opt_state["err"], path), O.get(ospecs["err"], path), (), _f32(p))
+            for path, p in O.flatten(like_p)])
+    return out_p, out_s
+
+
+def _f32(like):
+    """A float32 meta leaf of ``like``'s shape: the error-feedback state's."""
+    return torch.empty(like.shape, dtype=torch.float32, device="meta")
 
 
 def shard_batch(batch, bspecs, mesh):
@@ -597,23 +619,47 @@ def _global_metrics(metrics, rules, mesh):
     return {k: v[i] / n for i, k in enumerate(keys)}
 
 
+def _compress(g_sum, err, mb_n, paths, keep, pspecs, mspecs, like_p, period, mesh):
+    """``compress_grads`` on the mesh (module docstring), a JAX leaf at a
+    time: ``g_sum`` this rank's gradient of each leaf of ``paths`` under its
+    compute spec ``keep[path]`` (the call empties it), ``err`` the rank's
+    error-feedback shards under ``pspecs``. Returns (the codes by JAX path,
+    the same on every rank; {path: the dequantized gradient's piece under
+    ``mspecs[path]`` in the gradient's dtype, or None}, {path: the new
+    error's piece under the parameter's spec, or None})."""
+    index = {path: i for i, path in enumerate(paths)}
+    codes, grads, new_err = {}, {}, {}
+    for ref_path, group in C.reference_leaves(like_p, period):
+        g_whole, e_whole = [], []
+        for path in group:
+            i, like = index[path], O.get(like_p, path)
+            g, g_sum[i] = g_sum[i], None
+            g = _reduce_to(g / mb_n if mb_n > 1 else g, keep[path], (None,) * like.ndim, mesh)
+            g_whole.append(_regather(g, keep[path], (), like, mesh))
+            e_whole.append(_regather(O.get(err, path), O.get(pspecs, path), (), _f32(like), mesh))
+        codes[ref_path], deq, errs = C.compress_stacked(g_whole, e_whole)
+        for path, d, e in zip(group, deq, errs):
+            shape = O.get(like_p, path).shape
+            cut = SH.held_slices(mspecs[path], shape, mesh.coords, mesh.sizes)
+            grads[path] = None if cut is None else d[cut].clone()
+            cut = SH.held_slices(O.get(pspecs, path), shape, mesh.coords, mesh.sizes)
+            new_err[path] = None if cut is None else e[cut].clone()
+    return codes, grads, new_err
+
+
 def make_sharded_train_step(cfg, opt_cfg: O.OptConfig, settings: TrainSettings):
     """-> step(params, opt_state, batch) -> (params, opt_state, metrics) on
     this rank's shards (module docstring), under the rules and mesh that
     ``dist.sharding.set_active`` registered; ``batch`` is the rank's rows
     (``shard_batch``). Every rank of the mesh calls it together."""
     like_p, _ = state_shapes(cfg, opt_cfg)
+    period = len(cfg.layer_kinds())
 
     def step(params, opt_state, batch):
         act = SH.active()
         if act is None:
             raise RuntimeError("the sharded train step needs active sharding rules and a mesh: "
                                "dist.sharding.set_active(rules, mesh)")
-        if settings.compress_grads:
-            raise NotImplementedError(
-                "compress_grads in the sharded step: the reference's 256-value blocks span a "
-                "whole stacked leaf and do not align with shards (ROADMAP Queue 1, item 5's "
-                "refusals)")
         rules, mesh = act
         pspecs, ospecs, bspecs, _ = train_shardings(cfg, rules, opt_cfg, settings)
         paths = [path for path, _ in O.flatten(like_p)]
@@ -650,12 +696,21 @@ def make_sharded_train_step(cfg, opt_cfg: O.OptConfig, settings: TrainSettings):
 
     def _sharded_update(params, opt_state, g_sum, mb_n, metrics, paths, keep, pspecs, ospecs,
                         like_p, rules, mesh):
+        mspecs = {path: O.get(ospecs["mu"], path)["m"] for path in paths}
         with record_function("train.optimizer"), _part("reduce_ms", mesh.device):
+            if settings.compress_grads:
+                _, reduced, new_err = _compress(g_sum, opt_state["err"], mb_n, paths, keep,
+                                                pspecs, mspecs, like_p, period, mesh)
+            else:
+                reduced = {}
+                for i, path in enumerate(paths):
+                    g, g_sum[i] = g_sum[i], None  # a leaf at a time
+                    reduced[path] = _reduce_to(g / mb_n if mb_n > 1 else g, keep[path],
+                                               mspecs[path], mesh)
             grads, p_opt, sq = [], [], torch.zeros((), dtype=torch.float32, device=mesh.device)
-            for i, path in enumerate(paths):
-                g, g_sum[i] = g_sum[i], None  # a leaf at a time
-                mspec = O.get(ospecs["mu"], path)["m"]
-                g = _reduce_to(g / mb_n if mb_n > 1 else g, keep[path], mspec, mesh)
+            for path in paths:
+                g = reduced.pop(path)
+                mspec = mspecs[path]
                 g = None if g is None else g.float()
                 grads.append(g)
                 p = O.get(params, path)
@@ -683,7 +738,9 @@ def make_sharded_train_step(cfg, opt_cfg: O.OptConfig, settings: TrainSettings):
             new_p, new_s, opt_metrics = O.apply_updates(
                 O.unflatten(like_p, p_opt), O.unflatten(like_p, grads), opt_state, opt_cfg,
                 gnorm=gnorm, mean=mean)
-            out = [_regather(O.get(new_p, path), O.get(ospecs["mu"], path)["m"],
+            if settings.compress_grads:
+                new_s["err"] = O.unflatten(like_p, [new_err[path] for path in paths])
+            out = [_regather(O.get(new_p, path), mspecs[path],
                              O.get(pspecs, path), O.get(like_p, path), mesh) for path in paths]
         metrics = _global_metrics(metrics, rules, mesh)
         metrics.update(opt_metrics)

@@ -13,7 +13,8 @@ from repro_torch.runtime.backends import get_backend
 from repro_torch.runtime.backends.cuda_fused import CudaFusedBackend
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
-PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+PORT_FILES = (sorted((ROOT / "src" / "repro_torch").rglob("*.py"))
+              + sorted((ROOT / "examples" / "torch").glob("*.py")) + [ROOT / "chip_smoke.py"])
 
 
 def _imported_roots(path: pathlib.Path):

@@ -237,8 +237,16 @@ def test_every_arch_builds_on_the_cpu(arch):
 
 
 def test_no_member_kind_is_refused():
-    """No model module refuses an arch as not ported."""
+    """No model module refuses an arch as not ported: the one
+    ``NotImplementedError`` there is ``member_train``'s refusal of
+    ``ShardRules.seq_parallel`` (its docstring names it), which every arch
+    meets alike."""
     import pathlib
     import repro_torch.models as pkg
     for path in pathlib.Path(pkg.__file__).parent.glob("*.py"):
-        assert "NotImplementedError" not in path.read_text(), path
+        text = path.read_text()
+        if path.name == "transformer.py":
+            assert text.count("NotImplementedError") == 2, path
+            assert text.count('raise NotImplementedError(\n            "seq_parallel:') == 1
+        else:
+            assert "NotImplementedError" not in text, path

@@ -29,10 +29,15 @@ included) in ``xla``, ``dragonfly`` and ``dragonfly_overlap``, and at
 ``dragonfly_overlap_fused`` (its round trip differentiated wave by wave)
 and in ``auto`` with the ranks' tuner forced to that mode; DeepSeek smoke at (2, 4)
 (MLA, the shared expert, the dense prefix, the MTP block); Jamba smoke at
-(2, 4) (Mamba's ``_SelectiveScan`` under the step); and the factored
+(2, 4) (Mamba's ``_SelectiveScan`` under the step); the factored
 optimizer on TinyLlama smoke widened to d 128 and d_ff 256, so that
 ``_factorable`` holds on leaves whose last or second-to-last dim is
-sharded (``wq``, the MLP, the embedding). The JAX side runs the EP cases'
+sharded (``wq``, the MLP, the embedding); and ``compress_grads`` on
+TinyLlama smoke with FSDP and with ZeRO-1 (``err`` cut as the parameters,
+the moments over the data axes too) and on Mixtral smoke's EP case
+(``COMPRESS``), held to the port's one-process compressed step alone: the
+reference's compressed step raises on every model (its
+``decompress_tree`` flattens the codes' tuples as leaves). The JAX side runs the EP cases'
 ``xla`` mode and its fused mode: its three exchange-only modes are
 bit-identical (``tests/test_torch_moe_ep.py``), and ``auto`` forced to the
 fused mode runs the fused mode.
@@ -46,10 +51,21 @@ one-process step (whose MoE layers are ``moe_apply_ep_plain`` or
 step 1 are exact. The ranks also hold the differentiable collectives'
 adjoints (float64, ``ADJOINT_TOL``), the fused round trip's among them,
 what that round trip saves for its backward, its layer's gradients
-against ``dragonfly``'s, three planted faults
-that must fail the comparison and the refusal of ``compress_grads``.
+against ``dragonfly``'s, four planted faults that must fail the
+comparison (one quantizes each rank's shard on its own), a planted
+truncating cast of the codes that only the cap on differing codes
+(``FLIP_SHARE``) rejects at the codes, the mesh's
+compression of planted gradients against ``compression.compress_tree``
+bit for bit, and the refusal of ``seq_parallel``, in the step and in the
+dry run's train and prefill cells.
+
+The whole compressed step cannot give the one-process codes bit for bit:
+its gradient sums add in another order, so a value at a half-step of its
+block's scale may round the other way; such codes are capped at
+``FLIP_SHARE`` of the values.
 """
 
+import contextlib
 import dataclasses
 import os
 import pathlib
@@ -70,6 +86,7 @@ from repro_torch.models import moe as TMOE
 from repro_torch.models import transformer as TT
 from repro_torch.models.convert import params_from_jax
 from repro_torch.runtime.backends.torch_dist import TorchDistBackend
+from repro_torch.train import compression as C
 from repro_torch.train import optimizer as O
 from repro_torch.train import train_step as TS
 from test_torch_moe_ep import SEP, flatten as flat_tree, unflatten as unflat, wait_for
@@ -79,6 +96,11 @@ SRC = TESTS.parent / "src"
 MODEL_TOL = 1e-4
 LOSS_TOL = 1e-5
 ADJOINT_TOL = 1e-12
+#: the largest share of a compressed case's values whose int8 code may
+#: differ from the one-process step's, each by one: a value at a half-step
+#: of its block's scale, which the sharded sum's other order rounds the
+#: other way
+FLIP_SHARE = 1e-4
 SEQ = 32
 STEPS = 2
 #: name -> (arch, mesh (data, model), ShardRules changes, microbatches,
@@ -101,7 +123,16 @@ CASES = {
     "deepseek": ("deepseek-v3-671b", (2, 4), {"fsdp": True}, 1, 4, False),
     "jamba": ("jamba-1.5-large-398b", (2, 4), {"fsdp": True}, 1, 4, False),
     "factored": ("tinyllama-1.1b", (2, 4), {"fsdp": True}, 1, 4, True),
+    "tiny_fsdp_compress": ("tinyllama-1.1b", (2, 4), {"fsdp": True}, 1, 4, False),
+    "tiny_zero1_compress": ("tinyllama-1.1b", (2, 4), {"zero1": True}, 1, 4, False),
+    "mix_compress": ("mixtral-8x7b", (2, 4), {"fsdp": True, "moe_collectives": "xla"}, 1, 4,
+                     False),
 }
+#: the cases that train with ``compress_grads``: the reference's compressed
+#: step raises on every model, so the port's one-process step is their oracle
+COMPRESS = ("tiny_fsdp_compress", "tiny_zero1_compress", "mix_compress")
+#: the cases held to the reference's jit
+REF_CASES = [name for name in CASES if name not in COMPRESS]
 #: the EP cases whose reference is another case's: the exchange-only modes
 #: the ``xla`` mode's, ``auto`` (forced to the fused mode: ``AUTO_FORCE``)
 #: the fused mode's
@@ -130,6 +161,16 @@ def opt_cfg(OptConfig, name):
     return OptConfig(factored=CASES[name][5], **OPT)
 
 
+def settings_of(name):
+    return TS.TrainSettings(microbatches=CASES[name][3], compress_grads=name in COMPRESS)
+
+
+def init_state(params, oc, name):
+    """Zero optimizer state, with the error-feedback state where the case compresses."""
+    s = O.init_state(params, oc)
+    return dict(s, err=C.init_error(params)) if name in COMPRESS else s
+
+
 def tokens(name, vocab):
     rows = CASES[name][4]
     return np.random.default_rng(7).integers(1, vocab, (rows, SEQ)).astype(np.int32)
@@ -143,16 +184,16 @@ def n_moe(cfg) -> int:
 
 # ------------------------------------------------- the port's side: a rank
 def _setup(name, flat):
-    arch, shape, kw, mb, _, _ = CASES[name]
+    arch, shape, kw, _, _, _ = CASES[name]
     cfg = case_cfg(get_smoke_config(arch), name)
     mesh = LM.make_mesh(shape, ("data", "model"), device="cpu")
     SH.set_active(SH.ShardRules(**kw), mesh)
     rules = SH.active()[0]
     oc = opt_cfg(O.OptConfig, name)
-    settings = TS.TrainSettings(microbatches=mb)
+    settings = settings_of(name)
     params = params_from_jax(unflat(flat, f"params{SEP}{name}"), cfg, device="cpu")
     specs = TS.train_shardings(cfg, rules, oc, settings)
-    p, s = TS.shard_train_state(params, O.init_state(params, oc), specs[:2], mesh)
+    p, s = TS.shard_train_state(params, init_state(params, oc, name), specs[:2], mesh)
     t = torch.from_numpy(flat[f"tokens{SEP}{name}"]).long()
     batch = TS.shard_batch({"tokens": t, "labels": t}, specs[2], mesh)
     return cfg, mesh, oc, settings, specs, p, s, batch
@@ -169,18 +210,38 @@ def run_case(name, flat, rank, steps=STEPS):
         autotune.set_autotuner(None)
 
 
+@contextlib.contextmanager
+def recording_codes(module, attr):
+    """Record, as numpy, the codes of every call of ``module.attr`` (a
+    compression that returns its codes, keyed by JAX path, first)."""
+    real, calls = getattr(module, attr), []
+
+    def record(*args):
+        out = real(*args)
+        calls.append({SEP.join(map(str, key)): (q.numpy().copy(), sc.numpy().copy())
+                      for key, (q, sc) in out[0].items()})
+        return out
+
+    setattr(module, attr, record)
+    try:
+        yield calls
+    finally:
+        setattr(module, attr, real)
+
+
 def _run_case(name, flat, rank, steps):
     cfg, mesh, oc, settings, specs, p, s, batch = _setup(name, flat)
     step = TS.make_sharded_train_step(cfg, oc, settings)
     metrics, routes = [], None
-    for i in range(steps):
-        if i == 0 and cfg.moe is not None:
-            with TMOE.recording_routes() as rec:
+    with recording_codes(TS, "_compress") as codes:
+        for i in range(steps):
+            if i == 0 and cfg.moe is not None:
+                with TMOE.recording_routes() as rec:
+                    p, s, m = step(p, s, batch)
+                routes = [(idx.numpy(), keep.numpy()) for idx, keep, _ in rec[:n_moe(cfg)]]
+            else:
                 p, s, m = step(p, s, batch)
-            routes = [(idx.numpy(), keep.numpy()) for idx, keep, _ in rec[:n_moe(cfg)]]
-        else:
-            p, s, m = step(p, s, batch)
-        metrics.append({k: float(v) for k, v in m.items()})
+            metrics.append({k: float(v) for k, v in m.items()})
     gp, gs = TS.gather_train_state(p, s, specs[:2], TS.state_shapes(cfg, oc), mesh)
     out = {"metrics": metrics, "routes": routes, "coords": mesh.coords}
     if rank == 0:
@@ -188,6 +249,7 @@ def _run_case(name, flat, rank, steps):
         flat_tree(gp, "params", state)
         flat_tree(gs, "opt", state)
         out["state"] = state
+        out["codes"] = codes
     SH.clear_active()
     return out
 
@@ -320,6 +382,10 @@ def planted(name, flat, rank, fault):
             return g.chunk(n)[r].contiguous()
 
         patch(CL, "_gather_transpose", slice_only)
+    elif fault == "per_shard_compress":
+        patch(TS, "_compress", per_shard_compress)
+    elif fault == "truncated_codes":
+        patch(C, "quantize", truncating_quantize)
     elif fault in ("no_backward", "none_as_zeros"):  # the exchanges invisible to autograd
         def no_backward(x, group=None, mesh=None):
             return CL._on_carrier(lambda t: CL._native_exchange(t, group), x.detach(), mesh)
@@ -338,21 +404,97 @@ def planted(name, flat, rank, fault):
             setattr(module, attr, value)
 
 
-def refusal(name, flat, rank):
-    """The step asked for ``compress_grads``: the error it raises."""
-    cfg, mesh, oc, settings, specs, p, s, batch = _setup(name, flat)
-    settings = dataclasses.replace(settings, compress_grads=True)
+def seq_parallel_refusal(flat, rank):
+    """A step of ``tiny_fsdp`` under its rules with ``seq_parallel`` set:
+    the error it raises, or None."""
+    cfg, mesh, oc, settings, specs, p, s, batch = _setup("tiny_fsdp", flat)
+    SH.set_active(dataclasses.replace(SH.active()[0], seq_parallel=True), mesh)
     try:
         TS.make_sharded_train_step(cfg, oc, settings)(p, s, batch)
         return None
-    except (RuntimeError, NotImplementedError) as e:
+    except NotImplementedError as e:
         return f"{type(e).__name__}: {e}"
     finally:
         SH.clear_active()
 
 
+def planted_grads(cfg, seed=11):
+    """(whole gradients, whole errors) of ``cfg``'s parameters in the port's
+    layout, normals from a numpy seed (errors at a hundredth of the scale)."""
+    rng = np.random.default_rng(seed)
+    like = TS.param_shapes(cfg)
+    grads = O.unflatten(like, [torch.from_numpy(rng.standard_normal(x.shape, np.float32))
+                               .to(x.dtype) for _, x in O.flatten(like)])
+    errs = O.unflatten(like, [torch.from_numpy(rng.standard_normal(x.shape, np.float32) / 100)
+                              for _, x in O.flatten(like)])
+    return grads, errs
+
+
+def mesh_codes(name, flat, rank):
+    """The mesh's compression (``train_step._compress``) of the planted
+    whole gradients and errors under ``name``'s rules: each leaf's gradient
+    held, cut by its compute spec, by the ranks at coordinate 0 of the axes
+    it is summed over (the rest give zeros, so the sums are the planted
+    values), its error cut to the rank's ``err`` shard. Returns the codes
+    and the rank's pieces of the dequantized gradient and the new error."""
+    cfg, mesh, oc, settings, specs, _, _, _ = _setup(name, flat)
+    rules = SH.active()[0]
+    pspecs, ospecs = specs[:2]
+    grads, errs = planted_grads(cfg)
+    like_p = TS.param_shapes(cfg)
+    paths = [path for path, _ in O.flatten(like_p)]
+    keep = {path: TS._compute_spec(path, O.get(pspecs, path), pspecs, rules) for path in paths}
+    g_sum = []
+    for path in paths:
+        g = O.get(grads, path)
+        g = g[SH.local_slices(keep[path], g.shape, mesh.coords, mesh.sizes)]
+        g_sum.append(torch.zeros_like(g) if TS._replica(keep[path], mesh) else g.clone())
+    err = O.unflatten(like_p, [TS._held(O.get(errs, path), O.get(ospecs["err"], path), mesh)
+                               for path in paths])
+    mspecs = {path: O.get(ospecs["mu"], path)["m"] for path in paths}
+    codes, deq, new_err = TS._compress(g_sum, err, 1, paths, keep, pspecs, mspecs, like_p,
+                                       len(cfg.layer_kinds()), mesh)
+    SH.clear_active()
+    return {"codes": {SEP.join(map(str, k)): (q.numpy(), sc.numpy())
+                      for k, (q, sc) in codes.items()},
+            "grads": {SEP.join(map(str, k)): None if v is None else v.numpy()
+                      for k, v in deq.items()},
+            "err": {SEP.join(map(str, k)): None if v is None else v.numpy()
+                    for k, v in new_err.items()},
+            "coords": mesh.coords}
+
+
+def per_shard_compress(g_sum, err, mb_n, paths, keep, pspecs, mspecs, like_p, period, mesh):
+    """A planted fault in ``train_step._compress``'s place: each rank
+    quantizes the piece of each leaf that its optimizer state holds with
+    its own error, blocks cut by the shard instead of the JAX leaf."""
+    grads, new_err = {}, {}
+    for i, path in enumerate(paths):
+        assert mspecs[path] == O.get(pspecs, path), path  # FSDP: the state cut as the leaf
+        g, g_sum[i] = g_sum[i], None
+        g = TS._reduce_to(g / mb_n if mb_n > 1 else g, keep[path], mspecs[path], mesh)
+        if g is None:
+            grads[path] = new_err[path] = None
+            continue
+        _, (grads[path],), (new_err[path],) = C.compress_stacked([g], [O.get(err, path)])
+    return {}, grads, new_err
+
+
+def truncating_quantize(g):
+    """A planted fault in ``compression.quantize``'s place: the codes cast
+    to int8 without rounding (a cast truncates)."""
+    flat = g.float().reshape(-1)
+    blocks = torch.nn.functional.pad(flat, (0, (-flat.numel()) % C.BLOCK)).reshape(-1, C.BLOCK)
+    scale = blocks.abs().amax(dim=1) / 127.0
+    scale = torch.where(scale == 0, torch.ones_like(scale), scale)
+    return torch.clamp(blocks / scale[:, None], -127, 127).to(torch.int8), scale
+
+
+#: the cases whose rules the planted compression runs under
+MESH_CODES = ("tiny_fsdp_compress", "mix_compress")
 FAULTS = {"seed_unscaled": "tiny_fsdp", "gather_no_sum": "mix_xla", "no_backward": "mix_xla",
-          "none_as_zeros": "mix_xla"}
+          "none_as_zeros": "mix_xla", "per_shard_compress": "tiny_fsdp_compress",
+          "truncated_codes": "tiny_fsdp_compress"}
 
 
 def run_rank(rank, group, layout, params_path):
@@ -364,7 +506,8 @@ def run_rank(rank, group, layout, params_path):
     out["fused_layer"] = fused_layer_grads(rank)
     out["round_trip_saves"] = round_trip_saves(rank)
     out["faults"] = {fault: planted(name, flat, rank, fault) for fault, name in FAULTS.items()}
-    out["refusals"] = {"compress": refusal("tiny_fsdp", flat, rank)}
+    out["seq_parallel"] = seq_parallel_refusal(flat, rank)
+    out["mesh_codes"] = {name: mesh_codes(name, flat, rank) for name in MESH_CODES}
     return out
 
 
@@ -467,16 +610,80 @@ def gathered(ranks, name):
     return unflat(state, "params"), unflat(state, "opt")
 
 
-def assert_tree_close(got, want, tol, what):
+def assert_tree_close(got, want, tol, what, skip=None, norm_of=None):
+    """Every leaf within ``tol`` of ``want``'s, ||Δ|| relative to the
+    leaf's norm, or to ``norm_of(path)``'s where it gives an array; the
+    elements ``skip(path)`` marks are set aside."""
     want = dict(O.flatten(want))
     got = dict(O.flatten(got))
     assert set(got) == set(want), (what, set(got) ^ set(want))
     for path, w in want.items():
         g, w = np.asarray(got[path], np.float64), np.asarray(w, np.float64)
         assert g.shape == w.shape, (what, path)
-        err = float(np.linalg.norm(g - w))
-        assert err <= tol * float(np.linalg.norm(w)) + 1e-12, (what, path, err,
-                                                                float(np.linalg.norm(w)))
+        keep = ~skip(path) if skip is not None else np.ones(w.shape, bool)
+        ref = norm_of(path) if norm_of is not None else w
+        err = float(np.linalg.norm((g - w)[keep]))
+        size = float(np.linalg.norm(np.asarray(ref, np.float64)[keep]))
+        assert err <= tol * size + 1e-12, (what, path, err, size)
+
+
+def by_port_leaf(cfg, per_ref):
+    """{port path: array}: ``per_ref(key)``, a flat array for the JAX leaf
+    at ``key``, cut into the port leaves it stacks
+    (``compression.by_port_leaf``)."""
+    return C.by_port_leaf(lambda ref_path: per_ref(SEP.join(map(str, ref_path))),
+                          TS.param_shapes(cfg), len(cfg.layer_kinds()))
+
+
+def flip_masks(cfg, got, want):
+    """({port path: mask} of the values whose int8 code differs between two
+    runs' codes at some step, the share of the values they are), after
+    checking that every code is within one of the other run's and every
+    scale within MODEL_TOL."""
+    assert len(got) == len(want) and set(got[0]) == set(want[0])
+
+    def differ(key):
+        out = None
+        for g, w in zip(got, want):
+            (gq, gs), (wq, ws) = g[key], w[key]
+            assert np.abs(gq.astype(np.int32) - wq).max() <= 1, key
+            np.testing.assert_allclose(gs, ws, rtol=MODEL_TOL, err_msg=key)
+            d = (gq != wq).reshape(-1)
+            out = d if out is None else out | d
+        return out
+
+    masks = by_port_leaf(cfg, differ)
+    return masks, sum(int(m.sum()) for m in masks.values()) / sum(m.size for m in masks.values())
+
+
+def flipped(cfg, got, want):
+    """``flip_masks``' masks, after checking that the values whose code
+    differs are at most FLIP_SHARE of all."""
+    masks, share = flip_masks(cfg, got, want)
+    assert share <= FLIP_SHARE, share
+    return masks
+
+
+def assert_state_close(cfg, got_p, got_s, p, s, codes, masks=None):
+    """The parameters and the optimizer state within MODEL_TOL of the
+    one-process step's (``codes``: its compressions' codes, where it
+    compresses), the values ``masks`` marks set aside. The error-feedback
+    state is a residual of 1/254 of its block's largest value at most, so
+    an error of the gradient shows in it about a hundred times over: it is
+    held relative to the gradient it was cut from, its error plus the last
+    step's dequantized gradient."""
+    def skip(path):
+        return None if masks is None else masks[path]
+
+    assert_tree_close(got_p, _numpy(p), MODEL_TOL, "params", masks and skip)
+    assert_tree_close(got_s["mu"], _numpy(s["mu"]), MODEL_TOL, "opt",
+                      masks and (lambda path: skip(path[:-1])))
+    if "err" in s:
+        deq = by_port_leaf(cfg, lambda key: (codes[-1][key][0].astype(np.float32)
+                                             * codes[-1][key][1][:, None]).reshape(-1))
+        err = _numpy(s["err"])
+        assert_tree_close(got_s["err"], err, MODEL_TOL, "err", masks and skip,
+                          lambda path: O.get(err, path) + deq[path])
 
 
 def reference_state(ref, name):
@@ -492,12 +699,13 @@ def reference_state(ref, name):
 def oracle(name, flat, steps=STEPS):
     """The port's one-process step on the whole batch, ``steps`` steps, with
     the case's MoE layers in their one-process form at its mesh: (params,
-    opt_state, metrics a step, routes of step 1)."""
-    arch, shape, _, mb, _, _ = CASES[name]
+    opt_state, metrics a step, routes of step 1, the codes of each step
+    where the case compresses)."""
+    arch, shape, _, _, _, _ = CASES[name]
     cfg = case_cfg(get_smoke_config(arch), name)
     oc = opt_cfg(O.OptConfig, name)
     p = params_from_jax(unflat(flat, f"params{SEP}{name}"), cfg, device="cpu")
-    s = O.init_state(p, oc)
+    s = init_state(p, oc, name)
     t = torch.from_numpy(flat[f"tokens{SEP}{name}"]).long()
     batch = {"tokens": t, "labels": t}
     real = TMOE.moe_apply_auto
@@ -507,17 +715,18 @@ def oracle(name, flat, steps=STEPS):
         TMOE.moe_apply_auto = lambda pp, x, c: TMOE.moe_apply_tp_plain(pp, x, c, *shape)
     SH.clear_active()
     try:
-        step = TS.make_train_step(cfg, oc, TS.TrainSettings(microbatches=mb))
+        step = TS.make_train_step(cfg, oc, settings_of(name))
         metrics, routes = [], None
-        for i in range(steps):
-            with TMOE.recording_routes() as rec:
-                p, s, m = step(p, s, batch)
-            if i == 0:
-                routes = [(idx.numpy(), keep.numpy()) for idx, keep, _ in rec[:n_moe(cfg)]]
-            metrics.append({k: float(v) for k, v in m.items()})
+        with recording_codes(C, "compress_tree") as codes:
+            for i in range(steps):
+                with TMOE.recording_routes() as rec:
+                    p, s, m = step(p, s, batch)
+                if i == 0:
+                    routes = [(idx.numpy(), keep.numpy()) for idx, keep, _ in rec[:n_moe(cfg)]]
+                metrics.append({k: float(v) for k, v in m.items()})
     finally:
         TMOE.moe_apply_auto = real
-    return p, s, metrics, routes
+    return p, s, metrics, routes, codes
 
 
 @pytest.fixture(scope="module")
@@ -531,7 +740,7 @@ def _numpy(tree):
     return O.unflatten(tree, [x.numpy() for _, x in O.flatten(tree)])
 
 
-@pytest.mark.parametrize("name", list(CASES))
+@pytest.mark.parametrize("name", REF_CASES)
 def test_sharded_step_matches_the_reference_jit(runs, name):
     """Two steps, gathered: every leaf of the parameters and the optimizer
     state within MODEL_TOL of the reference's sharded jit, loss and
@@ -554,13 +763,20 @@ def test_sharded_step_matches_the_reference_jit(runs, name):
 
 @pytest.mark.parametrize("name", list(CASES))
 def test_sharded_step_matches_the_one_process_step(runs, oracles, name):
-    """The same against the port's one-process step; the routes and drops
+    """The same against the port's one-process step; where the case
+    compresses, each step's codes within one of its (the values whose code
+    differs, at most FLIP_SHARE, set aside: ``flipped``) and the
+    error-feedback state too (``assert_state_close``); the routes and drops
     of step 1 exact, shard by shard; every rank's metrics the same."""
     ranks, _, _ = runs
-    p, s, metrics, routes = oracles[name]
+    p, s, metrics, routes, codes = oracles[name]
+    cfg = case_cfg(get_smoke_config(CASES[name][0]), name)
     got_p, got_s = gathered(ranks, name)
-    assert_tree_close(got_p, _numpy(p), MODEL_TOL, "params")
-    assert_tree_close(got_s["mu"], _numpy(s["mu"]), MODEL_TOL, "opt")
+    assert ("err" in got_s) == ("err" in s) == (name in COMPRESS)
+    assert len(codes) == len(ranks[0]["cases"][name]["codes"]) == (STEPS if name in COMPRESS
+                                                                   else 0)
+    masks = flipped(cfg, ranks[0]["cases"][name]["codes"], codes) if codes else None
+    assert_state_close(cfg, got_p, got_s, p, s, codes, masks)
     for r in ranks:
         assert r["cases"][name]["metrics"] == ranks[0]["cases"][name]["metrics"]
         for i, m in enumerate(r["cases"][name]["metrics"]):
@@ -627,13 +843,13 @@ def test_collective_adjoints(runs, op):
     assert abs(lhs - rhs) <= ADJOINT_TOL * max(1.0, abs(lhs)), (op, lhs, rhs)
 
 
-def _fails_comparison(res, p, s, m):
+def _fails_comparison(name, res, p, s, m, codes):
     """Whether a planted fault's one step is off the one-process step: its
-    state, its loss or its grad_norm."""
+    state (no value set aside), its loss or its grad_norm."""
     got_p, got_s = unflat(res["state"], "params"), unflat(res["state"], "opt")
+    cfg = case_cfg(get_smoke_config(CASES[name][0]), name)
     try:
-        assert_tree_close(got_p, _numpy(p), MODEL_TOL, "params")
-        assert_tree_close(got_s["mu"], _numpy(s["mu"]), MODEL_TOL, "opt")
+        assert_state_close(cfg, got_p, got_s, p, s, codes)
         for k in ("loss", "grad_norm"):
             assert abs(res["metrics"][0][k] - m[k]) <= LOSS_TOL * abs(m[k])
     except AssertionError:
@@ -641,23 +857,42 @@ def _fails_comparison(res, p, s, m):
     return False
 
 
-@pytest.mark.parametrize("fault", ["seed_unscaled", "gather_no_sum", "none_as_zeros"])
+@pytest.mark.parametrize("fault", ["seed_unscaled", "gather_no_sum", "none_as_zeros",
+                                   "per_shard_compress"])
 def test_planted_faults_fail_the_comparison(runs, fault):
     """A seed not scaled for the model axis (the loss counted 4 times: under
     the clip the update is the same, grad_norm 4 times over), an output
-    gather whose backward takes the rank's slice without the sum, and a
+    gather whose backward takes the rank's slice without the sum, a
     missing expert gradient taken as zeros (the exchange invisible to
-    autograd) each move the step off the one-process step (the unfaulted
-    step is within the tolerances, above)."""
+    autograd) and a compression that quantizes each rank's shard on its
+    own each move the step off the one-process step (the unfaulted step is
+    within the tolerances, above)."""
     ranks, _, flat = runs
     torch.set_num_threads(1)
-    p, s, (m,), _ = oracle(FAULTS[fault], flat, steps=1)
+    p, s, (m,), _, codes = oracle(FAULTS[fault], flat, steps=1)
     res = ranks[0]["faults"][fault]
     assert "error" not in res, res
-    assert _fails_comparison(res, p, s, m)
+    assert _fails_comparison(FAULTS[fault], res, p, s, m, codes)
     if fault == "seed_unscaled":  # every gradient 4 times over
         np.testing.assert_allclose(res["metrics"][0]["grad_norm"], 4 * m["grad_norm"],
                                    rtol=1e-5)
+
+
+def test_a_truncating_cast_exceeds_the_flip_cap(runs):
+    """Codes cast to int8 without rounding (a cast truncates) put every
+    code within one of the one-process step's and leave every scale as it
+    was: at the codes, only FLIP_SHARE, the cap on the share of codes that
+    differ, rejects it."""
+    ranks, _, flat = runs
+    torch.set_num_threads(1)
+    name = FAULTS["truncated_codes"]
+    *_, codes = oracle(name, flat, steps=1)
+    cfg = case_cfg(get_smoke_config(CASES[name][0]), name)
+    got = ranks[0]["faults"]["truncated_codes"]["codes"]
+    _, share = flip_masks(cfg, got, codes)
+    assert share > FLIP_SHARE, share
+    with pytest.raises(AssertionError):
+        flipped(cfg, got, codes)
 
 
 def test_a_missing_gradient_raises(runs):
@@ -694,11 +929,75 @@ def test_round_trip_saves_its_arrivals_for_checkpoint(runs):
         assert got["checkpoint_same_grads"], got
 
 
-def test_refuses_compress_grads(runs):
+@pytest.mark.parametrize("name", MESH_CODES)
+def test_mesh_codes_are_compress_trees(runs, name):
+    """The mesh's compression of planted whole gradients and errors gives,
+    on every rank, ``compression.compress_tree``'s codes and scales bit for
+    bit, and the rank's pieces of its dequantized gradient and new error.
+    TinyLlama smoke's stacked norm scales are one 128-value block whose two
+    layers FSDP places on different data coordinates."""
+    ranks, _, flat = runs
+    cfg = case_cfg(get_smoke_config(CASES[name][0]), name)
+    grads, errs = planted_grads(cfg)
+    period = len(cfg.layer_kinds())
+    codes, new_err = C.compress_tree(grads, errs, period)
+    deq = C.decompress_tree(codes, grads, period)
+    rules = SH.ShardRules(**CASES[name][2], data_axis_size=2, model_axis_size=4)
+    specs = TS.train_shardings(cfg, rules, opt_cfg(O.OptConfig, name), settings_of(name))
+    sizes = {"data": 2, "model": 4}
+    if name == "tiny_fsdp_compress":
+        norms = [O.get(specs[0], ("stack", i, "norm1", "scale"))[0] for i in range(2)]
+        assert [h.index(sizes) for h in norms] == [0, 1], norms
+        q, _ = codes[("stack", 0, "norm1", "scale")]
+        assert q.shape == (1, C.BLOCK) and 2 * cfg.d_model <= C.BLOCK
+    for r in ranks:
+        got = r["mesh_codes"][name]
+        assert set(got["codes"]) == {SEP.join(map(str, k)) for k in codes}
+        for key, (q, sc) in codes.items():
+            gq, gs = got["codes"][SEP.join(map(str, key))]
+            np.testing.assert_array_equal(gq, q.numpy())
+            np.testing.assert_array_equal(gs.view(np.uint32), sc.numpy().view(np.uint32))
+        for path, _ in O.flatten(grads):
+            key = SEP.join(map(str, path))
+            for what, whole, spec in (("grads", O.get(deq, path), O.get(specs[1]["mu"], path)["m"]),
+                                      ("err", O.get(new_err, path), O.get(specs[1]["err"], path))):
+                cut = SH.held_slices(spec, whole.shape, got["coords"], sizes)
+                if cut is None:
+                    assert got[what][key] is None, (what, path)
+                else:
+                    np.testing.assert_array_equal(got[what][key].view(np.uint32),
+                                                  whole[cut].numpy().view(np.uint32))
+
+
+def test_seq_parallel_is_refused(runs, tmp_path):
+    """``seq_parallel`` raises where the reference reads it (a member's
+    train form): in the sharded step on every rank, and in the dry run's
+    train and prefill cells, which report ``FAILED`` with that error."""
+    from repro_torch.launch import dryrun as D
+
     ranks, _, _ = runs
     for r in ranks:
-        assert r["refusals"]["compress"].startswith("NotImplementedError: compress_grads"), \
-            r["refusals"]
+        assert r["seq_parallel"].startswith("NotImplementedError: seq_parallel:"), r["seq_parallel"]
+        assert "ROADMAP Queue 3" in r["seq_parallel"]
+    for shape in ("train_4k", "prefill_32k"):
+        cell = D.analyze_cell("tinyllama-1.1b", shape, False, variant={"seq_parallel": True},
+                              tag="seq_parallel", out_dir=tmp_path)
+        assert cell["status"] == "FAILED", cell
+        assert cell["error"].startswith("NotImplementedError: seq_parallel:"), cell["error"]
+
+
+def test_seq_parallel_leaves_the_decode_as_it_was(tmp_path):
+    """The decode does not run a member's train form (the reference's
+    decode ignores the field too): with ``seq_parallel`` the dry run's
+    decode cell counts what the default cell counts."""
+    from repro_torch.launch import dryrun as D
+
+    plain = D.analyze_cell("tinyllama-1.1b", "decode_32k", False, out_dir=tmp_path)
+    cell = D.analyze_cell("tinyllama-1.1b", "decode_32k", False, variant={"seq_parallel": True},
+                          tag="seq_parallel", out_dir=tmp_path)
+    assert plain["status"] == cell["status"] == "ok", cell
+    for key in ("memory", "cost", "collectives"):
+        assert cell[key] == plain[key], key
 
 
 def test_refuses_without_an_active_mesh():
