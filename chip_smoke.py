@@ -80,6 +80,14 @@ one NVIDIA card, end to end.
    shape, its time beside the plain version, SDPA given the same window
    as a boolean mask (KV heads expanded beforehand; timed only) and its
    bound, the keys inside the causal window at the bf16 tensor-core rate;
+   then at the local-head shapes the tensor-parallel forwards give it (a
+   rank's query heads and the KV heads they read: TinyLlama-1.1B's 16/2
+   at (2, 2048) of step 18 d and 2/1 at (2, 32768) of step 19 b,
+   Mixtral-8x7B's 4/1 at (1, 8192) of step 13 b and 2/1 at (1, 4096) of
+   step 14 b with the window, DeepSeek-V3's MLA 8/8 at (1, 4096) and
+   (192, 128) of step 17 b), each against its plain version by the bf16
+   bound and timed beside the plain version, SDPA and its bound, with its
+   persistent grid's tiles;
 8. runs TinyLlama-1.1B's prefill forward at full width (22 layers,
    random weights from a seed, tokens (8, 2048), its published context)
    through ``models.model.forward_train`` and ``loss_fn``: exactly 22 K4
@@ -202,8 +210,12 @@ one NVIDIA card, end to end.
    hit), and ``Engine.collective_report()`` under those rules (measured
    and the same on every rank). b) ``forward_train`` of the first
    ``EP_FORWARD_LAYERS`` layers on tokens (1, 8192) in the ``dragonfly``
-   mode with K4 on, one ``wgmma`` launch a layer and rank, rank 0's
-   last-token logits and loss against the
+   mode with K4 on, on each rank's compute leaves (``models.local_params``:
+   views of the shared weights, the attention on the rank's 4 of 32 query
+   heads and its KV head, the embedding and the unembedding cut on the
+   model axis too), one ``wgmma`` launch a layer and rank at (1, 8192,
+   4/1, 128, window 4096), rank 0's last-token logits (gathered over the
+   vocabulary) and loss against the
    one-process forward whose MoE layers are ``moe_apply_ep_plain``
    (step 8's criteria, the route flips as in step 12); its ms, tokens/s
    and the exchange's share. c) the whole-array wave replay
@@ -233,12 +245,16 @@ one NVIDIA card, end to end.
    stack; the wall ms of a call of all ranks (``TP_CALLS`` after a
    warm-up), the all-reduce and expert-FFN ms, the carrier's copies and
    bytes and the peak a rank. b) ``forward_train`` of the first
-   ``TP_FORWARD_LAYERS`` layers with K4 on tokens (1, 4096), one
-   ``wgmma`` launch a layer and rank, held bit for bit
-   against the one-process forward whose MoE layers are
-   ``moe_apply_tp_plain`` summing in gloo's order: rank 0's last-token
-   logits, the loss, and every layer's routes, drops and router logits;
-   every rank's logits the same bits; its ms, tokens/s and the
+   ``TP_FORWARD_LAYERS`` layers with K4 on tokens (1, 4096) on each
+   rank's compute leaves (``models.local_params``: views of the shared
+   weights; the attention on the rank's 2 of 32 query heads and the KV
+   head they read, gathered, the embedding and the unembedding cut on
+   the model axis too), one ``wgmma`` launch a layer and rank at
+   (1, 4096, 2/1, 128, window 4096), held against the one-process
+   forward whose MoE layers are ``moe_apply_tp_plain`` summing in gloo's
+   order by step 8's criteria (rank 0's last-token logits, gathered over
+   the vocabulary, the loss) and the route flips as in step 12; every
+   rank's last-token logits the same bits; its ms, tokens/s and the
    all-reduce's share;
 15. serves two Mixtral-8x7B tenants at full width, the depth cut to 2 of
    32 layers each (6.3 GB of bf16 a tenant), made on the card from seeds
@@ -280,8 +296,9 @@ one NVIDIA card, end to end.
    axis: 16 processes share the card on a (data 1, model 16) mesh (gloo,
    the host as the exchanges' carrier; the model axis is D3(4,2)), 256
    experts, 16 a rank, so ``moe_apply_auto`` takes EP. The weights are made
-   anew at step 11's depth (3 dense-prefix layers, 1 MoE layer and the MTP
-   block, 31.6 GB of bf16 from seed 0; the card's free memory printed
+   anew at 1 dense-prefix layer (``DS_EP_PREFIX``; step 11's 3, cut for
+   the script's time), 1 MoE layer and the MTP block (bf16 from
+   seed 0; the card's free memory printed
    first), once in the parent, and handed to the ranks by CUDA IPC; each
    rank cuts its 16 experts as views, each expert stack by its
    ``models.param_specs`` entry through ``dist.sharding.local_slices`` (a
@@ -304,17 +321,23 @@ one NVIDIA card, end to end.
    agreed by all 16 ranks, its output the bits of the mode it names, every
    candidate's µs beside the analytic ``moe_site_report`` at that key.
    b) ``forward_train`` with K4 on tokens (1, 4096) from the seed in the
-   ``dragonfly`` mode: exactly 4 ``wgmma`` K4 launches a rank (64 in all),
-   every rank's logits and rank 0's last-token logits the one-process
-   forward's bits, the MoE layer's routes, drops and router logits too;
-   rank 0's ``loss_fn`` (``ce`` and ``mtp`` bit for bit, the loss within
-   1e-5: its aux term is gloo's sum) while the other ranks run
-   ``forward_train`` beside it; its ms, tokens/s, the exchange's share
-   and the peaks a rank;
+   ``dragonfly`` mode on each rank's compute leaves (``models.local_params``:
+   MLA on 8 of the 128 heads, the dense MLPs and the shared expert on an ff
+   slice, the embedding and the unembedding cut on the model axis too):
+   exactly 2 ``wgmma`` K4 launches a rank at (1, 4096, 8/8, 192, 128) (32
+   in all), every rank's last-token logits (gathered over the vocabulary)
+   the same bits, rank 0's within step 8's criteria of the one-process
+   forward's, the MoE layer's routes by step 10's rule for it (each
+   token's first differing route at a near-tie; the share printed); every
+   rank's ``loss_fn`` (its cross entropy on its vocabulary slice) the
+   same, ``ce``, ``mtp`` and the loss within 1e-3 of the one-process
+   ones; its ms, tokens/s, the exchange's share and the peaks a rank;
 18. trains on meshes of processes sharing the card
    (``train_sharded_phase``; ``train.train_step.make_sharded_train_step``
    on gloo, the host as the carrier; the plain attention, and no launch of
-   K1–K5 in any part, counted). Each rank makes the whole parameters from
+   K1–K5 in any training part, counted; the attention, the dense MLPs, the
+   embedding and the unembedding computed tensor-parallel on the model
+   axis, ``models.compute_specs``). Each rank makes the whole parameters from
    the seed on the card, cuts them and a fresh optimizer state to its
    shards by ``train_shardings`` and frees the rest; each one-process
    oracle runs first and only its outputs are kept; nothing is shared by
@@ -356,7 +379,17 @@ one NVIDIA card, end to end.
    above the noise; ``dragonfly`` the same bits as ``xla``, the fused
    mode's distance from ``xla`` printed;
    its ms a step, the forward's exchange share (``moe.timing_parts``), the
-   carrier's copies and bytes and the peak a rank.
+   carrier's copies and bytes and the peak a rank. d) in b's ranks,
+   TinyLlama-1.1B whole in bf16 made anew from the seed on each rank:
+   ``forward_train`` with K4 on the rank's (2, 2048) rows of b's tokens
+   under the (2, 2) mesh's rules, on its compute leaves
+   (``models.local_params``: 16 of 32 query heads, 2 of 4 KV heads, an
+   ff slice, a vocabulary slice), exactly 22 ``wgmma`` K4 launches a rank
+   at (2, 2048, 16/2, 64), held against the same rank's forward on the
+   whole leaves with no rules on its vocabulary slice of the logits by
+   step 8's bound (K4's own bf16 bound, ``attention_close``, printed); both
+   forwards' ms and tokens/s
+   (the slowest rank's, median of ``PREFILL_TP_REPS``).
 
 19. (since PR 25) the dry run (``launch.dryrun``) in a process of its
    own, whose fake process group is process-global: a) on the meta
@@ -414,7 +447,7 @@ The cells (layout D3(K, M) has n = K·M² routers):
   prefill     Mamba, 1 MoE FFN), tokens (1, 4096): K4 at (128, 128), 64/8
               heads, 1 launch a forward;
   xLSTM       xLSTM-1.3B whole, tokens (8, 2048), no kernel;
-  DeepSeek EP DeepSeek-V3 at step 11's depth, mesh (1, 16), 16 ranks
+  DeepSeek EP DeepSeek-V3, 1 dense-prefix and 1 MoE layer, mesh (1, 16), 16 ranks
               sharing the card, 16 of 256 experts a rank: T_loc 256, C_loc
               16, a (16, 16, 16, 7168) bf16 buffer of 58.7 MB a rank each
               way; the forward on tokens (1, 4096), K4 4 launches a rank.
@@ -451,6 +484,8 @@ PREFILL = (8, 2048)  # TinyLlama-1.1B prefill: batch, tokens (its published cont
 MIXTRAL_LAYERS = 8  # of 32: 8 layers of bf16 weights are 23.7 GB, all 32 are 93 GB
 MIXTRAL_TOKENS = (1, 8192)  # one sequence of twice the window
 DEEPSEEK_LAYERS = 4  # of 61: the 3 dense-prefix layers and 1 MoE layer (23.0 GB each)
+DS_EP_PREFIX = 1  # step 17: of the 3 dense-prefix layers (with the 1 MoE layer), cut from 3
+# for the script's time: each tensor-parallel layer adds two host all-reduces a forward
 DEEPSEEK_TOKENS = (1, 4096)  # its pre-training length; one sequence (the capacity couples a batch)
 ROUTE_FLIP_MAX = 0.03  # share of (token, layer) routes the kernel and naive passes may differ on
 FIRST_FLIP_GAP_MAX = 0.02  # a token's first differing route must be a near-tie: the kernel
@@ -538,10 +573,13 @@ MIXTRAL_SAME_BITS = ("dragonfly",)
 SHARDED_REL = 1e-3  # b, c: loss, grad_norm and moe_aux against the one-process step, relative
 SHARDED_M_REL = 3e-2  # c: each watched leaf's first moment, ||Δ|| / ||m||: bf16 gradients; the
 # bf16 control (the one-process step in bf16 against float32) put its worst leaf's m 2.83e-2 off
+ZERO_SKEW, ZERO_SLACK = 2, 64  # c: zeros of the step's m where the oracle's is above the noise,
+# at most this many times the oracle's zeros where the step's is, plus this many
 FLIP_SHARE = 1e-4  # a, compressed: the largest share of values whose code may differ from the
 # one-process step's (a value at a half-step, rounded the other way after the sharded sum):
 # 1.67e-5 measured on the card; the planted truncating cast reads about 0.5
 TRAIN_SHARDED_PHASE_S = 300  # step 18's time budget
+PREFILL_TP_REPS = 2  # d: timed TP prefills (and whole-leaf ones), each after a warm-up
 #: 19 a: (arch, shape, multi-pod, rules changes, tag, expected status) of the dry run on meta
 DRYRUN_CELLS = (
     ("tinyllama-1.1b", "train_4k", False, {}, "", "ok"),          # the sharded step
@@ -867,10 +905,13 @@ def ep_rank(rank, group, layout, mparams, cfg, x, tokens, want_y, layers_b, tune
     layer["transport"], layer["carrier"] = mesh.transport, str(mesh.carrier)
     del outs, xla_y, y
 
-    # b) the model forward under EP, the dragonfly mode, K4 on
+    # b) the model forward under EP, the dragonfly mode, K4 on, on the
+    # rank's compute leaves: views of the shared weights, the attention,
+    # the embedding and the unembedding cut on the model axis too
     SH.set_active(SH.ShardRules(moe_collectives="dragonfly"), mesh)
     cfg_b = dataclasses.replace(cfg, n_layers=layers_b)
-    params_b = {**params, "stack": params["stack"][:layers_b]}
+    params_b = M.local_params({**mparams, "stack": mparams["stack"][:layers_b]}, cfg_b,
+                              SH.active()[0], mesh.coords, mesh.sizes)
     batch = {"tokens": tokens, "labels": tokens}
     flash_attention.launches = 0
     flash_attention.body_launches = dict.fromkeys(flash_attention.body_launches, 0)
@@ -880,7 +921,7 @@ def ep_rank(rank, group, layout, mparams, cfg, x, tokens, want_y, layers_b, tune
     k4 = {"launches": flash_attention.launches, "bodies": dict(flash_attention.body_launches)}
     model = {"k4": k4, "first_ms": first_ms, "aux": float(aux),
              "finite": bool(torch.isfinite(logits).all()),
-             "last_logits": logits[:, -1].float().cpu(),
+             "last_logits": M.whole_logits(logits[:, -1:])[:, 0].float().cpu(),
              "routes": [(idx.cpu(), keep.cpu(), lg.float().cpu()) for idx, keep, lg in routes]}
     del logits
     model["loss"] = float(M.loss_fn(params_b, batch, cfg_b, True)[0])
@@ -1150,9 +1191,13 @@ def tp_rank(rank, group, layout, mparams, cfg, x, tokens, layers_b, order_shapes
              "route_idx": mine(idx), "route_keep": mine(keep)}
     del y
 
-    # b) the model forward under TP, K4 on
+    # b) the model forward under TP, K4 on, on the rank's compute leaves:
+    # views of the shared weights, the attention (2 of 32 query heads, the
+    # KV head they read gathered), the embedding and the unembedding cut on
+    # the model axis too
     cfg_b = dataclasses.replace(cfg, n_layers=layers_b)
-    params_b = {**params, "stack": params["stack"][:layers_b]}
+    params_b = M.local_params({**mparams, "stack": mparams["stack"][:layers_b]}, cfg_b, rules,
+                              mesh.coords, mesh.sizes)
     batch = {"tokens": tokens, "labels": tokens}
     flash_attention.launches = 0
     flash_attention.body_launches = dict.fromkeys(flash_attention.body_launches, 0)
@@ -1160,11 +1205,12 @@ def tp_rank(rank, group, layout, mparams, cfg, x, tokens, layers_b, order_shapes
     with MOE.recording_routes() as routes:
         (logits, aux, _), first_ms = wall_ms(lambda: M.forward_train(params_b, batch, cfg_b, True))
     k4 = {"launches": flash_attention.launches, "bodies": dict(flash_attention.body_launches)}
+    last = M.whole_logits(logits[:, -1:])[:, 0]
     model = {"k4": k4, "first_ms": first_ms, "aux": float(aux),
              "finite": bool(torch.isfinite(logits).all()),
-             "last_logits": mine(logits[:, -1]), "logits_bits": bits(logits),
+             "last_logits": mine(last), "logits_bits": bits(last),
              "routes": [tuple(t.cpu() for t in r) for r in routes] if rank == 0 else None}
-    del logits
+    del logits, last
     model["loss"] = float(M.loss_fn(params_b, batch, cfg_b, True)[0])
     with MOE.timing_parts() as parts:
         # the output dropped at once: kept, it doubled the logits held in the timed forward
@@ -1199,10 +1245,11 @@ def tp_phase(dev, mparams, mcfg, seed):
     that share the card (gloo, the host as the all-reduce's carrier), the
     production model axis, where 8 experts do not split and
     ``moe_apply_auto`` takes TP. Reuses the EP phase's weights (shared by
-    CUDA IPC, no second copy). The ranks' layer and forward are held bit
-    for bit against the one-process ``moe_apply_tp_plain`` summing the
-    partials in gloo's order, read off known all-reduces. Returns its
-    record and K4's launches (all ranks)."""
+    CUDA IPC, no second copy). The ranks' layer is held bit for bit
+    against the one-process ``moe_apply_tp_plain`` summing the partials in
+    gloo's order, read off known all-reduces; their tensor-parallel
+    forward against the one-process forward with that oracle, by step 8's
+    criteria. Returns its record and K4's launches (all ranks)."""
     import torch
 
     from repro_torch.kernels import build
@@ -1334,7 +1381,9 @@ def tp_phase(dev, mparams, mcfg, seed):
             f"TP layer: moe_apply_tp_plain off the unsplit moe_apply_sparse: {vs_sparse}")
     del y, want_y, rank_order_y, f32_y, sparse_y
 
-    # b) the model forward, against the one-process forward summing in gloo's order
+    # b) the model forward, against the one-process forward whose MoE layers
+    # sum in gloo's order (the ranks' dense layers are tensor-parallel: their
+    # partial sums add in another order, so the bf16 criteria of step 8)
     mod = [r["model"] for r in ranks]
     cfg_b = dataclasses.replace(mcfg, n_layers=TP_FORWARD_LAYERS)
     params_b = {**mparams, "stack": mparams["stack"][:TP_FORWARD_LAYERS]}
@@ -1348,10 +1397,6 @@ def tp_phase(dev, mparams, mcfg, seed):
         plain_last = plain_logits[:, -1]
         del plain_logits
         plain_loss = float(M.loss_fn(params_b, batch, cfg_b, True)[0])
-        # a planted fault for the route check: the oracle summing in rank order
-        MOE.moe_apply_auto = lambda p, hh, c: MOE.moe_apply_tp_plain(p, hh, c, n_data, n_model)
-        with MOE.recording_routes() as rank_order_routes:
-            M.forward_train(params_b, batch, cfg_b, True)
     finally:
         MOE.moe_apply_auto = auto
     last = mod[0]["last_logits"].to(dev)
@@ -1361,41 +1406,37 @@ def tp_phase(dev, mparams, mcfg, seed):
                 for got, w in zip(mod[0]["routes"], want)]
 
     routes_equal = routes_equal_by_layer(fwd_routes)
-    planted = routes_equal_by_layer(rank_order_routes)
-    planted_flips = route_flips(mod[0]["routes"], [tuple(t.cpu() for t in r)
-                                                   for r in rank_order_routes], mcfg.moe.top_k)
+    flips = route_flips(mod[0]["routes"], [tuple(t.cpu() for t in r) for r in fwd_routes],
+                        mcfg.moe.top_k)
     fwd_ms = max(rec["ms"] for rec in mod)
     parts_wall = max(rec["parts_wall_ms"] for rec in mod)
     ar = statistics.median(rec["parts"]["allreduce_ms"] for rec in mod)
     Tb = TP_FORWARD_TOKENS[0] * TP_FORWARD_TOKENS[1]
     k4 = {"launches": TP_FORWARD_LAYERS, "bodies": {"mma_sync": 0, "wgmma": TP_FORWARD_LAYERS}}
+    vs_plain = dev_err(last, plain_last)
+    loss_rel = abs(mod[0]["loss"] - plain_loss) / abs(plain_loss)
     model_rec = {"layers": f"{TP_FORWARD_LAYERS} of {mcfg.n_layers} held on the card",
                  "tokens": list(TP_FORWARD_TOKENS), "ms": fwd_ms,
                  "first_ms": max(rec["first_ms"] for rec in mod), "tokens_per_s": Tb / fwd_ms * 1e3,
                  "allreduce_share": ar / parts_wall, "timed_with_parts_ms": parts_wall,
                  "median_rank_parts_ms": {key: statistics.median(rec["parts"][key] for rec in mod)
                                           for key in ("allreduce_ms", "experts_ms")},
-                 "k4_per_rank": k4, "peak_gib_per_rank_max": max(rec["peak_gib"] for rec in mod),
-                 "loss": mod[0]["loss"], "plain_loss": plain_loss, "aux": mod[0]["aux"],
-                 "last_logits_vs_plain": dev_err(last, plain_last),
-                 "routes_and_router_logits_equal_by_layer": routes_equal,
-                 "planted_rank_order_equal_by_layer": planted,
-                 "planted_rank_order_route_flips": planted_flips}
+                 "k4_per_rank": k4, "k4_shape": [1, Tb, mcfg.n_heads // n_model, 1, mcfg.head_dim],
+                 "peak_gib_per_rank_max": max(rec["peak_gib"] for rec in mod),
+                 "loss": mod[0]["loss"], "plain_loss": plain_loss, "loss_rel": loss_rel,
+                 "aux": mod[0]["aux"], "last_logits_vs_plain": vs_plain,
+                 "routes_and_router_logits_equal_by_layer": routes_equal, "route_flips": flips}
     emit({"run": "moe_tp forward", **model_rec})
     for r, rec in enumerate(mod):
         require(rec["k4"] == k4, f"TP forward, rank {r}: K4 launched {rec['k4']}, expected {k4}")
         require(rec["finite"], f"TP forward, rank {r}: non-finite logits")
     require(len({rec["logits_bits"] for rec in mod}) == 1, "TP forward: the ranks' logits differ")
     require(len({rec["loss"] for rec in mod}) == 1, "TP forward: the ranks' losses differ")
-    require(all(routes_equal) and len(routes_equal) == TP_FORWARD_LAYERS,
-            f"TP forward: routes, drops or router logits differ from the one-process forward's "
-            f"by layer: {routes_equal}")
-    require(not all(planted), "TP forward: the route check does not tell the rank-order "
-                              "oracle apart")
-    require(bits_equal(last, plain_last), "TP forward: last-token logits are not the one-process "
-                                          f"forward's bits: {model_rec['last_logits_vs_plain']}")
-    require(mod[0]["loss"] == plain_loss,
-            f"TP forward loss {mod[0]['loss']} vs one-process {plain_loss}")
+    require(flips["share"] < ROUTE_FLIP_MAX and (flips["first_gap_max"] or 0) < FIRST_FLIP_GAP_MAX,
+            f"TP forward: routes differ from the one-process forward's: {flips}")
+    require(vs_plain["max_abs_err"] <= LOGIT_MAX_ABS and vs_plain["rel_rms"] <= LOGIT_REL_RMS,
+            f"TP forward: last-token logits off the one-process forward: {vs_plain}")
+    require(loss_rel <= LOSS_REL, f"TP forward loss {mod[0]['loss']} vs one-process {plain_loss}")
     del plain_last, last, x, tokens
     return {"run": "moe_tp", "model": mcfg.name, "mesh": {"data": n_data, "model": n_model},
             "ranks_s": ranks_s, "phase_s": time.perf_counter() - t_phase,
@@ -2126,11 +2167,12 @@ def deepseek_ep_rank(rank, group, layout, params, cfg, x, tokens, want_y, tune_d
        with ``moe_collectives="auto"`` on a measuring tuner of its own
        cache file in ``tune_dir``, its output held against the named
        mode's and a second call (a memo hit) timed;
-    b) ``forward_train`` with K4 on ``tokens`` in the ``dragonfly`` mode,
-       its K4 launches counted, its logits' bits summed and the MoE layer's
-       routes kept; then ``loss_fn`` on rank 0 while the other ranks run
-       ``forward_train`` beside it (the same one MoE exchange: 16 ranks'
-       float32 cross-entropy passes at once would not fit the card), one
+    b) ``forward_train`` with K4 on ``tokens`` in the ``dragonfly`` mode on
+       the rank's compute leaves (``models.local_params``), its K4
+       launches counted, its last-token logits gathered over the
+       vocabulary and their bits summed, the MoE layer's routes kept;
+       then ``loss_fn`` on every rank (its cross entropy on the rank's
+       vocabulary slice, 1/16 of the float32 pass one process makes), one
        forward under ``timing_parts`` and one timed forward.
     Returns host data."""
     import torch
@@ -2221,8 +2263,12 @@ def deepseek_ep_rank(rank, group, layout, params, cfg, x, tokens, want_y, tune_d
     layer["transport"], layer["carrier"] = mesh.transport, str(mesh.carrier)
     del outs, y, y_auto, y_memo
 
-    # b) the model forward under EP, the dragonfly mode, K4 on
+    # b) the model forward under EP, the dragonfly mode, K4 on, on the
+    # rank's compute leaves: views of the shared weights, MLA on 8 of the
+    # 128 heads, the dense prefix's MLPs and the shared expert on their ff
+    # slice, the embedding and the unembedding cut on the model axis too
     SH.set_active(SH.ShardRules(moe_collectives="dragonfly"), mesh)
+    local = M.local_params(params, cfg, SH.active()[0], mesh.coords, mesh.sizes)
     batch = {"tokens": tokens, "labels": tokens}
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats(dev)
@@ -2231,17 +2277,18 @@ def deepseek_ep_rank(rank, group, layout, params, cfg, x, tokens, want_y, tune_d
         (logits, aux, _), first_ms = wall_ms(lambda: M.forward_train(local, batch, cfg, True))
     k4 = {"launches": flash_attention.launches, "bodies": dict(flash_attention.body_launches)}
     (idx, keep, lg), = routes
-    model = {"k4": k4, "first_ms": first_ms, "aux": float(aux), "logits_bits": _bits_sum(logits),
+    last = M.whole_logits(logits[:, -1:])[:, 0]
+    model = {"k4": k4, "first_ms": first_ms, "aux": float(aux), "logits_bits": _bits_sum(last),
              "finite": all(bool(torch.isfinite(c).all()) for c in logits.split(256, dim=1)),
-             "last_logits": logits[:, -1].cpu() if rank == 0 else None,
+             "last_logits": last.cpu() if rank == 0 else None,
              "routes": (idx.cpu(), keep.cpu(), lg.cpu()), "forward_peak_gib": peak_gib()}
-    del logits
+    del logits, last
     torch.cuda.empty_cache()
-    if rank == 0:
-        loss, metrics = M.loss_fn(local, batch, cfg, True)
-        model["metrics"] = {key: float(val) for key, val in metrics.items()}
-    else:
-        M.forward_train(local, batch, cfg, True)
+    # every rank runs loss_fn: its tensor-axis collectives (the MTP block's,
+    # the cross entropy's over the vocabulary) meet on all 16
+    loss, metrics = M.loss_fn(local, batch, cfg, True)
+    model["metrics"] = {key: float(val) for key, val in metrics.items()}
+    del loss
     sync()
     model["loss_peak_gib"] = peak_gib()
     torch.cuda.empty_cache()
@@ -2260,8 +2307,8 @@ def deepseek_ep_phase(dev, seed):
     """Step 17: DeepSeek-V3 at its published widths under expert
     parallelism on the production model axis, 16 ranks sharing the card
     (gloo, the host as the exchanges' carrier), 16 of the 256 experts a
-    rank. The weights are made anew (step 11's depth: its 3 dense-prefix
-    layers, 1 MoE layer and the MTP block) and shared with the ranks by
+    rank. The weights are made anew (``DS_EP_PREFIX`` of step 11's 3
+    dense-prefix layers, 1 MoE layer and the MTP block) and shared by
     CUDA IPC; the one-process oracles (``moe_apply_ep_plain`` over the same
     mesh, the layer and the forward) run before the ranks start and only
     their outputs are kept. Returns its record and K4's launches (all
@@ -2291,7 +2338,7 @@ def deepseek_ep_phase(dev, seed):
           f"{gib(torch.cuda.memory_allocated()):.2f} GiB allocated, "
           f"{gib(sum(live.values())):.2f} GiB of it in {len(live)} live storages", flush=True)
     full = get_config("deepseek-v3-671b")
-    cfg = dataclasses.replace(full, n_layers=DEEPSEEK_LAYERS)
+    cfg = dataclasses.replace(full, n_layers=DS_EP_PREFIX + 1, first_dense_layers=DS_EP_PREFIX)
     n_data, n_model = DS_EP_MESH
     ranks_n = n_data * n_model
     E, d = cfg.moe.num_experts, cfg.d_model
@@ -2474,28 +2521,38 @@ def deepseek_ep_phase(dev, seed):
                     "mode_call_ms": {m: modes[m]["call_ms"] for m in EP_MODES},
                     "moe_site_report_analytic": analytic}}
 
-    # b) the forward
+    # b) the forward: tensor-parallel dense layers add their partial sums in
+    # another order than one process, so the bf16 criteria of step 8
     mod = [r["model"] for r in ranks]
     k4 = {"launches": cfg.n_layers, "bodies": {"mma_sync": 0, "wgmma": cfg.n_layers}}
     for r, rec in enumerate(mod):
         require(rec["k4"] == k4, f"DeepSeek EP forward, rank {r}: K4 launched {rec['k4']}, "
                                  f"expected {k4}")
-        require(rec["finite"] and rec["logits_bits"] == plain["logits_bits"],
-                f"DeepSeek EP forward, rank {r}: logits not the one-process forward's bits")
-    require(torch.equal(mod[0]["last_logits"].view(torch.int16),
-                        plain["last_logits"].view(torch.int16)),
-            "DeepSeek EP forward: rank 0's last-token logits are not the one-process forward's")
+        require(rec["finite"] and rec["logits_bits"] == mod[0]["logits_bits"],
+                f"DeepSeek EP forward, rank {r}: non-finite logits, or not rank 0's bits")
+        require(rec["metrics"] == mod[0]["metrics"],
+                f"DeepSeek EP loss_fn, rank {r}: {rec['metrics']} vs rank 0's {mod[0]['metrics']}")
+    last, want_last = mod[0]["last_logits"].float(), plain["last_logits"].float()
+    vs_plain = {"max_abs_err": float((last - want_last).abs().max()),
+                "rel_rms": float((last - want_last).norm() / want_last.norm())}
+    require(vs_plain["max_abs_err"] <= LOGIT_MAX_ABS and vs_plain["rel_rms"] <= LOGIT_REL_RMS,
+            f"DeepSeek EP forward: rank 0's last-token logits off the one-process forward's: "
+            f"{vs_plain}")
     got_routes = tuple(torch.cat([rec["routes"][j] for rec in mod]) for j in range(3))
-    require(all(torch.equal(g.view(torch.int16) if g.dtype == torch.bfloat16 else g,
-                            w.view(torch.int16) if w.dtype == torch.bfloat16 else w)
-                for g, w in zip(got_routes, plain["routes"])),
-            "DeepSeek EP forward: the MoE layer's routes, drops or router logits differ from "
-            "the one-process forward's")
+    flips = route_flips([got_routes], [plain["routes"]], cfg.moe.top_k)
+    # step 10's rule for DeepSeek-V3: the near-tie criterion required, the
+    # share printed (bf16 router logits over 256 experts tie at the top)
+    require((flips["first_gap_max"] or 0) < FIRST_FLIP_GAP_MAX,
+            f"DeepSeek EP forward: a token's route first differs from the one-process "
+            f"forward's away from a near-tie: {flips}")
+    print(f"deepseek_ep: {flips['share']:.4%} of tokens' routes differ in order from the "
+          f"one-process forward's, {flips['set_share']:.4%} as sets", flush=True)
     got_m, want_m = mod[0]["metrics"], plain["metrics"]
-    require(got_m["ce"] == want_m["ce"] and got_m["mtp"] == want_m["mtp"],
-            f"DeepSeek EP loss_fn: ce and mtp {got_m} vs one-process {want_m}")
-    loss_rel = abs(got_m["loss"] - want_m["loss"]) / abs(want_m["loss"])
-    require(loss_rel < 1e-5, f"DeepSeek EP loss {got_m} vs one-process {want_m}")
+    metric_rel = {key: abs(got_m[key] - want_m[key]) / abs(want_m[key])
+                  for key in ("ce", "mtp", "loss")}
+    require(all(v <= LOSS_REL for v in metric_rel.values()),
+            f"DeepSeek EP loss_fn: {got_m} vs one-process {want_m}")
+    loss_rel = metric_rel["loss"]
     fwd_ms = max(rec["ms"] for rec in mod)
     parts_wall = max(rec["parts_wall_ms"] for rec in mod)
     ex = statistics.median(rec["parts"]["exchange_ms"] + rec["parts"]["gather_ms"] for rec in mod)
@@ -2509,12 +2566,11 @@ def deepseek_ep_phase(dev, seed):
                                           for key in ("exchange_ms", "experts_ms", "gather_ms")},
                  "k4_per_rank": k4, "k4_all_ranks": ranks_n * cfg.n_layers,
                  "forward_peak_gib_per_rank_max": max(rec["forward_peak_gib"] for rec in mod),
-                 "loss_peak_gib": {"rank 0 (loss_fn)": mod[0]["loss_peak_gib"],
-                                   "others (forward_train), max": max(
-                                       rec["loss_peak_gib"] for rec in mod[1:])},
-                 "metrics": got_m, "plain_metrics": want_m,
-                 "loss_bits_equal": got_m["loss"] == want_m["loss"], "loss_rel": loss_rel,
-                 "logits_bits_equal_all_ranks": True}
+                 "loss_peak_gib_per_rank_max": max(rec["loss_peak_gib"] for rec in mod),
+                 "metrics": got_m, "plain_metrics": want_m, "metrics_rel": metric_rel,
+                 "loss_rel": loss_rel, "last_logits_vs_plain": vs_plain, "route_flips": flips,
+                 "k4_shape": [1, DEEPSEEK_TOKENS[1], cfg.n_heads // n_model, 192, 128],
+                 "last_logits_bits_equal_all_ranks": True}
     del params, x, tokens, want_y, ffn
     return {"run": "deepseek_ep", "model": cfg.name, "mesh": {"data": n_data, "model": n_model},
             "model_axis_layout": f"D3({layout.topo.K},{layout.topo.M})",
@@ -2638,6 +2694,91 @@ def truncating_quantize(g):
     return torch.clamp(blocks / scale[:, None], -127, 127).to(torch.int8), scale
 
 
+def k4_local_heads(dev, time_ms, bound) -> list:
+    """Step 7's last part: K4 at the local-head shapes of the
+    tensor-parallel forwards (a rank's query heads and the KV heads they
+    read), each against its plain version by the bf16 bound and timed
+    beside one SDPA call; the bound counts the key pairs the mask lets
+    through, 2·D + 2·Dv operations a pair and head. ``time_ms`` and
+    ``bound`` are ``main``'s. Returns a record a shape."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention.flash_attention import (
+        flash_attention, flash_attention_plain, key_pairs)
+
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device=dev)
+
+    tl = get_config("tinyllama-1.1b")
+    mcfg = get_config("mixtral-8x7b")
+    ds_cfg = get_config("deepseek-v3-671b")
+    ds_d = ds_cfg.mla.qk_nope_head_dim + ds_cfg.mla.qk_rope_head_dim
+    local_cases = [  # (where, B, S, Hq, Hkv, D, Dv, window)
+        ("step 18 d: tinyllama-1.1b, model axis 2", TRAIN_SHARDED_TOKENS[0]
+         // TRAIN_SHARDED_MESH[0], TRAIN_SHARDED_TOKENS[1], tl.n_heads // TRAIN_SHARDED_MESH[1],
+         tl.n_kv_heads // TRAIN_SHARDED_MESH[1], tl.head_dim, tl.head_dim, None),
+        ("step 19 b: tinyllama-1.1b prefill_32k, model axis 16", 2, 32768, tl.n_heads // 16, 1,
+         tl.head_dim, tl.head_dim, None),
+        ("step 13 b: mixtral-8x7b EP, model axis 8", MIXTRAL_TOKENS[0], MIXTRAL_TOKENS[1],
+         mcfg.n_heads // EP_MESH[1], 1, mcfg.head_dim, mcfg.head_dim, mcfg.sliding_window),
+        ("step 14 b: mixtral-8x7b TP, model axis 16", TP_FORWARD_TOKENS[0], TP_FORWARD_TOKENS[1],
+         mcfg.n_heads // TP_MESH[1], 1, mcfg.head_dim, mcfg.head_dim, mcfg.sliding_window),
+        ("step 17 b: deepseek-v3-671b MLA, model axis 16", DEEPSEEK_TOKENS[0],
+         DEEPSEEK_TOKENS[1], ds_cfg.n_heads // DS_EP_MESH[1], ds_cfg.n_heads // DS_EP_MESH[1],
+         ds_d, ds_cfg.mla.v_head_dim, None),
+    ]
+    local_heads = []
+    for where, b_, sq, hq, hkv, d, dv, window in local_cases:
+        q = randn(b_, sq, hq, d).to(torch.bfloat16)
+        k = randn(b_, sq, hkv, d).to(torch.bfloat16)
+        v = randn(b_, sq, hkv, dv).to(torch.bfloat16)
+        zero_counts((flash_attention,))
+        got = flash_attention(q, k, v, causal=True, window=window)
+        bodies = dict(flash_attention.body_launches)
+        want = flash_attention_plain(q, k, v, causal=True, window=window)
+        ok, err, rel = attention_close(got, want, FLASH_TOL["torch.bfloat16"])
+        require(ok and bool(torch.isfinite(got).all()),
+                f"flash_attention at {where} off by max {err}, relative rms {rel}")
+        del got, want
+        pairs = key_pairs(sq, sq, True, window)
+        b_ms, b_by = bound(2 * (q.numel() + b_ * sq * hq * dv + k.numel() + v.numel()),
+                           b_ * hq * pairs * (2 * d + 2 * dv), BF16_FLOP_PER_S)
+        qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+        if window is None:
+            def sdpa():
+                return torch.nn.functional.scaled_dot_product_attention(
+                    qt, kt, vt, is_causal=True, enable_gqa=hq != hkv)
+            library = "SDPA, is_causal" + (", enable_gqa" if hq != hkv else "")
+        else:
+            pos = torch.arange(sq, device=dev)
+            allowed = (pos[None, :] <= pos[:, None]) & (pos[:, None] - pos[None, :] < window)
+            kt, vt = (x.repeat_interleave(hq // hkv, dim=1) for x in (kt, vt))
+
+            def sdpa():
+                return torch.nn.functional.scaled_dot_product_attention(qt, kt, vt,
+                                                                        attn_mask=allowed)
+            library = "SDPA, boolean window mask, KV heads expanded"
+        rec = {"where": where, "q": [b_, sq, hq, d], "kv": [b_, sq, hkv, dv], "window": window,
+               "bodies": bodies, "max_abs_err": err, "rel_rms": rel, "key_pairs": pairs,
+               "ms": time_ms(lambda: flash_attention(q, k, v, causal=True, window=window),
+                             reps=10),
+               "plain_ms": time_ms(lambda: flash_attention_plain(q, k, v, causal=True,
+                                                                 window=window),
+                                   reps=1, warmup=0),  # 4.5 s a call at (2, 32768)
+               "library_ms": time_ms(sdpa, reps=10), "library": library,
+               "bound_ms": b_ms, "bound_by": b_by,
+               "persistent_tiles": b_ * hq * -(-sq // 128)}
+        local_heads.append(rec)
+        emit({"check": "flash_attention, local heads", **rec})
+        del q, k, v, qt, kt, vt
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+    return local_heads
+
+
 def train_sharded_rank(rank, group, layout, jobs, mesh_shape, seed):
     """One rank of step 18: lays the ranks out as a ``mesh_shape`` mesh of
     (data, model) and runs each job of ``jobs`` (``_train_sharded_job``) in
@@ -2649,7 +2790,72 @@ def train_sharded_rank(rank, group, layout, jobs, mesh_shape, seed):
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     mesh = make_mesh(mesh_shape, ("data", "model"), device="cuda")
-    return {job["part"]: _train_sharded_job(rank, mesh, job, seed) for job in jobs}
+    return {job["part"]: (_tp_prefill_job if job["part"] == "d" else _train_sharded_job)(
+        rank, mesh, job, seed) for job in jobs}
+
+
+def _tp_prefill_job(rank, mesh, job, seed):
+    """Step 18 d, in 18 b's ranks: ``job["cfg"]`` (TinyLlama-1.1B whole,
+    bf16) made whole from ``seed`` on the card; ``forward_train`` with K4
+    on the rank's rows of ``job["batch"]`` under the mesh's rules, on the
+    rank's compute leaves (``models.local_params``: views of the whole
+    parameters, its heads, ff slice and vocabulary slice), K4's launches
+    and bodies counted; then the same rows through the same forward on the
+    whole leaves with no rules (one process's), compared with it on the
+    rank's vocabulary slice of the logits: K4's bf16 bound
+    (``attention_close``: whether it holds, max |Δ|, relative rms), the
+    parent holding the last two to the model path's bound. Both timed (``PREFILL_TP_REPS``
+    calls after a warm-up, the TP ones from a barrier). Returns host
+    data."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.dist import sharding as SH
+    from repro_torch.kernels.flash_attention.flash_attention import flash_attention
+    from repro_torch.models import model as M
+    from repro_torch.train import train_step as TS
+
+    cfg, dev = job["cfg"], mesh.device
+    SH.set_active(SH.ShardRules(), mesh)
+    rules = SH.active()[0]
+    whole = M.init_params(torch.Generator(device=dev).manual_seed(seed), cfg, device=dev)
+    local = M.local_params(whole, cfg, rules, mesh.coords, mesh.sizes)
+    batch = TS.shard_batch({"tokens": torch.from_numpy(job["batch"]["tokens"])},
+                           {"tokens": rules.tokens()}, mesh)
+
+    def timed(fn, barrier):
+        ms = []
+        for _ in range(PREFILL_TP_REPS + 1):
+            if barrier:
+                dist.barrier()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3)
+        return ms[1:]
+
+    with torch.no_grad():
+        zero_counts((flash_attention,))
+        logits = M.forward_train(local, batch, cfg, use_kernel=True, remat=False)[0]
+        torch.cuda.synchronize()
+        k4 = {"launches": flash_attention.launches, "bodies": dict(flash_attention.body_launches)}
+        tp_ms = timed(lambda: M.forward_train(local, batch, cfg, True, remat=False), True)
+        SH.clear_active()
+        want = M.forward_train(whole, batch, cfg, use_kernel=True, remat=False)[0]
+        whole_ms = timed(lambda: M.forward_train(whole, batch, cfg, True, remat=False), False)
+        n = cfg.vocab // mesh.sizes["model"]
+        c = mesh.coords["model"]
+        ok, err, rel = attention_close(logits, want[..., c * n:(c + 1) * n],
+                                       FLASH_TOL[str(logits.dtype)])
+    out = {"coords": mesh.coords, "rows": list(batch["tokens"].shape),
+           "logits": list(logits.shape), "k4": k4, "ms": tp_ms, "whole_ms": whole_ms,
+           "vs_whole": {"ok": ok, "max_abs_err": err, "rel_rms": rel},
+           "finite": bool(torch.isfinite(logits).all()),
+           "peak_gib": torch.cuda.max_memory_allocated() / 2**30}
+    del whole, local, logits, want
+    torch.cuda.empty_cache()
+    return out
 
 
 def _train_sharded_job(rank, mesh, job, seed):
@@ -2734,16 +2940,20 @@ def _train_sharded_job(rank, mesh, job, seed):
                 mspec = O.get(specs[1]["mu"], path)["m"]
                 sl = SH.held_slices(mspec, O.get(like[0], path).shape, mesh.coords, mesh.sizes)
                 if sl is None or TS._replica(mspec, mesh):
-                    cmp[name] = (0.0, 0.0, 0, 0, 0)
+                    cmp[name] = (0.0, 0.0, 0, 0, 0, 0, 0, 0)
                     continue
                 want = job["want"][name][sl].float()
                 got = O.get(s["mu"], path)["m"].float()
                 # zero where the oracle's is not: above bf16's noise (an entry whose gradient
-                # cancels to zero in one order of bf16 sums may not in another), and at all
-                above = want.abs() > SHARDED_M_REL * want.pow(2).mean().sqrt()
+                # cancels to zero in one order of bf16 sums may not in another), and at all;
+                # and the other way round, the oracle's zeros where this rank's is above it
+                noise = SHARDED_M_REL * want.pow(2).mean().sqrt()
+                above = want.abs() > noise
                 cmp[name] = (float(torch.sum((got - want) ** 2)), float(torch.sum(want ** 2)),
                              int((above & (got == 0)).sum()), int((want != 0).sum()),
-                             int(((want != 0) & (got == 0)).sum()))
+                             int(((want != 0) & (got == 0)).sum()),
+                             int(((got.abs() > noise) & (want == 0)).sum()),
+                             int((got == 0).sum()), int((want == 0).sum()))
                 del want, got, above
             rec["m_vs_oracle"] = cmp
         if kept is None:
@@ -2890,7 +3100,7 @@ def train_sharded_phase(dev, counters):
         for job in jobs:
             part = job["part"]
             for r, rec in enumerate(ranks):
-                for mode, m in rec[part]["modes"].items():
+                for mode, m in rec[part].get("modes", {}).items():
                     require(not any(m["launches"].values()),
                             f"step 18 {part}, rank {r}, {mode}: launched {m['launches']}")
                     require(m["metrics"] == ranks[0][part]["modes"][mode]["metrics"],
@@ -2964,7 +3174,8 @@ def train_sharded_phase(dev, counters):
         [job("a", cfg32, opt_cfg, {"fsdp": True}, data_a, want=want_state),
          job("a_compress", cfg32, opt_cfg, {"fsdp": True}, data_a, want=want_compress,
              compress=True),
-         job("b", full, opt_cfg, {"fsdp": True}, data_b, steps=TRAIN_SHARDED_STEPS)], mesh_ab)
+         job("b", full, opt_cfg, {"fsdp": True}, data_b, steps=TRAIN_SHARDED_STEPS),
+         job("d", full, opt_cfg, {}, data_b)], mesh_ab)
 
     got = ranks[0]["a"]["modes"]["xla"]["metrics"][0]
     errs = ranks[0]["a"]["leaf_rel_err"]
@@ -3054,6 +3265,38 @@ def train_sharded_phase(dev, counters):
                  "rank_init_s": max(r["b"]["init_s"] for r in ranks),
                  "launches": got["launches"], "parts_a_b_s": time.perf_counter() - t_part})
     emit(runs[-1])
+
+    # d) the tensor-parallel prefill with K4, in b's ranks, against each rank's whole leaves
+    d = [r["d"] for r in ranks]
+    k4_d = {"launches": full.n_layers, "bodies": {"mma_sync": 0, "wgmma": full.n_layers}}
+    # held by the model path's bf16 bound (step 8's, PERF.md §2): K4's own
+    # bound is one attention call's; 22 layers whose row-parallel partial
+    # sums round twice move the logits further (1.48 % rms on an H100)
+    for r, rec in enumerate(d):
+        require(rec["k4"] == k4_d, f"step 18 d, rank {r}: K4 launched {rec['k4']}, "
+                                   f"expected {k4_d}")
+        vs = rec["vs_whole"]
+        require(rec["finite"] and vs["max_abs_err"] <= LOGIT_MAX_ABS
+                and vs["rel_rms"] <= LOGIT_REL_RMS,
+                f"step 18 d, rank {r}: the TP prefill off the whole leaves' forward: {vs}")
+    tp_ms = statistics.median(max(rec["ms"][i] for rec in d) for i in range(PREFILL_TP_REPS))
+    whole_ms = statistics.median(max(rec["whole_ms"][i] for rec in d)
+                                 for i in range(PREFILL_TP_REPS))
+    runs.append({"run": "prefill_tp d", "model": f"{full.name} whole, bf16",
+                 "mesh": list(mesh_ab), "tokens": list(TRAIN_SHARDED_TOKENS),
+                 "rows_a_rank": d[0]["rows"], "logits_a_rank": d[0]["logits"],
+                 "k4_per_rank": k4_d, "k4_shape": [d[0]["rows"][0], d[0]["rows"][1],
+                                                   full.n_heads // mesh_ab[1],
+                                                   full.n_kv_heads // mesh_ab[1], full.head_dim],
+                 "ms": tp_ms, "tokens_per_s": tokens_b / tp_ms * 1e3,
+                 "whole_leaves_ms": whole_ms, "whole_leaves_tokens_per_s": tokens_b / whole_ms * 1e3,
+                 "vs_whole": {"max_abs_err": max(rec["vs_whole"]["max_abs_err"] for rec in d),
+                              "rel_rms": max(rec["vs_whole"]["rel_rms"] for rec in d),
+                              "bound": [LOGIT_MAX_ABS, LOGIT_REL_RMS],
+                              "within_k4_bound": all(rec["vs_whole"]["ok"] for rec in d)},
+                 "peak_gib_a_rank": max(rec["peak_gib"] for rec in d)})
+    emit(runs[-1])
+    k4_launches = len(d) * full.n_layers
     del want_state, want_compress
     torch.cuda.ipc_collect()
     torch.cuda.empty_cache()
@@ -3096,12 +3339,17 @@ def train_sharded_phase(dev, counters):
         for name in watch:
             parts = [r["modes"][mode]["m_vs_oracle"][name] for r in ranks]
             err = (sum(p[0] for p in parts) / max(sum(p[1] for p in parts), 1e-30)) ** 0.5
-            zeros = [sum(p[k] for p in parts) for k in (2, 3, 4)]
+            zeros = [sum(p[k] for p in parts) for k in range(2, 8)]
             m_rel[mode][name], m_zero[mode][name] = err, zeros
-            require(err <= SHARDED_M_REL and zeros[0] == 0,
+            # bf16 sums land on an exact zero here and there, in the oracle too; the
+            # tensor-parallel step rounds its activations otherwise, so its zeros sit at
+            # other entries. A step that zeroes entries has more of them where the
+            # oracle's is above the noise than the oracle has where the step's is
+            require(err <= SHARDED_M_REL and zeros[0] <= ZERO_SKEW * zeros[3] + ZERO_SLACK,
                     f"step 18 c, {mode}: the first moment of {name}: {err:.3g} off the "
-                    f"oracle's; zero at {zeros[0]} of its entries above the noise, at "
-                    f"{zeros[2]} of its {zeros[1]} nonzero ones")
+                    f"oracle's; zero at {zeros[0]} of its entries above the noise (the oracle "
+                    f"zero at {zeros[3]} above the noise of this one), at {zeros[2]} of its "
+                    f"{zeros[1]} nonzero ones; zeros {zeros[4]} here, {zeros[5]} in the oracle")
     for mode in MIXTRAL_SAME_BITS:
         require(all(r["modes"][mode]["same_bits_as_first"] for r in ranks),
                 f"step 18 c: {mode} does not give {first}'s bits")
@@ -3143,7 +3391,7 @@ def train_sharded_phase(dev, counters):
     emit(runs[-1])
     torch.cuda.empty_cache()
     print(f"train_sharded: phase_s {time.perf_counter() - t_phase:.1f}", flush=True)
-    return runs
+    return runs, k4_launches
 
 
 def serve_with_reuse(kit, cfg, params, dev, what):
@@ -4671,6 +4919,8 @@ def main() -> None:
     del q, k, v, qt, kt, vt, mixtral_qkv, allowed, pos
     release()
 
+    kernels["flash_attention"]["local_heads"] = k4_local_heads(dev, time_ms, bound)
+
     phase("7")
 
     # ------------------------------- 8. TinyLlama-1.1B prefill at full width
@@ -5079,8 +5329,12 @@ def main() -> None:
 
     # ------- 18. the sharded training step, 4 and 8 ranks on the card, no kernel
     t18 = time.perf_counter()
-    runs.extend(train_sharded_phase(dev, all_counters + (cf.ring_put, cf.ring_signal,
-                                                         cf.ring_wait_add)))
+    sharded_runs, d_k4 = train_sharded_phase(dev, all_counters + (cf.ring_put, cf.ring_signal,
+                                                                  cf.ring_wait_add))
+    runs.extend(sharded_runs)
+    k4_rec["launches"] += d_k4
+    k4_rec["launches_by_path"]["tinyllama-1.1b TP prefill (step 18 d), all ranks"] = d_k4
+    k4_rec["body_launches"]["wgmma"] += d_k4
     if time.perf_counter() - t18 > TRAIN_SHARDED_PHASE_S:
         print(f"train_sharded: the phase took {time.perf_counter() - t18:.0f} s, past its "
               f"{TRAIN_SHARDED_PHASE_S} s", flush=True)
@@ -5105,7 +5359,7 @@ def main() -> None:
             "plain_ms", "bound_ms", "bound_by", "library_ms")
     extra = ("body", "body_launches", "acc_launches", "body_ms", "combine_hook_ms",
              "combine_hook_bound_ms", "ffma_bound_ms", "tf32x3_route_bound_ms",
-             "launches_by_path", "mixtral_shape", "mla_shape", "jamba_shape")
+             "launches_by_path", "mixtral_shape", "mla_shape", "jamba_shape", "local_heads")
     print(card, flush=True)
     emit({"kernels": [{key: rec[key] for key in keys + extra if key in rec or key in keys}
                       for rec in kernels.values()]})

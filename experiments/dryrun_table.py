@@ -1,6 +1,7 @@
 """PERF.md's dry-run table from the JSON files ``launch/dryrun.py`` wrote.
 
     PYTHONPATH=src python experiments/dryrun_table.py [DIR]
+    PYTHONPATH=src python experiments/dryrun_table.py --before BEFORE_DIR [DIR]
 
 One row a (arch, shape) cell, the single-pod (16, 16) and multi-pod
 (2, 16, 16) meshes side by side as "pod1 / pod2": status, argument and
@@ -9,7 +10,11 @@ TFLOP of the rank, collective GB by kind (ag all-gather, ar all-reduce,
 a2a all-to-all, rd reduce, bc broadcast, p2p send) and the dominant
 roofline term. Cells with a tag (variants) get rows of their own. Every
 number is an analytic bound or a count of the meta trace, not a time.
-Cells skipped on both meshes are listed after the table.
+Cells skipped on both meshes are listed after the table. With
+``--before`` it prints, for every train and prefill cell, the peak GiB
+and TFLOP of the traced rank in BEFORE_DIR (another commit's sweep) and
+in DIR side by side, "pod1 / pod2" each, the counts of cells that fit
+80 GiB in each, and each cell whose status differs.
 """
 
 import json
@@ -40,13 +45,49 @@ def cell(r) -> dict:
             "dom": r["roofline"]["dominant"]}
 
 
-def main(path=DIR) -> None:
-    rows, skipped = {}, []
+def load(path) -> dict:
+    """{(arch, shape, tag): {mesh: result}} of a sweep's JSON files."""
+    rows = {}
     for f in sorted(pathlib.Path(path).glob("*.json")):
         r = json.loads(f.read_text())
         parts = f.stem.split("__")
         tag = parts[3] if len(parts) > 3 else ""
         rows.setdefault((r["arch"], r["shape"], tag), {})[r["mesh"]] = r
+    return rows
+
+
+def compare(before_path, path=DIR) -> None:
+    before, after = load(before_path), load(path)
+
+    def pair(by_mesh, key):
+        return " / ".join(cell(by_mesh.get(m))[key] for m in ("pod1", "pod2"))
+
+    print("| arch | shape | peak GiB before | peak GiB after | TFLOP before | TFLOP after |")
+    print("|---|---|---|---|---|---|")
+    for key in sorted(set(before) | set(after)):
+        arch, shape, tag = key
+        b, a = before.get(key, {}), after.get(key, {})
+        if not any(r["status"] == "ok" for r in list(b.values()) + list(a.values())):
+            continue
+        if shape.startswith("decode") or shape.startswith("long"):
+            continue
+        name = f"{shape} ({tag})" if tag else shape
+        print(f"| {arch} | {name} | {pair(b, 'peak')} | {pair(a, 'peak')} | {pair(b, 'tflop')} "
+              f"| {pair(a, 'tflop')} |")
+    for label, rows in (("before", before), ("after", after)):
+        cells = [r for by_mesh in rows.values() for r in by_mesh.values() if r["status"] == "ok"]
+        fits = sum(r["memory"]["fits_80gib"] for r in cells)
+        print(f"{label}: {len(cells)} cells ok, {fits} fit 80 GiB")
+    for key in sorted(set(before) & set(after)):
+        for m in ("pod1", "pod2"):
+            sb = before[key].get(m, {}).get("status")
+            sa = after[key].get(m, {}).get("status")
+            if sb != sa:
+                print(f"status {' '.join(key)} {m}: {sb} -> {sa}")
+
+
+def main(path=DIR) -> None:
+    rows, skipped = load(path), []
     print("| arch | shape | status | arg GiB | peak GiB | fits 80 GiB | TFLOP | collective GB |"
           " dominant |")
     print("|---|---|---|---|---|---|---|---|---|")
@@ -64,4 +105,7 @@ def main(path=DIR) -> None:
 
 
 if __name__ == "__main__":
-    main(*sys.argv[1:])
+    if sys.argv[1:2] == ["--before"]:
+        compare(*sys.argv[2:])
+    else:
+        main(*sys.argv[1:])

@@ -374,6 +374,193 @@ def all_reduce_sum(x: torch.Tensor, group=None, mesh=None) -> torch.Tensor:
     return _Collective.apply(x, total, total, mesh)
 
 
+# ---------------------------------------------- the tensor axis' pairs
+def _wide(dtype: torch.dtype) -> torch.dtype:
+    """The dtype a sum of ``dtype`` values is added in: float32 at least."""
+    return torch.promote_types(dtype, torch.float32)
+
+
+def _f32_sum(x: torch.Tensor, group) -> torch.Tensor:
+    """The group's sum of ``x``, added in float32 (or wider) and cast back."""
+    return _sum(x.to(_wide(x.dtype)), group).to(x.dtype)
+
+
+def _copies_mean(g: torch.Tensor, group) -> torch.Tensor:
+    """The mean over the group of each copy's cotangent, added in float32
+    (or wider)."""
+    return (_sum(g.to(_wide(g.dtype)), group) / dist.get_world_size(group)).to(g.dtype)
+
+
+def _copies_mean_transpose(g: torch.Tensor, group) -> torch.Tensor:
+    """``tp_copy``'s backward, by name, so that a check can plant a fault in it."""
+    return _copies_mean(g, group)
+
+
+class _Copy(torch.autograd.Function):
+    """The identity forward (no copy to the carrier), and ``backward`` on
+    the carrier."""
+
+    @staticmethod
+    def forward(ctx, x, backward, mesh):
+        ctx.backward_fn, ctx.mesh = backward, mesh
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _on_carrier(ctx.backward_fn, g.contiguous(), ctx.mesh), None, None
+
+
+def tp_copy(x: torch.Tensor, group, mesh=None) -> torch.Tensor:
+    """The input of a column-parallel block: the identity on the forward
+    (every rank of the tensor group holds the same ``x``), and on the
+    backward the all-reduce of the copies' cotangents over the group,
+    divided by its size. Under the sharded step's convention every copy of
+    a replicated value counts once, so this mean is the identity's
+    transpose on replicated inputs; a plain sum would count the block's
+    branch once a rank. Each copy then carries the same cotangent, as the
+    reference's GSPMD program keeps a replicated value's cotangent
+    replicated. With a ``mesh``, on its carrier."""
+    if dist.get_world_size(group) == 1:
+        return x
+    return _Copy.apply(x, lambda g: _copies_mean_transpose(g, group), mesh)
+
+
+def tp_sum(x: torch.Tensor, group, mesh=None) -> torch.Tensor:
+    """The output of a row-parallel block: the sum of the ranks' partials
+    over the tensor group, added in float32 and cast back to ``x``'s
+    dtype. Under autograd its backward is the same sum of the cotangents
+    (its SPMD transpose). With a ``mesh``, on its carrier."""
+    if dist.get_world_size(group) == 1:
+        return x
+
+    def total(t):
+        return _f32_sum(t, group)
+
+    return _Collective.apply(x, total, total, mesh)
+
+
+def _gather_along(x: torch.Tensor, dim: int, group) -> torch.Tensor:
+    return _gather_cat(x.movedim(dim, 0), group).movedim(0, dim)
+
+
+def _scatter_sum_along(x: torch.Tensor, dim: int, group) -> torch.Tensor:
+    """This rank's block along ``dim`` of the group's sum, added in float32
+    (or wider)."""
+    rows = x.movedim(dim, 0).to(_wide(x.dtype), memory_format=torch.contiguous_format,
+                                copy=True)  # a copy of its own: the call writes into it
+    return _reduce_scatter_rows(rows, group, inplace=True).movedim(0, dim).to(x.dtype)
+
+
+def seq_gather(x: torch.Tensor, dim: int, group, mesh=None) -> torch.Tensor:
+    """The ranks' blocks of ``x`` along ``dim`` (the sequence) concatenated
+    in group order; its backward is the reduce-scatter of the cotangents
+    along ``dim``, added in float32 (its SPMD transpose). The column
+    block's input under ``seq_parallel``. With a ``mesh``, on its carrier."""
+    if dist.get_world_size(group) == 1:
+        return x
+    return _Collective.apply(x, lambda t: _gather_along(t, dim, group),
+                             lambda g: _scatter_sum_along(g, dim, group), mesh)
+
+
+def seq_scatter_sum(x: torch.Tensor, dim: int, group, mesh=None) -> torch.Tensor:
+    """This rank's block along ``dim`` of the group's sum of ``x``, added in
+    float32 and cast back; its backward is the all-gather of the
+    cotangents along ``dim`` (its SPMD transpose). The row block's output
+    under ``seq_parallel``. With a ``mesh``, on its carrier."""
+    if dist.get_world_size(group) == 1:
+        return x
+    return _Collective.apply(x, lambda t: _scatter_sum_along(t, dim, group),
+                             lambda g: _gather_along(g, dim, group), mesh)
+
+
+def all_max(x: torch.Tensor, group, mesh=None) -> torch.Tensor:
+    """The elementwise maximum over the group, outside autograd (a shift
+    that cancels, as a log-sum-exp's max). With a ``mesh``, on its carrier."""
+    if dist.get_world_size(group) == 1:
+        return x.detach()
+
+    def top(t):
+        out = t.clone()
+        dist.all_reduce(out, op=dist.ReduceOp.MAX, group=group)
+        return out
+
+    return _on_carrier(top, x.detach(), mesh)
+
+
+class TensorParallel:
+    """The tensor axis of the active mesh as the dense layers compute on
+    it (``tensor_parallel``): its size, this rank's coordinate, its group
+    (made when first asked for), the mesh whose carrier the collectives
+    travel on, and whether the residual stream is cut along the sequence
+    between blocks (``ShardRules.seq_parallel``). ``col_in`` and
+    ``row_out`` are the pair around a column-then-row block: ``tp_copy``
+    and ``tp_sum``, or under ``seq_parallel`` ``seq_gather`` and
+    ``seq_scatter_sum`` along the sequence (dim 1 of (B, S, d))."""
+
+    def __init__(self, rules, mesh):
+        self.rules, self.mesh = rules, mesh
+        self.axis = rules.tensor_axis
+        self.size = mesh.sizes[self.axis]
+        self.coord = mesh.coords[self.axis]
+        self.seq_parallel = bool(rules.seq_parallel)
+
+    @property
+    def group(self):
+        return self.mesh.group(self.axis)
+
+    def copy(self, x):
+        return x if self.size == 1 else tp_copy(x, self.group, self.mesh)
+
+    def sum(self, x):
+        return x if self.size == 1 else tp_sum(x, self.group, self.mesh)
+
+    def gather_seq(self, x):
+        return x if self.size == 1 else seq_gather(x, 1, self.group, self.mesh)
+
+    def scatter_seq(self, x):
+        return x if self.size == 1 else seq_scatter_sum(x, 1, self.group, self.mesh)
+
+    def own_seq(self, x):
+        """This rank's block of a replicated (B, S, ...) along the sequence."""
+        S = x.shape[1]
+        if S % self.size:
+            raise ValueError(f"a sequence of {S} does not split over the tensor axis "
+                             f"({self.size}) under seq_parallel")
+        step = S // self.size
+        return x[:, self.coord * step:(self.coord + 1) * step]
+
+    def col_in(self, x):
+        return self.gather_seq(x) if self.seq_parallel else self.copy(x)
+
+    def row_out(self, x):
+        return self.scatter_seq(x) if self.seq_parallel else self.sum(x)
+
+    def gather_cols(self, w):
+        """A leaf cut by columns on the tensor axis, whole (differentiable:
+        the backward is the rank's block of the summed cotangents)."""
+        if self.size == 1:
+            return w
+        return all_gather(w.t(), self.group, mesh=self.mesh).t()
+
+    def max(self, x):
+        return all_max(x, self.group, self.mesh) if self.size > 1 else x.detach()
+
+
+def tensor_parallel() -> TensorParallel | None:
+    """The active mesh's tensor axis (``dist.sharding.set_active``), or
+    None with no rules active (one process: the leaves whole)."""
+    from repro_torch.dist import sharding as SH
+
+    act = SH.active()
+    if act is None:
+        return None
+    rules, mesh = act
+    if rules.tensor_axis not in mesh.sizes:
+        raise ValueError(f"the active mesh {mesh.axis_names} has no tensor axis "
+                         f"{rules.tensor_axis!r}")
+    return TensorParallel(rules, mesh)
+
+
 def dragonfly_all_to_all_compute(x, group, layout: DeviceLayout,
                                  compute, backend=None,
                                  embedding: Embedding | None = None,

@@ -20,8 +20,10 @@ holds this layer. ``held_slices`` answers, for any rank, which slices of
 such a leaf it holds, or None.
 
 Launchers call ``set_active(rules, mesh)`` so model code (the MoE
-dispatch) can fetch the live rules without threading them through every
-call; with none active, everything runs on one device. The port's mesh is
+dispatch, the tensor-parallel train path through
+``dist.collectives.tensor_parallel``) can fetch the live rules without
+threading them through every call; with none active, everything runs on
+one device. The port's mesh is
 this rank's process-group mesh (``launch.mesh.ProcessMesh``): its
 ``axis_names``, ``shape``, this rank's coordinate on each axis and the
 process group of each axis.
@@ -52,7 +54,7 @@ class ShardRules:
     pod_axis: str | None = None
     fsdp: bool = False
     zero1: bool = False
-    seq_parallel: bool = False  # refused by models.transformer.member_train (ROADMAP Queue 3)
+    seq_parallel: bool = False  # the residual stream cut along the sequence (member_train)
     # "xla" (the native all-to-all) | "dragonfly" (§3 program on
     # torch_dist) | "dragonfly_overlap" (same program, start_step order)
     # | "dragonfly_overlap_fused" (dispatch + expert FFN + combine as ONE

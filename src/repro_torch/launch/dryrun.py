@@ -16,11 +16,17 @@ optimizer state, batch and cache are tensors on the meta device (shapes
 and dtypes, no storage), so no card and no host holds the mesh. The code
 that runs is the port's: ``train.train_step.make_sharded_train_step``
 with the reference's settings (remat on, the arch's microbatches), and
-for prefill and decode each parameter gathered to its compute spec as the
-sharded step gathers it, then ``models.forward_train`` (last-token
-logits, K4 on) or ``models.decode_step`` at ``pos = seq_len - 1``; decode
-also gathers each cache leaf over the axes other than the batch axes and
-cuts it back after the step.
+for prefill each parameter gathered to its compute spec as the sharded
+step gathers it (``models.compute_specs``: the attention, the dense MLP,
+the embedding and the unembedding stay cut on the model axis, the rank
+computing its heads and its vocabulary slice), then
+``models.forward_train`` (last-token logits of the rank's vocabulary
+slice, K4 on); for decode each parameter gathered whole but the MoE
+expert stacks, then ``models.decode_step`` at ``pos = seq_len - 1``,
+which also gathers each cache leaf over the axes other than the batch
+axes and cuts it back after the step. ``--seq-parallel`` cuts the
+residual stream along the sequence between blocks in the train and
+prefill cells; the decode does not read it.
 
 Counts, all taken while the one trace runs (``Counters``), exact, where
 the reference extrapolates from depth-1 and depth-2 compiles because XLA
@@ -286,17 +292,24 @@ def _experts_cut(cfg, rules, tokens: int) -> bool:
     return not rules.expert_parallel(cfg.moe.num_experts) or tokens % rules.model_axis_size == 0
 
 
-def _gathered(params, pspecs, like, rules, mesh, cut: bool):
-    """Each parameter gathered to its compute spec as the sharded step
-    gathers it (``train_step._compute_spec``: whole, but the MoE expert
-    stacks, kept cut where ``cut``)."""
+def _gathered(cfg, params, pspecs, like, rules, mesh, cut: bool, decode: bool = False):
+    """Each parameter gathered to the spec it is computed under. The
+    prefill's (``decode`` False) is the sharded step's
+    (``models.compute_specs``: the tensor-parallel leaves and the MoE
+    expert stacks kept cut on the model axis, the rest whole); the
+    decode's is whole, but the MoE expert stacks, kept cut. Where
+    ``cut`` is False (the sparse MoE path) the expert stacks are whole."""
+    cspecs = M.compute_specs(cfg, rules)
     out = []
     for path, x in O.flatten(like):
         spec = O.get(pspecs, path)
-        keep = TS._compute_spec(path, spec, pspecs, rules)
-        if not cut and path[-1] in EXPERT_FF_DIM:
-            keep = tuple(None for _ in keep)
-        out.append(TS._regather(O.get(params, path), spec, keep, x, mesh))
+        k = O.get(cspecs, path)
+        if path[-1] in EXPERT_FF_DIM and "router" in O.get(like, path[:-1]):
+            if not cut:
+                k = tuple(None for _ in k)
+        elif decode:
+            k = tuple(None for _ in k)
+        out.append(TS._regather(O.get(params, path), spec, k, x, mesh))
     return O.unflatten(like, out)
 
 
@@ -333,7 +346,7 @@ def trace_prefill(cfg, shape, rules) -> Trace:
         act_rules, mesh = SH.active()
         with torch.no_grad():
             cut = cfg.moe is None or _experts_cut(cfg, act_rules, _rows(b) * shape.seq_len)
-            tree = _gathered(params, pspecs, like, act_rules, mesh, cut)
+            tree = _gathered(cfg, params, pspecs, like, act_rules, mesh, cut)
             logits, _, _ = M.forward_train(tree, b, cfg, use_kernel=True, remat=False)
             return logits[:, -1]
 
@@ -376,7 +389,7 @@ def trace_decode(cfg, shape, rules) -> Trace:
         act_rules, mesh = SH.active()
         with torch.no_grad():
             cut = cfg.moe is None or _experts_cut(cfg, act_rules, _rows(b))
-            tree = _gathered(params, pspecs, like, act_rules, mesh, cut)
+            tree = _gathered(cfg, params, pspecs, like, act_rules, mesh, cut, decode=True)
             paths = [path for path, _ in O.flatten(cache)]
             keep = [_cache_keep(O.get(cspecs, path), act_rules) for path in paths]
             whole = O.unflatten(cache, [

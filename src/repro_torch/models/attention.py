@@ -6,6 +6,22 @@ The port of ``repro.models.attention``, with the sharding specs
 (``gqa_specs``, ``mla_specs``) as plain tuples. The decode paths write the new token into
 the cache in place (the JAX package returns an updated copy) and return
 the cache all the same.
+
+Under the tensor axis (``tp``: the train path under active rules) the
+train forms run on the rank's heads, as the reference's specs cut them:
+``wq``, ``wk``, ``wv`` (MLA: ``wq_b``, ``wkv_b``) by columns, ``wo`` by
+rows, the rank's block of the H·(head dim) columns being heads
+[c·H/m, (c+1)·H/m) of H at coordinate c of m. Where the heads split over
+the axis the rank computes its H/m query heads from its own columns.
+Where the KV heads do not (TinyLlama's 4 and Mixtral's 8 on an axis of
+16, the smoke configs' 2 on 4), ``wk`` and ``wv`` are gathered over the
+axis and the rank takes the KV heads its query heads read (query head h
+reads KV head h // (H / Hkv)). Where the query heads do not split either
+(Qwen2-VL's 28 on 16, the smoke configs' 4 on 8), the column leaves are
+gathered and the rank computes every head its block touches (a head cut
+between two blocks is computed on both), and keeps its block's columns
+of the output. The output projection's partial leaves through
+``tp.row_out``. MLA's ``wq_a``, ``wkv_a`` and norms stay whole.
 """
 
 from __future__ import annotations
@@ -47,20 +63,95 @@ def _project_qkv(params, x, cfg, positions, mrope_positions=None):
     q = (x @ params["wq"]).reshape(B, S, cfg.n_heads, hd)
     k = (x @ params["wk"]).reshape(B, S, cfg.n_kv_heads, hd)
     v = (x @ params["wv"]).reshape(B, S, cfg.n_kv_heads, hd)
+    q, k = _rotate_qk(q, k, cfg, positions, mrope_positions)
+    return q, k, v
+
+
+def _rotate_qk(q, k, cfg, positions, mrope_positions):
     if cfg.rope == "mrope":
         q = L.apply_mrope(q, mrope_positions, cfg.mrope_sections, cfg.rope_theta)
         k = L.apply_mrope(k, mrope_positions, cfg.mrope_sections, cfg.rope_theta)
     elif cfg.rope == "rope":
         q = L.apply_rope(q, positions, cfg.rope_theta)
         k = L.apply_rope(k, positions, cfg.rope_theta)
-    return q, k, v
+    return q, k
 
 
-def gqa_train(params, x, cfg, positions, mrope_positions=None, use_kernel=True):
+def gqa_train(params, x, cfg, positions, mrope_positions=None, use_kernel=True, tp=None):
+    """Causal (windowed) GQA over the sequence; with ``tp`` on the rank's
+    heads (module docstring), ``x`` entering through ``tp.col_in``."""
+    if tp is not None:
+        return _gqa_train_tp(params, x, cfg, positions, mrope_positions, use_kernel, tp)
     q, k, v = _project_qkv(params, x, cfg, positions, mrope_positions)
     o = gqa_attention(q, k, v, causal=True, window=cfg.sliding_window, use_kernel=use_kernel)
     B, S = x.shape[:2]
     return o.reshape(B, S, -1) @ params["wo"]
+
+
+def head_block(H: int, m: int, c: int) -> tuple[int, int]:
+    """The heads [h0, h1) that the block of coordinate ``c`` of ``m`` touches
+    when the columns of ``H`` heads are cut into ``m`` equal blocks."""
+    return c * H // m, -(-(c + 1) * H // m)
+
+
+def _heads(name, w, H, width, tp, h0, h1):
+    """The columns of heads [h0, h1) of a leaf of H heads of ``width``
+    columns each, from the rank's cut ``w``: its own columns where the
+    heads split over the axis, else the gathered leaf's."""
+    L.expect_cut(name, w, 1, H * width, tp)
+    if H % tp.size == 0:
+        return w
+    return tp.gather_cols(w)[:, h0 * width:h1 * width]
+
+
+def _own_columns(o, H, width, tp, h0):
+    """The rank's block of the (B, S, H·width) output columns, from the
+    (B, S, (h1 - h0)·width) of the heads it computed."""
+    lo = tp.coord * H * width // tp.size - h0 * width
+    return o[..., lo:lo + H * width // tp.size]
+
+
+def kv_heads_read(H: int, Hkv: int, h0: int, h1: int) -> tuple[int, int, list[int]]:
+    """(k0, k1, pick): the KV heads [k0, k1) that query heads [h0, h1) read
+    (query head h reads KV head h // (H / Hkv)), and for each of those
+    query heads the index of its KV head within [k0, k1)."""
+    G = H // Hkv
+    k0, k1 = h0 // G, (h1 - 1) // G + 1
+    return k0, k1, [h // G - k0 for h in range(h0, h1)]
+
+
+def _kv_for_heads(k, v, pick):
+    """k and v (B, S, n, ·) as the GQA kernel reads them for query heads
+    whose KV heads are ``pick``: as they are where ``pick`` is the
+    kernel's own h // (nq / n), else one KV head a query head."""
+    nq, n = len(pick), k.shape[2]
+    if nq % n == 0 and pick == [i // (nq // n) for i in range(nq)]:
+        return k, v
+    idx = torch.tensor(pick, device=k.device)
+    return k.index_select(2, idx), v.index_select(2, idx)
+
+
+def _gqa_train_tp(params, x, cfg, positions, mrope_positions, use_kernel, tp):
+    H, Hkv, hd, m = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim, tp.size
+    h0, h1 = head_block(H, m, tp.coord)
+    L.expect_cut("wo", params["wo"], 0, H * hd, tp)
+    for key in ("wk", "wv"):
+        L.expect_cut(key, params[key], 1, Hkv * hd, tp)
+    wq = _heads("wq", params["wq"], H, hd, tp, h0, h1)
+    k0, k1, pick = kv_heads_read(H, Hkv, h0, h1)
+    # where the KV heads split, the rank's own columns are those its query heads read
+    wk = _heads("wk", params["wk"], Hkv, hd, tp, k0, k1)
+    wv = _heads("wv", params["wv"], Hkv, hd, tp, k0, k1)
+    x = tp.col_in(x)
+    B, S, _ = x.shape
+    q = (x @ wq).reshape(B, S, h1 - h0, hd)
+    k = (x @ wk).reshape(B, S, k1 - k0, hd)
+    v = (x @ wv).reshape(B, S, k1 - k0, hd)
+    q, k = _rotate_qk(q, k, cfg, positions, mrope_positions)
+    k, v = _kv_for_heads(k, v, pick)
+    o = gqa_attention(q, k, v, causal=True, window=cfg.sliding_window, use_kernel=use_kernel)
+    o = _own_columns(o.reshape(B, S, -1), H, hd, tp, h0)
+    return tp.row_out(o @ params["wo"])
 
 
 def gqa_decode(params, x, cache, cfg, position, mrope_positions=None):
@@ -138,11 +229,12 @@ def mla_specs(cfg, rules):
     }
 
 
-def _mla_qkv(params, x, cfg, positions):
+def _mla_qkv(params, x, cfg, positions, H=None):
+    """``H`` the heads ``wq_b`` holds (all of them, or the rank's)."""
     B, S, _ = x.shape
     m = cfg.mla
     q_lat = L.rmsnorm(params["q_norm"], x @ params["wq_a"])
-    q = (q_lat @ params["wq_b"]).reshape(B, S, cfg.n_heads,
+    q = (q_lat @ params["wq_b"]).reshape(B, S, H or cfg.n_heads,
                                          m.qk_nope_head_dim + m.qk_rope_head_dim)
     q_nope, q_rope = q.split([m.qk_nope_head_dim, m.qk_rope_head_dim], dim=-1)
     q_rope = L.apply_rope(q_rope, positions, cfg.rope_theta)
@@ -152,35 +244,49 @@ def _mla_qkv(params, x, cfg, positions):
     return q_nope, q_rope, c_kv, k_rope[:, :, 0, :]
 
 
-def _mla_expand_kv(params, c_kv, cfg):
-    """(k_nope, v), each (B, S, H, ·): views of one product. A float32
-    latent (the engine's cache) times a bf16 ``wkv_b`` runs in float32, as
-    JAX promotes it."""
+def _mla_expand_kv(params, c_kv, cfg, H=None):
+    """(k_nope, v), each (B, S, H, ·): views of one product, ``H`` the
+    heads ``wkv_b`` holds (all of them, or the rank's). A float32 latent
+    (the engine's cache) times a bf16 ``wkv_b`` runs in float32, as JAX
+    promotes it."""
     m = cfg.mla
     B, S, _ = c_kv.shape
     w = params["wkv_b"]
     dt = torch.promote_types(c_kv.dtype, w.dtype)
-    kv = (c_kv.to(dt) @ w.to(dt)).reshape(B, S, cfg.n_heads, m.qk_nope_head_dim + m.v_head_dim)
+    kv = (c_kv.to(dt) @ w.to(dt)).reshape(B, S, H or cfg.n_heads,
+                                          m.qk_nope_head_dim + m.v_head_dim)
     return kv.split([m.qk_nope_head_dim, m.v_head_dim], dim=-1)
 
 
-def mla_train(params, x, cfg, positions, use_kernel=True):
+def mla_train(params, x, cfg, positions, use_kernel=True, tp=None):
     """With ``use_kernel`` K4 takes q and k of head dim qk_nope + qk_rope
     and v at its own head dim, a strided view of the expanded latent (the
     JAX package pads v to q's head dim for its kernel and slices the output
     back: the same numbers). Without, the materialising ``attention_ref``
     on (B·H, S, ·) operands, as in the JAX package. Both scale by
-    1/sqrt(qk_nope + qk_rope). Runs under the profiler label ``attn.mla``."""
+    1/sqrt(qk_nope + qk_rope). With ``tp`` on the rank's heads (module
+    docstring): ``wq_b`` and ``wkv_b`` cut by columns, ``wo`` by rows.
+    Runs under the profiler label ``attn.mla``."""
     with record_function("attn.mla"):
-        return _mla_train(params, x, cfg, positions, use_kernel)
+        return _mla_train(params, x, cfg, positions, use_kernel, tp)
 
 
-def _mla_train(params, x, cfg, positions, use_kernel):
+def _mla_train(params, x, cfg, positions, use_kernel, tp):
     m = cfg.mla
-    B, S, _ = x.shape
     H = cfg.n_heads
-    q_nope, q_rope, c_kv, k_rope = _mla_qkv(params, x, cfg, positions)
-    k_nope, v = _mla_expand_kv(params, c_kv, cfg)
+    if tp is not None:
+        h0, h1 = head_block(H, tp.size, tp.coord)
+        L.expect_cut("wo", params["wo"], 0, H * m.v_head_dim, tp)
+        params = dict(params,
+                      wq_b=_heads("wq_b", params["wq_b"], H,
+                                  m.qk_nope_head_dim + m.qk_rope_head_dim, tp, h0, h1),
+                      wkv_b=_heads("wkv_b", params["wkv_b"], H,
+                                   m.qk_nope_head_dim + m.v_head_dim, tp, h0, h1))
+        x = tp.col_in(x)
+        H = h1 - h0
+    B, S, _ = x.shape
+    q_nope, q_rope, c_kv, k_rope = _mla_qkv(params, x, cfg, positions, H)
+    k_nope, v = _mla_expand_kv(params, c_kv, cfg, H)
     q = torch.cat([q_nope, q_rope], dim=-1)
     k = torch.cat([k_nope, k_rope[:, :, None, :].expand(B, S, H, m.qk_rope_head_dim)], dim=-1)
     if use_kernel:
@@ -192,7 +298,11 @@ def _mla_train(params, x, cfg, positions, use_kernel):
         o = attention_ref(heads_first(q), heads_first(k), heads_first(v), causal=True,
                           scale=q.shape[-1] ** -0.5)
         o = o.reshape(B, H, S, m.v_head_dim).transpose(1, 2)
-    return o.reshape(B, S, H * m.v_head_dim) @ params["wo"]
+    o = o.reshape(B, S, H * m.v_head_dim)
+    if tp is None:
+        return o @ params["wo"]
+    o = _own_columns(o, cfg.n_heads, m.v_head_dim, tp, h0)
+    return tp.row_out(o @ params["wo"])
 
 
 def mla_decode(params, x, cache, cfg, position):

@@ -6,12 +6,22 @@ the tensors' device) and an apply that is a plain function of (params, x).
 Norms and RoPE compute in float32 and cast back to the input's dtype, as
 the JAX package does. A spec (``norm_specs``, ``mlp_specs``) is the
 port's plain tuple, one entry per dim (``dist.sharding.Spec``).
+
+Under the tensor axis (``tp``, a ``dist.collectives.TensorParallel``:
+the train path under active rules) the MLP, the embedding and the
+unembedding take the rank's leaves cut as their specs cut them: the MLP's
+``w_in`` and ``w_gate`` by columns and ``w_out`` by rows, the table on d,
+the unembedding on the vocabulary. A leaf of another shape raises
+``ValueError`` naming it (``expect_cut``). Without ``tp`` every leaf is
+whole.
 """
 
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
+
+from repro_torch.dist import collectives as CL
 
 
 def truncated_normal(gen: torch.Generator, shape, dtype, scale, device):
@@ -125,13 +135,36 @@ def gelu(x):
     return F.gelu(x, approximate="tanh")
 
 
-def mlp_apply(params, x, act=F.silu):
+def expect_cut(name: str, leaf, dim: int, whole: int, tp) -> None:
+    """Raise unless ``leaf``'s ``dim`` is the rank's cut of ``whole`` on
+    the tensor axis: the leaf's layout is stated, never guessed."""
+    if whole % tp.size:
+        raise ValueError(f"{name}: a dim of {whole} does not split over the tensor axis "
+                         f"({tp.size})")
+    if leaf.shape[dim] != whole // tp.size:
+        raise ValueError(f"{name} {tuple(leaf.shape)}: dim {dim} is not the rank's cut "
+                         f"{whole // tp.size} of {whole} on the tensor axis ({tp.size})")
+
+
+def mlp_apply(params, x, act=F.silu, tp=None, ff=None):
+    """The gated (or plain) MLP. With ``tp`` the rank's leaves cut on the
+    tensor axis (``ff`` the whole hidden width): ``x`` enters through
+    ``tp.col_in``, the rank's ff slice runs, and its partial output leaves
+    through ``tp.row_out`` (summed in float32 over the axis, or
+    reduce-scattered along the sequence under ``seq_parallel``)."""
+    if tp is not None:
+        for key in ("w_in", "w_gate"):
+            if key in params:
+                expect_cut(key, params[key], 1, ff, tp)
+        expect_cut("w_out", params["w_out"], 0, ff, tp)
+        x = tp.col_in(x)
     h = x @ params["w_in"]
     if "w_gate" in params:
         h = act(x @ params["w_gate"]) * h
     else:
         h = act(h)
-    return h @ params["w_out"]
+    y = h @ params["w_out"]
+    return y if tp is None else tp.row_out(y)
 
 
 def mlp_specs(rules, gated=True):
@@ -146,9 +179,32 @@ def embed_init(gen, vocab, d_model, dtype, device):
     return {"table": truncated_normal(gen, (vocab, d_model), dtype, 1.0, device)}
 
 
-def embed_apply(params, tokens):
-    return params["table"][tokens]
+def embed_apply(params, tokens, tp=None, d=None):
+    """The table's rows of ``tokens``. With ``tp`` the table cut on d (``d``
+    the whole width): the rank looks up its d-slice, and the slices are
+    all-gathered over the tensor axis (the backward sums each slice's
+    cotangents over the axis' copies)."""
+    if tp is None:
+        return params["table"][tokens]
+    expect_cut("embed/table", params["table"], 1, d, tp)
+    x = params["table"][tokens]
+    if tp.size == 1:
+        return x
+    return CL.all_gather(x.movedim(-1, 0), tp.group, mesh=tp.mesh).movedim(0, -1)
 
 
-def unembed_apply(params, x):
-    return x @ params["table"].T
+def unembed_apply(params, x, tp=None, d=None):
+    """Logits of the tied table. With ``tp`` the table is cut on d: it is
+    gathered whole over the tensor axis (one (vocab, d) copy a rank, rather
+    than all-reducing (B, S, vocab) partial logits), and the rank takes the
+    rows of its vocabulary slice, so the logits come cut on the vocabulary
+    as the untied unembedding's do."""
+    if tp is None:
+        return x @ params["table"].T
+    expect_cut("embed/table", params["table"], 1, d, tp)
+    table = tp.gather_cols(params["table"])
+    V = table.shape[0]
+    if V % tp.size:
+        raise ValueError(f"a vocabulary of {V} does not split over the tensor axis ({tp.size})")
+    rows = V // tp.size
+    return tp.copy(x) @ table[tp.coord * rows:(tp.coord + 1) * rows].T

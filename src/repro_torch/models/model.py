@@ -15,6 +15,17 @@ of those trees (a plain tuple, ``dist.sharding.Spec``): each layer of the
 stack and of the prefix takes the JAX package's stacked spec without its
 leading entry, and each prefix layer's cache the stack's first member's.
 ``dist.sharding.local_slices`` turns a spec into what a rank holds.
+
+Under active rules (``dist.sharding.set_active``) the train path
+(``forward_train``, ``loss_fn``) is tensor-parallel on the mesh's tensor
+axis and takes the rank's compute leaves (``compute_specs``: the dense
+leaves cut as ``param_specs`` cuts them on that axis, everything else
+whole; ``local_params`` cuts a whole tree so, as views): the embedding
+looks up the rank's d-slice and gathers it, each block runs on the rank's
+heads and ff slice, and the logits come cut on the vocabulary, the cross
+entropy taking its max, its sum of exponentials and the target's logit
+over the axis (``softmax_xent``). ``whole_logits`` gathers them. The
+decode (``decode_step``) keeps whole leaves under rules, as before.
 """
 
 from __future__ import annotations
@@ -22,6 +33,8 @@ from __future__ import annotations
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.dist import collectives as CL
+from repro_torch.dist import sharding as SH
 from repro_torch.models import layers as L
 from repro_torch.models import transformer as T
 
@@ -91,15 +104,64 @@ def param_specs(cfg: ModelConfig, rules):
     return s
 
 
+def _member_cut(path, cfg) -> bool:
+    """Whether the leaf at ``path`` (of ``init_params``' tree) is computed
+    cut on the tensor axis: the attention of an attention member, its
+    dense MLP or a MoE layer's shared expert and expert stacks, the
+    embedding table and the unembedding. The rest (norms, the router, the
+    Mamba, mLSTM and sLSTM mixers, MLA's ``wq_a`` and ``wkv_a``, the MTP
+    projection) is computed whole."""
+    if path[0] in ("embed", "unembed"):
+        return True
+    if path[0] == "stack":
+        mixer, _ = T.layer_kinds(cfg)[path[1]]
+        at = 2
+    elif path[0] == "prefix":
+        mixer, at = "attn", 2
+    elif path[0] == "mtp" and path[1] == "block":
+        mixer, at = "attn", 2
+    else:
+        return False
+    if path[at] == "mixer":
+        return mixer == "attn"
+    return path[at] == "ffn"
+
+
+def compute_specs(cfg: ModelConfig, rules):
+    """The spec every parameter is computed under on a rank of the train
+    path (``forward_train`` under active rules): ``param_specs``'
+    tensor-axis entries of the leaves computed cut (``_member_cut``),
+    every other entry whole. ``dist.sharding.local_slices`` of it gives
+    the rank's compute leaf."""
+    from repro_torch.train import optimizer as O  # the tree helpers; train imports models
+
+    def keep(path, spec):
+        if not _member_cut(path, cfg):
+            return tuple(None for _ in spec)
+        return tuple(e if e == rules.tensor_axis else None for e in spec)
+
+    return O.map_specs(param_specs(cfg, rules), keep)
+
+
+def local_params(params, cfg: ModelConfig, rules, coords, sizes):
+    """A whole parameter tree cut, as views, to the compute leaves of the
+    rank at ``coords`` of a mesh of ``sizes`` (``compute_specs``)."""
+    from repro_torch.train import optimizer as O
+
+    specs = compute_specs(cfg, rules)
+    return O.unflatten(params, [w[SH.local_slices(O.get(specs, path), w.shape, coords, sizes)]
+                                for path, w in O.flatten(params)])
+
+
 # --------------------------------------------------------------- forward
-def _embed_inputs(params, batch, cfg):
+def _embed_inputs(params, batch, cfg, tp=None):
     if cfg.embeds_input and "embeds" in batch:
         x = batch["embeds"].to(_dtype(cfg.compute_dtype))
         B, S = x.shape[:2]
     else:
         tokens = batch["tokens"]
         B, S = tokens.shape
-        x = L.embed_apply(params["embed"], tokens).to(_dtype(cfg.compute_dtype))
+        x = L.embed_apply(params["embed"], tokens, tp, cfg.d_model).to(_dtype(cfg.compute_dtype))
     positions = torch.arange(S, dtype=torch.int32, device=x.device).expand(B, S)
     return x, positions, batch.get("mrope_positions")
 
@@ -111,15 +173,24 @@ def forward_train(params, batch, cfg: ModelConfig, use_kernel: bool = True,
     without MoE layers); the dense prefix runs before the stack. With
     ``remat`` and autograd recording, each prefix layer and each group of
     the stack runs under ``torch.utils.checkpoint``, as the JAX package
-    runs them under ``jax.checkpoint``."""
-    x, positions, mrope = _embed_inputs(params, batch, cfg)
+    runs them under ``jax.checkpoint``. Under active rules the rank's
+    compute leaves (module docstring) give the rank's (B, S, vocab / m)
+    slice of the logits; with ``seq_parallel`` the blocks run on the
+    rank's block of the sequence, gathered after the final norm."""
+    tp = CL.tensor_parallel()
+    x, positions, mrope = _embed_inputs(params, batch, cfg, tp)
+    sp = tp is not None and tp.seq_parallel
+    if sp:
+        x = tp.own_seq(x)
     for member in params.get("prefix", []):  # dense members: their aux is 0
         x = T.remat_call(
             lambda x, member=member: T.member_train(member, x, cfg, "attn", "mlp", positions,
                                                     mrope, use_kernel)[0], x, remat)
     x, aux = T.stack_train(params["stack"], x, cfg, positions, mrope, use_kernel, remat)
     h = _norm_f(cfg)(params["final_norm"], x)
-    logits = _unembed(params, h, cfg)
+    if sp:
+        h = tp.gather_seq(h)
+    logits = _unembed(params, h, cfg, tp)
     return logits, aux, h
 
 
@@ -127,31 +198,66 @@ def _norm_f(cfg):
     return L.rmsnorm if cfg.norm == "rmsnorm" else L.layernorm
 
 
-def _unembed(params, h, cfg):
+def _unembed(params, h, cfg, tp=None):
     if cfg.tie_embeddings:
-        return L.unembed_apply(params["embed"], h)
-    return h @ params["unembed"]["w"]
+        return L.unembed_apply(params["embed"], h, tp, cfg.d_model)
+    if tp is None:
+        return h @ params["unembed"]["w"]
+    L.expect_cut("unembed/w", params["unembed"]["w"], 1, cfg.vocab, tp)
+    return tp.copy(h) @ params["unembed"]["w"]
+
+
+def whole_logits(logits):
+    """Logits cut on the vocabulary under active rules, gathered whole over
+    the tensor axis (outside autograd); as they are with no rules active."""
+    tp = CL.tensor_parallel()
+    if tp is None or tp.size == 1:
+        return logits
+    with torch.no_grad():
+        return CL.all_gather(logits.movedim(-1, 0).contiguous(), tp.group,
+                             mesh=tp.mesh).movedim(0, -1)
 
 
 def mtp_logits(params, h, batch, cfg, use_kernel=True):
     """DeepSeek MTP: predict token t+2 from [h_t ; emb(token_{t+1})]
     through one extra block sharing the embedding and unembedding; the
-    last position sees token 0."""
+    last position sees token 0. Under active rules as ``forward_train``."""
+    tp = CL.tensor_parallel()
     tokens = batch["tokens"]
     B, S = tokens.shape
     nxt = torch.cat([tokens[:, 1:], tokens.new_zeros((B, 1))], dim=1)
-    e = L.embed_apply(params["embed"], nxt).to(h.dtype)
+    e = L.embed_apply(params["embed"], nxt, tp, cfg.d_model).to(h.dtype)
     z = torch.cat([_norm_f(cfg)(params["mtp"]["norm"], h), e], dim=-1) @ params["mtp"]["proj"]
     positions = torch.arange(S, dtype=torch.int32, device=h.device).expand(B, S)
+    sp = tp is not None and tp.seq_parallel
+    if sp:
+        z = tp.own_seq(z)
     z = T.member_train(params["mtp"]["block"], z, cfg, "attn", "mlp", positions, None,
                        use_kernel)[0]
-    return _unembed(params, z, cfg)
+    if sp:
+        z = tp.gather_seq(z)
+    return _unembed(params, z, cfg, tp)
 
 
-def softmax_xent(logits, labels, valid=None):
-    lf = logits.float()
-    logz = torch.logsumexp(lf, dim=-1)
-    ll = torch.gather(lf, -1, labels[..., None].long())[..., 0]
+def softmax_xent(logits, labels, valid=None, tp=None):
+    """The mean cross entropy. With ``tp`` the logits are the rank's
+    (…, vocab / m) slice on the tensor axis (vocabulary block ``tp.coord``):
+    the max, the sum of exponentials and the target's logit are each taken
+    over the axis in float32 (the max outside autograd), so every rank
+    holds the whole loss. Computed in float32 (float64 logits stay
+    float64)."""
+    lf = logits.to(torch.promote_types(logits.dtype, torch.float32))
+    if tp is None:
+        logz = torch.logsumexp(lf, dim=-1)
+        ll = torch.gather(lf, -1, labels[..., None].long())[..., 0]
+    else:
+        top = tp.max(lf.amax(dim=-1))
+        logz = torch.log(tp.sum(torch.exp(lf - top[..., None]).sum(-1))) + top
+        Vl = lf.shape[-1]
+        at = labels.long() - tp.coord * Vl
+        mine = (at >= 0) & (at < Vl)
+        ll = torch.gather(lf, -1, at.clamp(0, Vl - 1)[..., None])[..., 0]
+        ll = tp.sum(torch.where(mine, ll, torch.zeros_like(ll)))
     nll = logz - ll
     if valid is None:
         return nll.mean()
@@ -160,15 +266,16 @@ def softmax_xent(logits, labels, valid=None):
 
 def loss_fn(params, batch, cfg: ModelConfig, use_kernel: bool = True, remat: bool = True):
     logits, aux, h = forward_train(params, batch, cfg, use_kernel, remat)
+    tp = CL.tensor_parallel()
     labels = batch["labels"]
-    loss = softmax_xent(logits[:, :-1], labels[:, 1:])
+    loss = softmax_xent(logits[:, :-1], labels[:, 1:], tp=tp)
     metrics = {"ce": loss}
     if cfg.moe is not None:
         loss = loss + cfg.moe.aux_loss_weight * aux
         metrics["moe_aux"] = aux
     if cfg.mtp_depth and "tokens" in batch:
         ml = mtp_logits(params, h, batch, cfg, use_kernel)
-        mtp_loss = softmax_xent(ml[:, :-2], labels[:, 2:])
+        mtp_loss = softmax_xent(ml[:, :-2], labels[:, 2:], tp=tp)
         loss = loss + 0.3 * mtp_loss
         metrics["mtp"] = mtp_loss
     metrics["loss"] = loss

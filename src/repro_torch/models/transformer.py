@@ -20,7 +20,9 @@ rules active (``dist.sharding.set_active``), the expert-parallel or
 tensor-parallel path on this rank's data shard; its load-balance loss is
 summed over the stack in train form and dropped in decode form, as in the
 JAX package. An attention member's decode writes its KV cache in place; a
-recurrent member's returns a new state.
+recurrent member's returns a new state. Under active rules the train form
+is tensor-parallel on the rank's cut dense leaves, with the reference's
+``seq_parallel`` (``member_train``); the decode form keeps whole leaves.
 
 The sharding specs (``member_specs``, ``stack_specs``,
 ``stack_cache_specs``) follow the port's trees: one spec dict per layer,
@@ -35,7 +37,7 @@ import torch.nn.functional as F
 from torch.autograd.profiler import record_function
 from torch.utils.checkpoint import checkpoint
 
-from repro_torch.dist import sharding as SH
+from repro_torch.dist import collectives as CL
 from repro_torch.models import attention as A
 from repro_torch.models import layers as L
 from repro_torch.models import mamba as MB
@@ -104,39 +106,68 @@ def _act(cfg):
     return F.silu if cfg.mlp_gated else L.gelu
 
 
-def _ffn(params, h2, cfg, ffn):
+def _ffn(params, h2, cfg, ffn, tp=None):
     """(y, aux) of the member's FFN on its post-norm2 hidden; a dense FFN
-    runs under the profiler label ``ffn.mlp``."""
-    if ffn == "moe":
+    runs under the profiler label ``ffn.mlp``. With ``tp`` (the train path
+    under active rules) a dense FFN and a MoE layer's shared expert run on
+    the rank's cut leaves (``layers.mlp_apply``); the routed experts take
+    ``moe.moe_apply_auto`` (EP or TP) on the whole hidden (under
+    ``seq_parallel`` the gathered sequence, ``_whole``). The shared expert
+    is added after the routed experts, as the reference adds it after its
+    ``shard_map``."""
+    if ffn != "moe":
+        with record_function("ffn.mlp"):
+            return L.mlp_apply(params, h2, act=_act(cfg), tp=tp, ff=cfg.d_ff), None
+    if tp is None:
         return MOE.moe_apply_auto(params, h2, cfg)
-    with record_function("ffn.mlp"):
-        return L.mlp_apply(params, h2, act=_act(cfg)), None
+    routed = {key: w for key, w in params.items() if key != "shared"}
+    y, aux = _whole(lambda h: MOE.moe_apply_auto(routed, h, cfg), h2, tp)
+    if "shared" in params:
+        y = y + L.mlp_apply(params["shared"], h2, tp=tp,
+                            ff=cfg.moe.d_ff_expert * cfg.moe.shared_experts)
+    return y, aux
+
+
+def _whole(fn, h, tp):
+    """``fn`` (a mixer or FFN computed on whole leaves in this slice) on the
+    rank's rows: under ``seq_parallel`` on the gathered sequence, and its
+    output cut back to the rank's block."""
+    if tp is None or not tp.seq_parallel:
+        return fn(h)
+    out = fn(tp.gather_seq(h))
+    if isinstance(out, tuple):
+        return (tp.own_seq(out[0]), *out[1:])
+    return tp.own_seq(out)
 
 
 def member_train(params, x, cfg, mixer, ffn, positions, mrope_positions, use_kernel):
     """-> (x, aux): aux is the MoE load-balance loss, a float32 zero for
-    any other FFN. Raises ``NotImplementedError`` under active rules with
-    ``seq_parallel``, where the reference splits the residual stream over
-    the tensor axis."""
-    act = SH.active()
-    if act is not None and act[0].seq_parallel:
-        raise NotImplementedError(
-            "seq_parallel: the reference splits the residual stream over the tensor axis "
-            "here, and the port has no residual stream to split: it has no tensor "
-            "parallelism of the dense layers, and the sharded step gathers every leaf "
-            "whole (ROADMAP Queue 3)")
+    any other FFN.
+
+    Under active rules (``dist.collectives.tensor_parallel``) the
+    attention (GQA or MLA), the dense MLP and a MoE layer's shared expert
+    run on the rank's leaves cut on the tensor axis (their specs' cuts; a
+    whole leaf raises ``ValueError`` naming it), their partial outputs
+    summed over the axis; Mamba, mLSTM and sLSTM run on whole leaves, and
+    the MoE layer's experts take the EP or TP path. With
+    ``seq_parallel`` the residual ``x`` is the rank's (B, S / m, d) block of
+    the sequence: each norm runs on the block, the sequence is gathered
+    before the mixer and the FFN, and their output reduce-scattered back to
+    the block (a module on whole leaves: its output cut to the block)."""
     _check_kinds(mixer, ffn)
+    tp = CL.tensor_parallel()
     norm = _norm(cfg)
     h = norm(params["norm1"], x)
     if mixer in RECURRENT:
-        x = x + _RECURRENT[mixer][1](params["mixer"], h, cfg)
+        x = x + _whole(lambda h: _RECURRENT[mixer][1](params["mixer"], h, cfg), h, tp)
     elif cfg.attention == "mla":
-        x = x + A.mla_train(params["mixer"], h, cfg, positions, use_kernel=use_kernel)
+        x = x + A.mla_train(params["mixer"], h, cfg, positions, use_kernel=use_kernel, tp=tp)
     else:
-        x = x + A.gqa_train(params["mixer"], h, cfg, positions, mrope_positions, use_kernel)
+        x = x + A.gqa_train(params["mixer"], h, cfg, positions, mrope_positions, use_kernel,
+                            tp=tp)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     if ffn != "none":
-        y, moe_aux = _ffn(params["ffn"], norm(params["norm2"], x), cfg, ffn)
+        y, moe_aux = _ffn(params["ffn"], norm(params["norm2"], x), cfg, ffn, tp)
         x = x + y
         if moe_aux is not None:
             aux = moe_aux

@@ -39,21 +39,27 @@ The design is simple and right first:
 * storage follows the specs exactly: TP shards on the model axis, FSDP or
   ZeRO-1 shards on the data axes, whole layers on their holder, EP's
   expert stacks;
-* compute gathers every leaf to its full shape at the top of the step
-  (all-gathers, and a broadcast from a layer's holder), except the MoE
-  expert stacks, which stay cut on the model axis, so ``moe_apply_auto``
-  takes EP or TP as the reference does; each rank runs ``models.loss_fn``
-  (remat as in one process) on its batch rows, replicated over the model
-  axis;
+* compute gathers every leaf over the batch axes at the top of the step
+  (all-gathers, and a broadcast from a layer's holder), to its compute
+  spec (``models.compute_specs``): the leaves the train path computes
+  tensor-parallel (the attention, the dense MLP, a MoE layer's shared
+  expert, the embedding and the unembedding) and the MoE expert stacks
+  keep their cut on the model axis, the rest (norms, routers, the Mamba,
+  mLSTM and sLSTM mixers) is gathered whole; each rank runs
+  ``models.loss_fn`` (remat as in one process) on its batch rows, on its
+  heads and ff slice, its logits cut on the vocabulary (and, with
+  ``seq_parallel``, its residual stream on its block of the sequence);
 * the gradient convention is the SPMD transpose: every rank seeds its
   backward with ``1 / n_ranks`` of its own loss copy, and every collective
   on the forward (``dist.collectives``' differentiable ones in the MoE
-  layers) has its transpose as backward (all-to-all <-> the same
-  all-to-all, all-gather -> reduce-scatter of the sum, all-reduce ->
-  all-reduce). A leaf's gradient is then the sum over the ranks holding a
-  copy of it in compute (every rank for a gathered leaf, the batch axes
-  for an expert stack), of which each rank keeps the slices its optimizer
-  state holds. This counts the global loss once: the mean of the data
+  layers and the tensor-parallel blocks) has its transpose as backward
+  (all-to-all <-> the same all-to-all, all-gather -> reduce-scatter of the
+  sum, all-reduce -> all-reduce; a column block's input, the identity,
+  takes the mean of its copies' cotangents). A leaf's gradient is then
+  the sum over the ranks holding a copy of it in compute (every rank for
+  a leaf computed whole, the batch axes for a leaf computed cut on the
+  model axis), of which each rank keeps the slices its optimizer state
+  holds. This counts the global loss once: the mean of the data
   shards' ``ce`` plus the aux term's mean over every token shard. The
   sums run in the gradients' dtype (bf16 for bf16 weights; float32 for
   microbatches, whose sum is float32), a leaf at a time on the carrier,
@@ -80,7 +86,7 @@ may span two layers, which FSDP may place on different data
 coordinates): for each leaf of the JAX package's layout
 (``compression.reference_leaves``), the summed, averaged gradient of
 every port leaf it stacks is all-reduced whole over its copies (an
-expert stack then all-gathered over the tensor axis) and its error
+leaf computed cut then all-gathered over the tensor axis) and its error
 gathered whole from the ``err`` shards (the parameters' specs), every
 rank quantizes their concatenation with ``compression.compress_stacked``
 (the one-process step's code, so each rank makes the same codes), and
@@ -110,7 +116,6 @@ from torch.autograd.profiler import record_function
 from repro_torch.dist import collectives as CL
 from repro_torch.dist import sharding as SH
 from repro_torch.models import model as M
-from repro_torch.models.moe import EXPERT_FF_DIM
 from repro_torch.train import compression as C
 from repro_torch.train import optimizer as O
 
@@ -535,16 +540,6 @@ def _replica(spec, mesh) -> bool:
     return any(mesh.coords[a] for a in mesh.axis_names if a not in named)
 
 
-def _compute_spec(path, spec, pspecs, rules) -> tuple:
-    """The spec a leaf is computed under: whole, except a MoE layer's
-    expert stacks, which keep their tensor-axis entries."""
-    _, own = SH.split_holder(spec)
-    parent = O.get(pspecs, path[:-1]) if len(path) > 1 else {}
-    if path[-1] in EXPERT_FF_DIM and isinstance(parent, dict) and "router" in parent:
-        return tuple(e if e == rules.tensor_axis else None for e in own)
-    return tuple(None for _ in own)
-
-
 def _seed(mesh) -> float:
     """Each rank's share of the backward's seed: its loss copy counts
     ``1 / n_ranks`` of the global loss."""
@@ -663,7 +658,8 @@ def make_sharded_train_step(cfg, opt_cfg: O.OptConfig, settings: TrainSettings):
         rules, mesh = act
         pspecs, ospecs, bspecs, _ = train_shardings(cfg, rules, opt_cfg, settings)
         paths = [path for path, _ in O.flatten(like_p)]
-        keep = {path: _compute_spec(path, O.get(pspecs, path), pspecs, rules) for path in paths}
+        cspecs = M.compute_specs(cfg, rules)  # each leaf's spec in compute
+        keep = {path: O.get(cspecs, path) for path in paths}
         if _PARTS is not None:
             _PARTS["steps"] += 1
         with torch.no_grad(), _part("gather_ms", mesh.device):

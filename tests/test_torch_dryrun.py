@@ -233,6 +233,88 @@ def test_dense_forward_flops_are_the_hand_count():
     assert fc.get_total_flops() == cfg.n_layers * layer + 2 * T * d * V
 
 
+def _step_gathers(rules, mesh_shape, rank):
+    """TinyLlama smoke's train cell as rank ``rank`` of a fake world of
+    ``mesh_shape``: {path: bytes} of each leaf the sharded step gathers to
+    its compute spec at its top (``train_step._regather``' first call a
+    leaf), and the trace's FLOPs."""
+    from repro_torch.train import optimizer as O
+    from repro_torch.train import train_step as TS
+
+    cfg = get_smoke_config("tinyllama-1.1b")
+    paths = [path for path, _ in O.flatten(TS.param_shapes(cfg))]
+    seen, real = [], TS._regather
+
+    def record(x, frm, to, like, mesh):
+        out = real(x, frm, to, like, mesh)
+        seen.append(None if out is None else out.numel() * out.element_size())
+        return out
+
+    TS._regather = record
+    try:
+        trace = D.trace_cell(cfg, ShapeConfig("smoke", SEQ, 8, "train"), rules, 1)
+        res = D.run_trace(trace, rules, mesh_shape, AXES, rank)
+    finally:
+        TS._regather = real
+    return dict(zip(paths, seen[:len(paths)])), res["flops"]
+
+
+def test_train_cell_gathers_a_quarter_of_each_dense_leaf():
+    """On a fake (2, 4) world at TinyLlama smoke's train cell, the step
+    gathers every attention and MLP leaf, the embedding and the
+    unembedding to a quarter of the whole leaf's bytes (its model-axis
+    cut), the norms whole; and the rank's FLOPs fall accordingly: under a
+    third of the (2, 1) world's, where the rank computes every head."""
+    from repro_torch.train import optimizer as O
+    from repro_torch.train import train_step as TS
+
+    cfg = get_smoke_config("tinyllama-1.1b")
+    like = dict(O.flatten(TS.param_shapes(cfg)))
+    got, flops = _step_gathers(smoke_rules({"fsdp": True}), MESH, 0)
+    whole_got, whole_flops = _step_gathers(
+        SH.ShardRules(fsdp=True, data_axis_size=2, model_axis_size=1), (2, 1), 0)
+    for path, nbytes in got.items():
+        full = like[path].numel() * like[path].element_size()
+        cut = path[-1] != "scale"
+        assert nbytes == (full // MESH[1] if cut else full), (path, nbytes, full)
+        assert whole_got[path] == full, path
+    assert flops * 3 < whole_flops, (flops, whole_flops)
+
+
+def test_prefill_flops_are_the_local_heads_hand_count():
+    """TinyLlama smoke's prefill cell on rank 0 of a fake (2, 4) world: the
+    products of the rank's share counted by hand, at its one query head of
+    4, the one KV head it reads of 2, its ff slice and its vocabulary
+    slice; K4 by its flop formula at (1 query head, 1 KV head), at a head
+    dim of 64, one K4 takes."""
+    import dataclasses
+
+    cfg = dataclasses.replace(get_smoke_config("tinyllama-1.1b"), head_dim=64)
+    B, S = 8 // MESH[0], SEQ
+    m = MESH[1]
+    T, d, hd, ff, V = B * S, cfg.d_model, cfg.head_dim, cfg.d_ff, cfg.vocab
+    Hq, Hkv = cfg.n_heads // m, 1
+    rules = smoke_rules({})
+    trace = D.trace_cell(cfg, ShapeConfig("smoke", S, 8, "prefill"), rules, 1)
+    got = D.run_trace(trace, rules, MESH, AXES, 0)
+    layer = (2 * T * d * Hq * hd + 2 * 2 * T * d * Hkv * hd + 2 * T * Hq * hd * d
+             + B * Hq * key_pairs(S, S, True, cfg.sliding_window) * 4 * hd
+             + 3 * 2 * T * d * ff // m)
+    assert got["flops"] == cfg.n_layers * layer + 2 * T * d * V // m
+
+
+def test_seq_parallel_train_cell_is_ok_with_the_plain_flops(tmp_path):
+    """A ``--seq-parallel`` train cell traces (``ok``) and counts the plain
+    cell's FLOPs: the residual stream is cut along the sequence between
+    blocks, the products are the same."""
+    plain = D.analyze_cell("tinyllama-1.1b", "train_4k", False, out_dir=tmp_path)
+    cell = D.analyze_cell("tinyllama-1.1b", "train_4k", False, variant={"seq_parallel": True},
+                          tag="seq_parallel", out_dir=tmp_path)
+    assert plain["status"] == cell["status"] == "ok", cell
+    assert cell["cost"]["flops"] == plain["cost"]["flops"]
+    assert cell["memory"]["peak_bytes"] < plain["memory"]["peak_bytes"]
+
+
 def test_peak_tracker_counts_storages_once():
     """A scripted run: allocations, a view, frees while the view lives."""
     c = D.Counters("cpu")
@@ -289,8 +371,9 @@ def _experiments_dryrun():
 
 def test_cli_prefill_at_full_width(tmp_path, capsys):
     """TinyLlama-1.1B prefill_32k on the (16, 16) mesh, meta: ok, every
-    roofline term finite and positive, K4 counted (no score tensor), the
-    JSON where ``--out`` says and nothing under experiments/dryrun/."""
+    roofline term finite and positive, K4 counted on the rank's 2 query
+    heads of 32 (no score tensor), the JSON where ``--out`` says and
+    nothing under experiments/dryrun/."""
     before = _experiments_dryrun()
     assert D.RESULTS_DIR == REPO / "experiments" / "dryrun_torch"
     D.main(["--arch", "tinyllama-1.1b", "--shape", "prefill_32k", "--out", str(tmp_path)])
@@ -301,7 +384,8 @@ def test_cli_prefill_at_full_width(tmp_path, capsys):
         assert math.isfinite(rf[key]) and rf[key] > 0, (key, rf)
     assert r["memory"]["fits_80gib"] and r["memory"]["peak_bytes"] > r["memory"]["argument_bytes"]
     cfg = get_config("tinyllama-1.1b")
-    attn = 2 * cfg.n_layers * cfg.n_heads * key_pairs(32768, 32768, True, None) * 4 * 64
+    heads = cfg.n_heads // 16  # the rank's query heads on the model axis of 16
+    attn = 2 * cfg.n_layers * heads * key_pairs(32768, 32768, True, None) * 4 * 64
     assert r["cost"]["flops"] > attn
     assert "dryrun: " in capsys.readouterr().out
     assert _experiments_dryrun() == before

@@ -10,9 +10,11 @@ drop case at capacity factor 0.5 (the smoke config's 8.0 drops nothing),
 and ``moe_apply_auto`` at (1, 8), where 4 experts do not split over 8 model
 ranks and it takes ``moe_apply_tp``; then the whole smoke model's
 ``forward_train`` and ``loss_fn`` under rules (2, 4) (MLA, the dense
-prefix, two MoE layers, the MTP head) in the ``xla`` and fused modes. The
-shared expert runs in every case, on each rank's data shard after the
-exchange or the all-reduce. The JAX side runs this file as a script on 8
+prefix, two MoE layers, the MTP head) in the ``xla`` and fused modes, on
+each rank's compute leaves (``models.local_params``: MLA, the dense MLPs,
+the shared expert, the embedding and the unembedding tensor-parallel, the
+logits gathered over the vocabulary). The shared expert runs in every
+case, on each rank's data shard after the exchange or the all-reduce. The JAX side runs this file as a script on 8
 forced host devices, in two subprocesses started beside the ranks:
 
     XLA_FLAGS=--xla_force_host_platform_device_count=8 \\
@@ -27,7 +29,8 @@ within ``LAYER_TOL`` of the reference (torch's CPU ``xt @ router`` and
 XLA's dot differ in the last bit), the model within ``MODEL_TOL``; routes
 and drops exact; the port's ``xla``, ``dragonfly`` and
 ``dragonfly_overlap`` bit-identical to each other; ``moe_apply_ep_plain``
-the bits of the ranks' ``xla`` mode, and ``moe_apply_tp_plain`` the bits of
+the bits of the ranks' ``xla`` mode (in the model, the same ranks' forward
+with it in every MoE layer), and ``moe_apply_tp_plain`` the bits of
 the TP ranks when it sums in gloo's observed order (``ObservedSumOrder``).
 The module imports no jax at its top, so the ranks, which import it,
 start quickly.
@@ -157,21 +160,43 @@ def run_rank(rank, group, layout, params_path):
     mesh = LM.make_mesh(MODEL_MESH, ("data", "model"), device="cpu")
     tokens = torch.from_numpy(_data_shard(model_tokens(cfg.vocab), mesh.coords, MODEL_MESH[0]))
     batch = {"tokens": tokens, "labels": tokens}
+    whole = params_from_jax(unflatten(flat, "model"), cfg, device="cpu")
     for mode in MODEL_MODES:
         SH.set_active(SH.ShardRules(moe_collectives=mode), mesh)
-        tp = params_from_jax(unflatten(flat, "model"), cfg, device="cpu",
-                             rules=SH.active()[0], rank=rank)
+        tp = TM.local_params(whole, cfg, SH.active()[0], mesh.coords, mesh.sizes)
         with TMOE.recording_routes() as routes:
             logits, aux, _ = TM.forward_train(tp, batch, cfg, use_kernel=False)
         loss, metrics = TM.loss_fn(tp, batch, cfg, use_kernel=False)
         out["model"][mode] = {
-            "logits": logits.numpy(), "aux": aux.numpy(),
+            "logits": TM.whole_logits(logits).numpy(), "aux": aux.numpy(),
             **{key: val.numpy() for key, val in metrics.items()},
             "routes": [(i.numpy(), k.numpy()) for i, k, _ in routes],
             "experts_held": [layer["ffn"]["w_in"].shape[0] for layer in tp["stack"]],
             "shared_held": tp["stack"][0]["ffn"]["shared"]["w_in"].shape}
+        if mode == "xla":
+            out["model"]["oracle"] = oracle_forward(whole, tp, batch, cfg)
     SH.clear_active()
     return out
+
+
+def oracle_forward(whole, tp, batch, cfg):
+    """The same rank's forward with every MoE layer as
+    ``moe_apply_ep_plain`` over its data shard's model group (n_data 1) on
+    the whole experts, the dense layers tensor-parallel as in the ranks'
+    own forward: the logits and each MoE layer's routes and drops."""
+    tree = {**tp, "stack": [dict(layer, ffn={**layer["ffn"], **{
+        k: w for k, w in full["ffn"].items() if k in TMOE.EXPERT_FF_DIM}})
+        for layer, full in zip(tp["stack"], whole["stack"])]}
+    auto = TMOE.moe_apply_auto
+    TMOE.moe_apply_auto = lambda p, h, c: TMOE.moe_apply_ep_plain(p, h, c, 1, MODEL_MESH[1])
+    try:
+        with TMOE.recording_routes() as routes:
+            logits = TM.forward_train(tree, {"tokens": batch["tokens"]}, cfg,
+                                      use_kernel=False)[0]
+    finally:
+        TMOE.moe_apply_auto = auto
+    return {"logits": TM.whole_logits(logits).numpy(),
+            "routes": [(i.numpy(), k.numpy()) for i, k, _ in routes]}
 
 
 # ------------------------------------ the JAX side: this file as a script
@@ -423,7 +448,8 @@ def test_model_under_rules_matches_the_reference(runs, mode):
     shard's logits against the reference's rows, the aux, and ``ce``,
     ``mtp``, ``moe_aux`` and ``loss`` (each the mean over the data shards,
     each shard's over its own tokens) within MODEL_TOL; every rank holds
-    one expert of each MoE layer and the whole shared expert."""
+    one expert of each MoE layer and its ff slice of the shared expert,
+    which runs as the tensor-parallel dense MLP."""
     ranks, ref, _ = runs
     close(model_rows(ranks, mode, "logits"), ref[f"model{SEP}{mode}{SEP}logits"], MODEL_TOL)
     n_data, n_model = MODEL_MESH
@@ -436,14 +462,18 @@ def test_model_under_rules_matches_the_reference(runs, mode):
         close(m["aux"], ref[f"model{SEP}{mode}{SEP}aux"], MODEL_TOL)
         assert m["experts_held"] == [cfg.moe.num_experts // n_model] * len(cfg.layer_kinds()
                                                                            * cfg.n_groups)
-        assert m["shared_held"] == (cfg.d_model, cfg.moe.d_ff_expert * cfg.moe.shared_experts)
+        assert m["shared_held"] == (cfg.d_model,
+                                    cfg.moe.d_ff_expert * cfg.moe.shared_experts // n_model)
 
 
 def test_model_under_rules_is_the_one_process_forward(runs):
-    """The ranks' ``xla`` forward against the one-process forward of each
-    data shard whose MoE layers are ``moe_apply_ep_plain`` over that
-    shard's model group (n_data 1): the logits bit for bit, and every MoE
-    layer's routes and drops."""
+    """The ranks' ``xla`` forward against the forward whose MoE layers are
+    the one-process ``moe_apply_ep_plain`` over the data shard's model
+    group (n_data 1), the dense layers tensor-parallel on both sides (the
+    oracle runs in the ranks, on the whole experts): the logits bit for
+    bit, and every MoE layer's routes and drops; and against the forward
+    of one process (no rules, every leaf whole) within MODEL_TOL, the
+    dense layers' partial sums in another order."""
     ranks, _, flat = runs
     cfg = get_smoke_config(ARCH)
     n_data, n_model = MODEL_MESH
@@ -455,16 +485,16 @@ def test_model_under_rules_is_the_one_process_forward(runs):
         for dc in range(n_data):
             shard = torch.from_numpy(tokens[dc * len(tokens) // n_data:
                                             (dc + 1) * len(tokens) // n_data])
-            with TMOE.recording_routes() as routes:
-                logits = TM.forward_train(params, {"tokens": shard}, cfg, use_kernel=False)[0]
-            got = [ranks[dc * n_model + j]["model"]["xla"] for j in range(n_model)]
+            logits = TM.forward_train(params, {"tokens": shard}, cfg, use_kernel=False)[0]
+            got = [ranks[dc * n_model + j]["model"] for j in range(n_model)]
             for j in range(n_model):
-                assert_bits(got[j]["logits"], logits.numpy())
-            for li, (idx, keep, _) in enumerate(routes):
+                assert_bits(got[j]["xla"]["logits"], got[j]["oracle"]["logits"])
+                close(got[j]["xla"]["logits"], logits.numpy(), MODEL_TOL)
+            for li, (idx, keep) in enumerate(got[0]["oracle"]["routes"]):
                 np.testing.assert_array_equal(
-                    np.concatenate([g["routes"][li][0] for g in got]), idx.numpy())
+                    np.concatenate([g["xla"]["routes"][li][0] for g in got]), idx)
                 np.testing.assert_array_equal(
-                    np.concatenate([g["routes"][li][1] for g in got]), keep.numpy())
+                    np.concatenate([g["xla"]["routes"][li][1] for g in got]), keep)
     finally:
         TMOE.moe_apply_auto = auto
 

@@ -6,7 +6,9 @@ Eight gloo ranks on the CPU (spawned once for the module through
 meshes with ``launch.mesh.make_mesh``, register rules with
 ``dist.sharding.set_active`` and run every case of ``CASES`` in all four
 modes, plus Mixtral smoke's ``forward_train`` and ``loss_fn`` under rules
-(2, 4). The JAX side runs this file as a script on 8 forced host devices,
+(2, 4) on each rank's compute leaves (``models.local_params``: the
+attention, the embedding and the unembedding tensor-parallel, the logits
+gathered over the vocabulary). The JAX side runs this file as a script on 8 forced host devices,
 in a subprocess started beside the ranks:
 
     XLA_FLAGS=--xla_force_host_platform_device_count=8 \\
@@ -278,16 +280,20 @@ def run_rank(rank, group, layout, params_path, jax_seeds):
     mesh = LM.make_mesh(MODEL_MESH, ("data", "model"), device="cpu")
     tokens = torch.from_numpy(_data_shard(model_tokens(cfg.vocab), mesh.coords, MODEL_MESH[0]))
     batch = {"tokens": tokens, "labels": tokens}
+    whole = params_from_jax(unflatten(flat, "model"), cfg, device="cpu")
     for mode in MODEL_MODES:
         rules = SH.ShardRules(moe_collectives=mode)
         SH.set_active(rules, mesh)
         tp = params_from_jax(unflatten(flat, "model"), cfg, device="cpu",
                              rules=SH.active()[0], rank=rank)
-        logits, aux, _ = TM.forward_train(tp, batch, cfg, use_kernel=False)
-        loss, metrics = TM.loss_fn(tp, batch, cfg, use_kernel=False)
-        out["model"][mode] = {"logits": logits.numpy(), "aux": aux.numpy(),
+        # the train path takes the rank's compute leaves: the dense ones cut
+        # on the model axis too, the logits cut on the vocabulary
+        lp = TM.local_params(whole, cfg, SH.active()[0], mesh.coords, mesh.sizes)
+        logits, aux, _ = TM.forward_train(lp, batch, cfg, use_kernel=False)
+        loss, metrics = TM.loss_fn(lp, batch, cfg, use_kernel=False)
+        out["model"][mode] = {"logits": TM.whole_logits(logits).numpy(), "aux": aux.numpy(),
                               "loss": loss.numpy(), "ce": metrics["ce"].numpy(),
-                              "experts_held": tp["stack"][0]["ffn"]["w_in"].shape[0]}
+                              "experts_held": lp["stack"][0]["ffn"]["w_in"].shape[0]}
     out["reports"] = run_reports(rank, cfg, tp, jax_seeds, root)
     SH.clear_active()
     out["split_cache"] = run_split_cache(rank, root)

@@ -8,7 +8,10 @@ meshes with ``launch.mesh.make_mesh``, register rules with
 smoke (4 experts) on (1, 8), where ``moe_apply_auto`` takes TP because 4
 experts do not split over 8 model ranks, once with a capacity factor that
 drops entries, and ``moe_apply_tp`` called directly on (2, 4) and (4, 2);
-then Mixtral smoke's ``forward_train`` and ``loss_fn`` under rules (1, 8).
+then Mixtral smoke's ``forward_train`` and ``loss_fn`` under rules (1, 8)
+on each rank's compute leaves (``models.local_params``: the attention,
+the embedding and the unembedding tensor-parallel, 4 query heads over 8
+ranks, so each rank computes the head its half-head block touches).
 The JAX side runs this file as a script on 8 forced host devices, in a
 subprocess started beside the ranks:
 
@@ -31,8 +34,9 @@ case's ranks also run ``ORDER_CALLS`` all-reduces of known data of the partials'
 shape, and the oracle sums in the order read off them
 (``ObservedSumOrder``); rank order gives the bits only where the model
 axis has two ranks (a sum of two is the same in either order). The
-forward under rules equals the one-process forward with that oracle bit
-for bit. Where
+forward under rules equals, bit for bit, the same ranks' forward with
+that oracle in every MoE layer (the dense layers are tensor-parallel in
+both), and the one-process forward within ``MODEL_TOL``. Where
 nothing is dropped, the dense ``moe_apply`` is a second oracle, within
 ``LAYER_TOL``. The module imports no jax at its top (the JAX side and the
 in-process tests import it), so the ranks, which import it, start quickly.
@@ -149,15 +153,42 @@ def run_rank(rank, group, layout, params_path):
     SH.set_active(SH.ShardRules(), mesh)
     tokens = torch.from_numpy(_data_shard(model_tokens(cfg.vocab), mesh.coords, MODEL_MESH[0]))
     batch = {"tokens": tokens, "labels": tokens}
-    tp = params_from_jax(unflatten(flat, "model"), cfg, device="cpu",
-                         rules=SH.active()[0], rank=rank)
+    whole = params_from_jax(unflatten(flat, "model"), cfg, device="cpu")
+    tp = TM.local_params(whole, cfg, SH.active()[0], mesh.coords, mesh.sizes)
     logits, aux, _ = TM.forward_train(tp, batch, cfg, use_kernel=False)
     loss, metrics = TM.loss_fn(tp, batch, cfg, use_kernel=False)
-    out["model"] = {"logits": logits.numpy(), "aux": aux.numpy(), "loss": loss.numpy(),
-                    "ce": metrics["ce"].numpy(), "ff_held": tp["stack"][0]["ffn"]["w_in"].shape[2],
-                    "order": observe_order(mesh, cfg, tokens[..., None].float())}
+    order = observe_order(mesh, cfg, tokens[..., None].float())
+    out["model"] = {"logits": TM.whole_logits(logits).numpy(), "aux": aux.numpy(),
+                    "loss": loss.numpy(), "ce": metrics["ce"].numpy(),
+                    "ff_held": tp["stack"][0]["ffn"]["w_in"].shape[2], "order": order,
+                    "oracle": oracle_forward(whole, tp, batch, cfg, mesh)}
     SH.clear_active()
     return out
+
+
+def oracle_forward(whole, tp, batch, cfg, mesh):
+    """The same rank's forward and loss with every MoE layer as
+    ``moe_apply_tp_plain`` on the whole experts, summing in gloo's order
+    read off the model group (the dense layers tensor-parallel as in the
+    ranks' own forward): the logits, aux and loss."""
+    B, S = batch["tokens"].shape
+    shape = (cfg.moe.num_experts, TMOE.ep_capacity(cfg, B * S), cfg.d_model)
+    order = TMOE.ObservedSumOrder.read(
+        TMOE.ObservedSumOrder.observe(mesh, "model", shape, whole["embed"]["table"].dtype,
+                                      calls=ORDER_CALLS), MODEL_MESH[1], "cpu")
+    tree = {**tp, "stack": [dict(layer, ffn={**layer["ffn"], **{
+        k: w for k, w in full["ffn"].items() if k in TMOE.EXPERT_FF_DIM}})
+        for layer, full in zip(tp["stack"], whole["stack"])]}
+    auto = TMOE.moe_apply_auto
+    TMOE.moe_apply_auto = lambda p, h, c: TMOE.moe_apply_tp_plain(p, h, c, *MODEL_MESH,
+                                                                  reduce=order)
+    try:
+        logits, aux, _ = TM.forward_train(tree, batch, cfg, use_kernel=False)
+        loss, _ = TM.loss_fn(tree, batch, cfg, use_kernel=False)
+    finally:
+        TMOE.moe_apply_auto = auto
+    return {"logits": TM.whole_logits(logits).numpy(), "aux": aux.numpy(),
+            "loss": loss.numpy()}
 
 
 # ------------------------------------ the JAX side: this file as a script
@@ -368,10 +399,13 @@ def test_model_under_tp_rules_matches_the_reference(runs):
 
 
 def test_model_under_tp_rules_is_the_one_process_forward_bit_for_bit(runs):
-    """Mixtral smoke's forward under rules (1, 8) against the one-process
-    forward with every MoE layer as ``moe_apply_tp_plain`` summing in
-    gloo's observed order: the logits, aux and loss bit for bit on every
-    rank."""
+    """Mixtral smoke's forward under rules (1, 8) against the forward
+    whose every MoE layer is the one-process ``moe_apply_tp_plain``
+    summing in gloo's observed order: the logits, aux and loss bit for bit
+    on every rank, the dense layers tensor-parallel on both sides (the
+    oracle runs in the ranks, on the whole experts); and against the
+    forward of one process (no rules, every leaf whole) within
+    MODEL_TOL, the dense layers' partial sums in another order."""
     ranks, _, flat = runs
     cfg = get_smoke_config(ARCH)
     tokens = torch.from_numpy(model_tokens(cfg.vocab))
@@ -388,9 +422,11 @@ def test_model_under_tp_rules_is_the_one_process_forward_bit_for_bit(runs):
         TMOE.moe_apply_auto = auto
     for res in ranks:
         m = res["model"]
-        assert_bits(m["logits"], logits.numpy())
-        assert_bits(m["aux"], aux.numpy())
-        assert_bits(m["loss"], loss.numpy())
+        for key in ("logits", "aux", "loss"):
+            assert_bits(m[key], m["oracle"][key])
+        close(m["logits"], logits.numpy(), MODEL_TOL)
+        close(m["aux"], aux.numpy(), MODEL_TOL)
+        close(m["loss"], loss.numpy(), MODEL_TOL)
 
 
 def test_observed_sum_order_refuses_what_no_ring_gives():

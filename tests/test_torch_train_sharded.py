@@ -37,7 +37,13 @@ TinyLlama smoke with FSDP and with ZeRO-1 (``err`` cut as the parameters,
 the moments over the data axes too) and on Mixtral smoke's EP case
 (``COMPRESS``), held to the port's one-process compressed step alone: the
 reference's compressed step raises on every model (its
-``decompress_tree`` flattens the codes' tuples as leaves). The JAX side runs the EP cases'
+``decompress_tree`` flattens the codes' tuples as leaves); and
+``seq_parallel`` on TinyLlama smoke with FSDP, Mixtral smoke's ``xla`` EP
+case and DeepSeek smoke (the residual stream cut along the sequence
+between blocks), held to the reference's jit with ``seq_parallel=True``.
+Every case computes the attention, the dense MLP, the shared expert, the
+embedding and the unembedding tensor-parallel on the model axis
+(``models.compute_specs``). The JAX side runs the EP cases'
 ``xla`` mode and its fused mode: its three exchange-only modes are
 bit-identical (``tests/test_torch_moe_ep.py``), and ``auto`` forced to the
 fused mode runs the fused mode.
@@ -56,8 +62,8 @@ comparison (one quantizes each rank's shard on its own), a planted
 truncating cast of the codes that only the cap on differing codes
 (``FLIP_SHARE``) rejects at the codes, the mesh's
 compression of planted gradients against ``compression.compress_tree``
-bit for bit, and the refusal of ``seq_parallel``, in the step and in the
-dry run's train and prefill cells.
+bit for bit, and the dry run's decode cell, which ``seq_parallel`` leaves
+as it was.
 
 The whole compressed step cannot give the one-process codes bit for bit:
 its gradient sums add in another order, so a value at a half-step of its
@@ -82,6 +88,7 @@ from repro_torch.dist import collectives as CL
 from repro_torch.dist import sharding as SH
 from repro_torch.dist.mesh import dragonfly_layout
 from repro_torch.launch import mesh as LM
+from repro_torch.models import model as TM
 from repro_torch.models import moe as TMOE
 from repro_torch.models import transformer as TT
 from repro_torch.models.convert import params_from_jax
@@ -127,6 +134,12 @@ CASES = {
     "tiny_zero1_compress": ("tinyllama-1.1b", (2, 4), {"zero1": True}, 1, 4, False),
     "mix_compress": ("mixtral-8x7b", (2, 4), {"fsdp": True, "moe_collectives": "xla"}, 1, 4,
                      False),
+    "tiny_fsdp_sp": ("tinyllama-1.1b", (2, 4), {"fsdp": True, "seq_parallel": True}, 1, 4,
+                     False),
+    "mix_xla_sp": ("mixtral-8x7b", (2, 4),
+                   {"fsdp": True, "moe_collectives": "xla", "seq_parallel": True}, 1, 4, False),
+    "deepseek_sp": ("deepseek-v3-671b", (2, 4), {"fsdp": True, "seq_parallel": True}, 1, 4,
+                    False),
 }
 #: the cases that train with ``compress_grads``: the reference's compressed
 #: step raises on every model, so the port's one-process step is their oracle
@@ -140,8 +153,10 @@ SAME_AS = {"mix_dragonfly": "mix_xla", "mix_overlap": "mix_xla", "mix_auto": "mi
 #: the strategy the ranks' autotuner is forced to in the ``auto`` case
 AUTO_FORCE = "overlap_fused"
 #: the JAX side's three subprocesses: (writes the weights, the cases it runs)
-JAX_PARTS = ((True, ("jamba", "tiny_mb", "mix_fused", "tiny_mb_rows")), (False, ("deepseek", "mix_xla", "mix_tp")),
-             (False, ("tiny_fsdp", "tiny_zero1", "tiny_plain", "factored")))
+JAX_PARTS = ((True, ("jamba", "tiny_mb", "mix_fused", "tiny_mb_rows")),
+             (False, ("deepseek", "mix_xla", "mix_tp", "deepseek_sp")),
+             (False, ("tiny_fsdp", "tiny_zero1", "tiny_plain", "factored", "tiny_fsdp_sp",
+                      "mix_xla_sp")))
 WIDE = {"d_model": 128, "d_ff": 256}  # the factored case's widths
 
 
@@ -404,20 +419,6 @@ def planted(name, flat, rank, fault):
             setattr(module, attr, value)
 
 
-def seq_parallel_refusal(flat, rank):
-    """A step of ``tiny_fsdp`` under its rules with ``seq_parallel`` set:
-    the error it raises, or None."""
-    cfg, mesh, oc, settings, specs, p, s, batch = _setup("tiny_fsdp", flat)
-    SH.set_active(dataclasses.replace(SH.active()[0], seq_parallel=True), mesh)
-    try:
-        TS.make_sharded_train_step(cfg, oc, settings)(p, s, batch)
-        return None
-    except NotImplementedError as e:
-        return f"{type(e).__name__}: {e}"
-    finally:
-        SH.clear_active()
-
-
 def planted_grads(cfg, seed=11):
     """(whole gradients, whole errors) of ``cfg``'s parameters in the port's
     layout, normals from a numpy seed (errors at a hundredth of the scale)."""
@@ -443,7 +444,8 @@ def mesh_codes(name, flat, rank):
     grads, errs = planted_grads(cfg)
     like_p = TS.param_shapes(cfg)
     paths = [path for path, _ in O.flatten(like_p)]
-    keep = {path: TS._compute_spec(path, O.get(pspecs, path), pspecs, rules) for path in paths}
+    cspecs = TM.compute_specs(cfg, rules)
+    keep = {path: O.get(cspecs, path) for path in paths}
     g_sum = []
     for path in paths:
         g = O.get(grads, path)
@@ -506,7 +508,6 @@ def run_rank(rank, group, layout, params_path):
     out["fused_layer"] = fused_layer_grads(rank)
     out["round_trip_saves"] = round_trip_saves(rank)
     out["faults"] = {fault: planted(name, flat, rank, fault) for fault, name in FAULTS.items()}
-    out["seq_parallel"] = seq_parallel_refusal(flat, rank)
     out["mesh_codes"] = {name: mesh_codes(name, flat, rank) for name in MESH_CODES}
     return out
 
@@ -967,23 +968,6 @@ def test_mesh_codes_are_compress_trees(runs, name):
                 else:
                     np.testing.assert_array_equal(got[what][key].view(np.uint32),
                                                   whole[cut].numpy().view(np.uint32))
-
-
-def test_seq_parallel_is_refused(runs, tmp_path):
-    """``seq_parallel`` raises where the reference reads it (a member's
-    train form): in the sharded step on every rank, and in the dry run's
-    train and prefill cells, which report ``FAILED`` with that error."""
-    from repro_torch.launch import dryrun as D
-
-    ranks, _, _ = runs
-    for r in ranks:
-        assert r["seq_parallel"].startswith("NotImplementedError: seq_parallel:"), r["seq_parallel"]
-        assert "ROADMAP Queue 3" in r["seq_parallel"]
-    for shape in ("train_4k", "prefill_32k"):
-        cell = D.analyze_cell("tinyllama-1.1b", shape, False, variant={"seq_parallel": True},
-                              tag="seq_parallel", out_dir=tmp_path)
-        assert cell["status"] == "FAILED", cell
-        assert cell["error"].startswith("NotImplementedError: seq_parallel:"), cell["error"]
 
 
 def test_seq_parallel_leaves_the_decode_as_it_was(tmp_path):
