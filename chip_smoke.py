@@ -375,9 +375,15 @@ one NVIDIA card, end to end.
    the one-process step whose MoE layer is ``moe_apply_ep_plain(..., 2,
    4)``: in ``xla`` and in the fused mode loss, moe_aux and grad_norm
    within ``SHARDED_REL``, the first moment of the router and of each
-   expert stack within ``SHARDED_M_REL`` and zero nowhere the oracle's is
-   above the noise; ``dragonfly`` the same bits as ``xla``, the fused
-   mode's distance from ``xla`` printed;
+   expert stack within ``SHARDED_M_REL``, the routes that differ from it
+   printed (its dense layers add their partial sums in another order);
+   and against the ranks' own oracle, the same step from the same state
+   with each MoE layer's exchange replaced (``ep_without_exchange``: the
+   same routes, the rank's experts' arrivals built from the group's
+   tokens, their outputs all-gathered): the routes equal, each first
+   moment within ``RANKS_ORACLE_M_REL`` and zero nowhere the oracle's is
+   above the noise, a planted zero counted; ``dragonfly`` the same bits
+   as ``xla``, the fused mode's distance from ``xla`` printed;
    its ms a step, the forward's exchange share (``moe.timing_parts``), the
    carrier's copies and bytes and the peak a rank. d) in b's ranks,
    TinyLlama-1.1B whole in bf16 made anew from the seed on each rank:
@@ -388,8 +394,11 @@ one NVIDIA card, end to end.
    at (2, 2048, 16/2, 64), held against the same rank's forward on the
    whole leaves with no rules on its vocabulary slice of the logits by
    step 8's bound (K4's own bf16 bound, ``attention_close``, printed); both
-   forwards' ms and tokens/s
-   (the slowest rank's, median of ``PREFILL_TP_REPS``).
+   forwards' ms and tokens/s (the slowest rank's, median of
+   ``PREFILL_TP_REPS``); the bound read against a planted wrong KV head,
+   which it must reject, and the same two forwards in float32 on the same
+   weights, within K4's float32 bound, the whole leaves' bf16 forward
+   against float32 printed.
 
 19. (since PR 25) the dry run (``launch.dryrun``) in a process of its
    own, whose fake process group is process-global: a) on the meta
@@ -572,9 +581,11 @@ MIXTRAL_TRAIN_MODES = ("xla", "dragonfly", "dragonfly_overlap_fused")
 MIXTRAL_SAME_BITS = ("dragonfly",)
 SHARDED_REL = 1e-3  # b, c: loss, grad_norm and moe_aux against the one-process step, relative
 SHARDED_M_REL = 3e-2  # c: each watched leaf's first moment, ||Δ|| / ||m||: bf16 gradients; the
-# bf16 control (the one-process step in bf16 against float32) put its worst leaf's m 2.83e-2 off
-ZERO_SKEW, ZERO_SLACK = 2, 64  # c: zeros of the step's m where the oracle's is above the noise,
-# at most this many times the oracle's zeros where the step's is, plus this many
+# bf16 control (the one-process step in bf16 against float32) put its worst leaf's m 2.83e-2 off.
+# Also the noise below which an entry of m may be exactly zero in one order of bf16 sums and not
+# in another: at most this share of the leaf's rms in the ranks' oracle
+RANKS_ORACLE_M_REL = 1e-3  # c: each watched leaf's m against the ranks' oracle's (the same dense
+# layers and routes): 1.6e-7 in `xla`, 5.0e-5 in the fused mode (another float order) on an H100
 FLIP_SHARE = 1e-4  # a, compressed: the largest share of values whose code may differ from the
 # one-process step's (a value at a half-step, rounded the other way after the sharded sum):
 # 1.67e-5 measured on the card; the planted truncating cast reads about 0.5
@@ -2779,6 +2790,56 @@ def k4_local_heads(dev, time_ms, bound) -> list:
     return local_heads
 
 
+def ep_without_exchange(params, x, cfg):
+    """Step 18 c's oracle of a MoE layer, in the ranks: the expert-parallel
+    layer with no all-to-all, in ``moe.moe_apply_auto``'s place. The rank
+    holds its model group's whole data shard ``x``, so it routes every
+    token shard of the group as that shard's rank does, builds its own
+    experts' arrivals (E_loc, n_model·C_loc, d) from them where the
+    exchange would deliver them, runs its experts, and all-gathers their
+    outputs over the model axis (the backward: each block's cotangent from
+    the one rank that reads it, the others' zeros added); then, as
+    ``moe_apply_ep`` does, it combines its own token shard, all-gathers the
+    tokens and means aux over every shard. The dense layers around it are
+    the step's own, so its routes, the experts' arrivals and their outputs'
+    cotangents are the step's. It records the rank's shard's routes as
+    ``moe_apply_ep`` does."""
+    import math
+
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.dist import sharding as SH
+    from repro_torch.dist.collectives import all_gather, all_reduce_sum
+    from repro_torch.models import moe as MOE
+
+    rules, mesh = SH.active()
+    m = cfg.moe
+    E, n_model = m.num_experts, rules.model_axis_size
+    E_loc, (B, S, d) = E // n_model, x.shape
+    require("shared" not in params, "ep_without_exchange: a shared expert")
+    T_loc = B * S // n_model
+    C = MOE.ep_capacity(cfg, T_loc)
+    mc = mesh.coords[rules.tensor_axis]
+    group = mesh.group(rules.tensor_axis)
+    xs = x.reshape(B * S, d)
+    shards = [xs[i * T_loc:(i + 1) * T_loc] for i in range(n_model)]
+    routes = [MOE._route(t, params["router"], cfg, C) for t in shards]
+    r = routes[mc]
+    if MOE._ROUTES is not None:
+        MOE._ROUTES.append((r.idx.detach(), r.keep.detach(), r.logits.detach()))
+    arrivals = torch.stack([MOE._dispatch(t, q, E, C)[mc * E_loc:(mc + 1) * E_loc]
+                            for t, q in zip(shards, routes)])  # (n_model, E_loc, C, d)
+    experts = (params if params["w_in"].shape[0] == E_loc
+               else MOE.local_experts(params, cfg, rules, mesh.coords, mesh.sizes))
+    y = MOE._expert_ffn(experts, arrivals.transpose(0, 1).reshape(E_loc, n_model * C, d))
+    y = all_gather(y, group, mesh=mesh).reshape(E, n_model, C, d)
+    out = all_gather(MOE._combine(y[:, mc], r, T_loc), group, mesh=mesh)
+    aux = MOE.load_balance_loss(r.logits, r.idx, E, m.top_k)
+    total = all_reduce_sum(aux.reshape(1), dist.group.WORLD, mesh=mesh)
+    return out.reshape(B, S, d), total[0] / math.prod(mesh.shape)
+
+
 def train_sharded_rank(rank, group, layout, jobs, mesh_shape, seed):
     """One rank of step 18: lays the ranks out as a ``mesh_shape`` mesh of
     (data, model) and runs each job of ``jobs`` (``_train_sharded_job``) in
@@ -2804,14 +2865,21 @@ def _tp_prefill_job(rank, mesh, job, seed):
     whole leaves with no rules (one process's), compared with it on the
     rank's vocabulary slice of the logits: K4's bf16 bound
     (``attention_close``: whether it holds, max |Δ|, relative rms), the
-    parent holding the last two to the model path's bound. Both timed (``PREFILL_TP_REPS``
-    calls after a warm-up, the TP ones from a barrier). Returns host
-    data."""
+    parent holding the last two to the model path's bound. Both timed
+    (``PREFILL_TP_REPS`` calls after a warm-up, the TP ones from a
+    barrier). Then what that bound is read against: the TP forward with a
+    planted fault (each query head reads the other of the rank's KV
+    heads), which it must reject; the same two forwards in float32 on the
+    same weights (``witness_f32``: TP against whole leaves, where only the
+    order of the row blocks' partial sums differs); and the whole-leaf
+    bf16 forward against that float32 one (``bf16_control``: what bf16
+    alone moves). Returns host data."""
     import torch
     import torch.distributed as dist
 
     from repro_torch.dist import sharding as SH
     from repro_torch.kernels.flash_attention.flash_attention import flash_attention
+    from repro_torch.models import attention as A
     from repro_torch.models import model as M
     from repro_torch.train import train_step as TS
 
@@ -2846,14 +2914,42 @@ def _tp_prefill_job(rank, mesh, job, seed):
         whole_ms = timed(lambda: M.forward_train(whole, batch, cfg, True, remat=False), False)
         n = cfg.vocab // mesh.sizes["model"]
         c = mesh.coords["model"]
-        ok, err, rel = attention_close(logits, want[..., c * n:(c + 1) * n],
-                                       FLASH_TOL[str(logits.dtype)])
-    out = {"coords": mesh.coords, "rows": list(batch["tokens"].shape),
-           "logits": list(logits.shape), "k4": k4, "ms": tp_ms, "whole_ms": whole_ms,
-           "vs_whole": {"ok": ok, "max_abs_err": err, "rel_rms": rel},
-           "finite": bool(torch.isfinite(logits).all()),
-           "peak_gib": torch.cuda.max_memory_allocated() / 2**30}
-    del whole, local, logits, want
+        mine = want[..., c * n:(c + 1) * n]
+        ok, err, rel = attention_close(logits, mine, FLASH_TOL[str(logits.dtype)])
+        out = {"coords": mesh.coords, "rows": list(batch["tokens"].shape),
+               "logits": list(logits.shape), "k4": k4, "ms": tp_ms, "whole_ms": whole_ms,
+               "vs_whole": {"ok": ok, "max_abs_err": err, "rel_rms": rel},
+               "finite": bool(torch.isfinite(logits).all()),
+               "peak_gib": torch.cuda.max_memory_allocated() / 2**30}
+        del logits
+        real = A.kv_heads_read
+
+        def other_kv(H, Hkv, h0, h1):  # each query head reads the rank's other KV head
+            k0, k1, pick = real(H, Hkv, h0, h1)
+            return k0, k1, [(i + 1) % (k1 - k0) for i in pick]
+
+        SH.set_active(SH.ShardRules(), mesh)
+        with patched(A, "kv_heads_read", other_kv):
+            bad = M.forward_train(local, batch, cfg, use_kernel=True, remat=False)[0]
+        _, err, rel = attention_close(bad, mine, FLASH_TOL[str(bad.dtype)])
+        out["planted_wrong_kv"] = {"max_abs_err": err, "rel_rms": rel}
+        del bad, local
+        # float32 on the same weights: whole leaves, then the TP forward on their cut
+        cfg32 = dataclasses.replace(cfg, param_dtype="float32", compute_dtype="float32")
+        whole = _cast(whole, torch.float32)
+        SH.clear_active()
+        want32 = M.forward_train(whole, batch, cfg32, use_kernel=True, remat=False)[0]
+        want32 = want32[..., c * n:(c + 1) * n].clone()
+        _, err, rel = attention_close(mine, want32, FLASH_TOL[str(mine.dtype)])
+        out["bf16_control"] = {"max_abs_err": err, "rel_rms": rel}
+        del want, mine
+        SH.set_active(SH.ShardRules(), mesh)
+        local = M.local_params(whole, cfg32, rules, mesh.coords, mesh.sizes)
+        got32 = M.forward_train(local, batch, cfg32, use_kernel=True, remat=False)[0]
+        SH.clear_active()
+        _, err, rel = attention_close(got32, want32, FLASH_TOL[str(got32.dtype)])
+        out["witness_f32"] = {"max_abs_err": err, "rel_rms": rel}
+    del whole, local, got32, want32
     torch.cuda.empty_cache()
     return out
 
@@ -2910,6 +3006,19 @@ def _train_sharded_job(rank, mesh, job, seed):
         p0, s0 = _to(p0, "cpu"), _to(s0, "cpu")
     b = TS.shard_batch({k: torch.from_numpy(v) for k, v in job["batch"].items()}, specs[2], mesh)
     step = TS.make_sharded_train_step(cfg, opt_cfg, settings)
+    paths = {name: tuple(int(k) if k.isdigit() else k for k in name.split("/"))
+             for name in job["watch"]}
+    ranks_m = {}
+    if job["watch"]:  # the oracle in the ranks: the same step from the same state, its MoE
+        # layers without the exchange (``ep_without_exchange``); kept on the host
+        p, s = _to(p0, dev), _to(s0, dev)
+        with patched(MOE, "moe_apply_auto", ep_without_exchange), \
+                MOE.recording_routes() as routes:
+            p, s, _ = step(p, s, b)
+        ranks_m = {name: O.get(s["mu"], path)["m"].cpu() for name, path in paths.items()}
+        out["oracle_routes"] = [t.cpu() for t in routes[0][:2]]
+        del p, s
+        torch.cuda.empty_cache()
     kept = None
     for mode in modes:
         SH.set_active(SH.ShardRules(**dict(rules_kw, moe_collectives=mode)), mesh)
@@ -2921,11 +3030,13 @@ def _train_sharded_job(rank, mesh, job, seed):
         for _ in range(job["steps"]):
             c0, k0 = mesh.carrier_bytes, mesh.carrier_copies
             with MOE.timing_parts() as parts, TS.timing_parts() as step_parts, \
-                    recorded(TS, "_compress") as codes:
+                    recorded(TS, "_compress") as codes, MOE.recording_routes() as routes:
                 t0 = time.perf_counter()
                 p, s, m = step(p, s, b)
                 torch.cuda.synchronize()
                 rec["ms"].append((time.perf_counter() - t0) * 1e3)
+            if routes and "routes" not in rec:  # the first forward's, the first MoE layer's
+                rec["routes"] = [t.cpu() for t in routes[0][:2]]
             rec["metrics"].append({k: float(v) for k, v in m.items()})
             rec["carrier_bytes"].append(mesh.carrier_bytes - c0)
             rec["carrier_copies"].append(mesh.carrier_copies - k0)
@@ -2933,28 +3044,39 @@ def _train_sharded_job(rank, mesh, job, seed):
             rec["step_parts"] = dict(step_parts)
         rec["launches"] = {c.__name__: c.launches for c in counters}
         rec["peak_gib"] = gib(torch.cuda.max_memory_allocated())
-        if job["watch"]:  # the first moment against the oracle's, slice by slice
+        if job["watch"]:  # the first moment against both oracles', slice by slice
             cmp = {}
-            for name in job["watch"]:
-                path = tuple(int(k) if k.isdigit() else k for k in name.split("/"))
+            for name, path in paths.items():
                 mspec = O.get(specs[1]["mu"], path)["m"]
                 sl = SH.held_slices(mspec, O.get(like[0], path).shape, mesh.coords, mesh.sizes)
                 if sl is None or TS._replica(mspec, mesh):
-                    cmp[name] = (0.0, 0.0, 0, 0, 0, 0, 0, 0)
                     continue
-                want = job["want"][name][sl].float()
+                want = job["want"][name][sl].float()  # the one-process step's
+                ref = ranks_m[name].to(dev).float()  # the ranks' oracle's
                 got = O.get(s["mu"], path)["m"].float()
-                # zero where the oracle's is not: above bf16's noise (an entry whose gradient
-                # cancels to zero in one order of bf16 sums may not in another), and at all;
-                # and the other way round, the oracle's zeros where this rank's is above it
-                noise = SHARDED_M_REL * want.pow(2).mean().sqrt()
-                above = want.abs() > noise
-                cmp[name] = (float(torch.sum((got - want) ** 2)), float(torch.sum(want ** 2)),
-                             int((above & (got == 0)).sum()), int((want != 0).sum()),
-                             int(((want != 0) & (got == 0)).sum()),
-                             int(((got.abs() > noise) & (want == 0)).sum()),
-                             int((got == 0).sum()), int((want == 0).sum()))
-                del want, got, above
+                # zero where the ranks' oracle's is not: above bf16's noise (an entry whose
+                # gradient cancels to zero in one order of bf16 sums may not in another)
+                noise = SHARDED_M_REL * ref.pow(2).mean().sqrt()
+                above = ref.abs() > noise
+                c = {"d2": float(torch.sum((got - want) ** 2)), "w2": float(torch.sum(want ** 2)),
+                     "d2_ranks": float(torch.sum((got - ref) ** 2)),
+                     "r2": float(torch.sum(ref ** 2)),
+                     "zeros_above": int((above & (got == 0)).sum()),
+                     "nonzero": int((ref != 0).sum()),
+                     "zeros_of_nonzero": int(((ref != 0) & (got == 0)).sum()),
+                     "zeros": int((got == 0).sum()), "ranks_oracle_zeros": int((ref == 0).sum()),
+                     # against the one-process step's, by its own noise (routes may differ)
+                     "zeros_above_one_process": int(((want.abs() > SHARDED_M_REL
+                                                      * want.pow(2).mean().sqrt())
+                                                     & (got == 0)).sum()),
+                     "one_process_zeros": int((want == 0).sum())}
+                if name.endswith("w_gate"):  # planted: one entry zeroed, the ranks' largest
+                    planted = got.clone().reshape(-1)
+                    planted[ref.abs().argmax()] = 0
+                    c["planted_zeros_above"] = int((above.reshape(-1) & (planted == 0)).sum())
+                    del planted
+                cmp[name] = c
+                del want, ref, got, above
             rec["m_vs_oracle"] = cmp
         if kept is None:
             kept = (_to(p, "cpu"), _to(s, "cpu")) if len(modes) > 1 else (p, s)
@@ -3013,9 +3135,11 @@ def train_sharded_phase(dev, counters):
     (gloo, the host as the carrier). a) TinyLlama-1.1B at full width, 2
     layers, float32, mesh (2, 2) with FSDP (each data coordinate holds one
     whole layer), one step against the one-process step on the card;
-    b) TinyLlama-1.1B whole, bf16, mesh (2, 2) with FSDP, 2 steps on (4,
-    2048); c) Mixtral-8x7B at its published widths with 1 layer, mesh (2, 4)
-    under EP with ZeRO-1, one step in each of ``MIXTRAL_TRAIN_MODES``.
+    b) TinyLlama-1.1B whole, bf16, mesh (2, 2) with FSDP, one step on (4,
+    2048), and d) its tensor-parallel prefill with K4 in the same ranks;
+    c) Mixtral-8x7B at its published widths with 1 layer, mesh (2, 4)
+    under EP with ZeRO-1, one step in each of ``MIXTRAL_TRAIN_MODES``
+    beside the ranks' own oracle (``ep_without_exchange``).
     Each one-process oracle runs first and only its outputs are kept.
     ``counters`` are the kernel wrappers: every part launches none.
     Returns the runs' records."""
@@ -3043,9 +3167,10 @@ def train_sharded_phase(dev, counters):
 
     def oracle(cfg, opt_cfg, batch, steps, moe=None, compress=False):
         """The one-process step on the card from the same seed: (params,
-        state, metrics a step, its ms, peak and, with ``compress``, the
-        last step's codes and dequantized gradient), the MoE layers as
-        ``moe`` gives them."""
+        state, metrics a step, its ms, peak, the first forward's routes of
+        its first MoE layer (idx, keep) and, with ``compress``, the last
+        step's codes and dequantized gradient), the MoE layers as ``moe``
+        gives them."""
         params = M.init_params(torch.Generator(device=dev).manual_seed(SEED), cfg, device=dev)
         state = O.init_state(params, opt_cfg)
         if compress:
@@ -3060,7 +3185,8 @@ def train_sharded_phase(dev, counters):
             step = TS.make_train_step(cfg, opt_cfg,
                                       dataclasses.replace(settings, compress_grads=compress))
             metrics, ms = [], []
-            with recorded(C, "compress_tree") as codes, recorded(C, "decompress_tree") as deq:
+            with recorded(C, "compress_tree") as codes, recorded(C, "decompress_tree") as deq, \
+                    MOE.recording_routes() as routes:
                 for _ in range(steps):
                     torch.cuda.synchronize()
                     t0 = time.perf_counter()
@@ -3074,6 +3200,8 @@ def train_sharded_phase(dev, counters):
         require(not any(launches.values()), f"the one-process step launched {launches}")
         peak = gib(torch.cuda.max_memory_allocated())
         return params, state, metrics, {"ms": ms, "peak_gib": peak,
+                                        "routes": [t.cpu() for t in routes[0][:2]] if routes
+                                        else None,
                                         "codes": codes[-1][0] if codes else None,
                                         "deq": deq[-1] if deq else None}
 
@@ -3269,16 +3397,21 @@ def train_sharded_phase(dev, counters):
     # d) the tensor-parallel prefill with K4, in b's ranks, against each rank's whole leaves
     d = [r["d"] for r in ranks]
     k4_d = {"launches": full.n_layers, "bodies": {"mma_sync": 0, "wgmma": full.n_layers}}
-    # held by the model path's bf16 bound (step 8's, PERF.md §2): K4's own
-    # bound is one attention call's; 22 layers whose row-parallel partial
-    # sums round twice move the logits further (1.48 % rms on an H100)
+    # held by the model path's bf16 bound (step 8's, PERF.md §2): K4's own bound is one
+    # attention call's, and the row blocks' bf16 partial sums round where the whole leaves'
+    # products do not. Read against: in float32 the same two forwards within K4's float32
+    # bound, and a planted wrong KV head outside the bf16 one
     for r, rec in enumerate(d):
         require(rec["k4"] == k4_d, f"step 18 d, rank {r}: K4 launched {rec['k4']}, "
                                    f"expected {k4_d}")
-        vs = rec["vs_whole"]
+        vs, bad, w32 = rec["vs_whole"], rec["planted_wrong_kv"], rec["witness_f32"]
         require(rec["finite"] and vs["max_abs_err"] <= LOGIT_MAX_ABS
                 and vs["rel_rms"] <= LOGIT_REL_RMS,
                 f"step 18 d, rank {r}: the TP prefill off the whole leaves' forward: {vs}")
+        require(bad["max_abs_err"] > LOGIT_MAX_ABS or bad["rel_rms"] > LOGIT_REL_RMS,
+                f"step 18 d, rank {r}: the planted wrong KV head passes the bound: {bad}")
+        require(w32["rel_rms"] <= FLASH_TOL["torch.float32"],
+                f"step 18 d, rank {r}: in float32 the TP prefill off the whole leaves': {w32}")
     tp_ms = statistics.median(max(rec["ms"][i] for rec in d) for i in range(PREFILL_TP_REPS))
     whole_ms = statistics.median(max(rec["whole_ms"][i] for rec in d)
                                  for i in range(PREFILL_TP_REPS))
@@ -3294,6 +3427,14 @@ def train_sharded_phase(dev, counters):
                               "rel_rms": max(rec["vs_whole"]["rel_rms"] for rec in d),
                               "bound": [LOGIT_MAX_ABS, LOGIT_REL_RMS],
                               "within_k4_bound": all(rec["vs_whole"]["ok"] for rec in d)},
+                 "planted_wrong_kv_vs_whole": {
+                     key: min(rec["planted_wrong_kv"][key] for rec in d)
+                     for key in ("max_abs_err", "rel_rms")},
+                 "witness_f32_vs_whole": {key: max(rec["witness_f32"][key] for rec in d)
+                                          for key in ("max_abs_err", "rel_rms")},
+                 "witness_f32_bound": FLASH_TOL["torch.float32"],
+                 "bf16_control_whole_vs_f32": {key: max(rec["bf16_control"][key] for rec in d)
+                                               for key in ("max_abs_err", "rel_rms")},
                  "peak_gib_a_rank": max(rec["peak_gib"] for rec in d)})
     emit(runs[-1])
     k4_launches = len(d) * full.n_layers
@@ -3327,29 +3468,50 @@ def train_sharded_phase(dev, counters):
     first = MIXTRAL_TRAIN_MODES[0]
     got = ranks[0]["modes"][first]["metrics"][0]
     held = [mode for mode in MIXTRAL_TRAIN_MODES if mode not in MIXTRAL_SAME_BITS]
-    m_rel, m_zero, metrics_rel = {}, {}, {}
-    for mode in held:  # against the oracle; the same-bits modes are held to the first's below
+    # the routes of the first MoE layer's first forward, shard r on rank r (data-major): the
+    # ranks' oracle's are the step's bit for bit; the one-process step's, whose dense layers
+    # add their partial sums in another order, may differ where a token's experts near-tie
+    step_idx = torch.cat([r["modes"][first]["routes"][0] for r in ranks])
+    step_keep = torch.cat([r["modes"][first]["routes"][1] for r in ranks])
+    for rk, r in enumerate(ranks):
+        require(all(torch.equal(a, b)
+                    for a, b in zip(r["oracle_routes"], r["modes"][first]["routes"])),
+                f"step 18 c, rank {rk}: the ranks' oracle routes otherwise than the step")
+    want_idx, want_keep = orc["routes"]
+    route_flips = {"tokens": int((step_idx != want_idx).any(dim=1).sum()),
+                   "tokens_as_sets": int((step_idx.sort(dim=1).values
+                                          != want_idx.sort(dim=1).values).any(dim=1).sum()),
+                   "kept_entries": int((step_keep != want_keep).sum()),
+                   "of_tokens": int(step_idx.shape[0])}
+    m_rel, m_rel_ranks, m_zero, metrics_rel = {}, {}, {}, {}
+    for mode in held:  # against the oracles; the same-bits modes are held to the first's below
         m = ranks[0]["modes"][mode]["metrics"][0]
         metrics_rel[mode] = {key: rel(m[key], want[0][key])
                              for key in ("loss", "moe_aux", "grad_norm")}
         for key, err in metrics_rel[mode].items():
             require(err <= SHARDED_REL,
                     f"step 18 c, {mode}: {key} {m[key]} against the one-process {want[0][key]}")
-        m_rel[mode], m_zero[mode] = {}, {}
+        m_rel[mode], m_rel_ranks[mode], m_zero[mode] = {}, {}, {}
         for name in watch:
-            parts = [r["modes"][mode]["m_vs_oracle"][name] for r in ranks]
-            err = (sum(p[0] for p in parts) / max(sum(p[1] for p in parts), 1e-30)) ** 0.5
-            zeros = [sum(p[k] for p in parts) for k in range(2, 8)]
-            m_rel[mode][name], m_zero[mode][name] = err, zeros
-            # bf16 sums land on an exact zero here and there, in the oracle too; the
-            # tensor-parallel step rounds its activations otherwise, so its zeros sit at
-            # other entries. A step that zeroes entries has more of them where the
-            # oracle's is above the noise than the oracle has where the step's is
-            require(err <= SHARDED_M_REL and zeros[0] <= ZERO_SKEW * zeros[3] + ZERO_SLACK,
+            parts = [r["modes"][mode]["m_vs_oracle"][name] for r in ranks
+                     if name in r["modes"][mode]["m_vs_oracle"]]
+            total = {k: sum(p.get(k, 0) for p in parts) for k in parts[0]}
+            err = (total["d2"] / max(total["w2"], 1e-30)) ** 0.5
+            err_ranks = (total["d2_ranks"] / max(total["r2"], 1e-30)) ** 0.5
+            m_rel[mode][name], m_rel_ranks[mode][name] = err, err_ranks
+            m_zero[mode][name] = {k: v for k, v in total.items()
+                                  if k not in ("d2", "w2", "d2_ranks", "r2")}
+            require(err <= SHARDED_M_REL and err_ranks <= RANKS_ORACLE_M_REL
+                    and total["zeros_above"] == 0,
                     f"step 18 c, {mode}: the first moment of {name}: {err:.3g} off the "
-                    f"oracle's; zero at {zeros[0]} of its entries above the noise (the oracle "
-                    f"zero at {zeros[3]} above the noise of this one), at {zeros[2]} of its "
-                    f"{zeros[1]} nonzero ones; zeros {zeros[4]} here, {zeros[5]} in the oracle")
+                    f"one-process step's, {err_ranks:.3g} off the ranks' oracle's; zero at "
+                    f"{total['zeros_above']} of the entries where the ranks' oracle's is above "
+                    f"the noise, at {total['zeros_of_nonzero']} of its {total['nonzero']} nonzero "
+                    "ones")
+            if "planted_zeros_above" in total:  # one entry zeroed a rank: the check counts each
+                require(total["planted_zeros_above"] == len(parts),
+                        f"step 18 c, {mode}: {len(parts)} planted zeros of {name} counted "
+                        f"{total['planted_zeros_above']} times")
     for mode in MIXTRAL_SAME_BITS:
         require(all(r["modes"][mode]["same_bits_as_first"] for r in ranks),
                 f"step 18 c: {mode} does not give {first}'s bits")
@@ -3379,9 +3541,11 @@ def train_sharded_phase(dev, counters):
                  f"{mfull.n_layers} layers", "params": n_params, "mesh": list(MIXTRAL_TRAIN_MESH),
                  "rules": "zero1, EP", "tokens": list(MIXTRAL_TRAIN_TOKENS), "metrics": got,
                  "oracle_metrics": want[0], "metrics_rel": metrics_rel, "m_rel": m_rel,
+                 "m_rel_vs_ranks_oracle": m_rel_ranks, "route_flips_vs_one_process": route_flips,
                  "from_first": from_first,
-                 # zero where the oracle's is: above the noise, nonzero, of its nonzero
-                 "m_zeros_where_oracle_nonzero": m_zero,
+                 # zeros of the step's m: where the ranks' oracle's is above the noise, of its
+                 # nonzero ones, in all; the planted zero; against the one-process step's
+                 "m_zeros": m_zero,
                  "modes": by_mode, "oracle_ms": orc["ms"], "oracle_peak_gib": orc["peak_gib"],
                  "free_gib_before_ranks": free_c, "ranks_s": ranks_s,
                  "rank_init_s": max(r["init_s"] for r in ranks),

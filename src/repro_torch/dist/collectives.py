@@ -385,46 +385,6 @@ def _f32_sum(x: torch.Tensor, group) -> torch.Tensor:
     return _sum(x.to(_wide(x.dtype)), group).to(x.dtype)
 
 
-def _copies_mean(g: torch.Tensor, group) -> torch.Tensor:
-    """The mean over the group of each copy's cotangent, added in float32
-    (or wider)."""
-    return (_sum(g.to(_wide(g.dtype)), group) / dist.get_world_size(group)).to(g.dtype)
-
-
-def _copies_mean_transpose(g: torch.Tensor, group) -> torch.Tensor:
-    """``tp_copy``'s backward, by name, so that a check can plant a fault in it."""
-    return _copies_mean(g, group)
-
-
-class _Copy(torch.autograd.Function):
-    """The identity forward (no copy to the carrier), and ``backward`` on
-    the carrier."""
-
-    @staticmethod
-    def forward(ctx, x, backward, mesh):
-        ctx.backward_fn, ctx.mesh = backward, mesh
-        return x.view_as(x)
-
-    @staticmethod
-    def backward(ctx, g):
-        return _on_carrier(ctx.backward_fn, g.contiguous(), ctx.mesh), None, None
-
-
-def tp_copy(x: torch.Tensor, group, mesh=None) -> torch.Tensor:
-    """The input of a column-parallel block: the identity on the forward
-    (every rank of the tensor group holds the same ``x``), and on the
-    backward the all-reduce of the copies' cotangents over the group,
-    divided by its size. Under the sharded step's convention every copy of
-    a replicated value counts once, so this mean is the identity's
-    transpose on replicated inputs; a plain sum would count the block's
-    branch once a rank. Each copy then carries the same cotangent, as the
-    reference's GSPMD program keeps a replicated value's cotangent
-    replicated. With a ``mesh``, on its carrier."""
-    if dist.get_world_size(group) == 1:
-        return x
-    return _Copy.apply(x, lambda g: _copies_mean_transpose(g, group), mesh)
-
-
 def tp_sum(x: torch.Tensor, group, mesh=None) -> torch.Tensor:
     """The output of a row-parallel block: the sum of the ranks' partials
     over the tensor group, added in float32 and cast back to ``x``'s
@@ -493,9 +453,17 @@ class TensorParallel:
     (made when first asked for), the mesh whose carrier the collectives
     travel on, and whether the residual stream is cut along the sequence
     between blocks (``ShardRules.seq_parallel``). ``col_in`` and
-    ``row_out`` are the pair around a column-then-row block: ``tp_copy``
+    ``row_out`` are the pair around a column-then-row block: the identity
     and ``tp_sum``, or under ``seq_parallel`` ``seq_gather`` and
-    ``seq_scatter_sum`` along the sequence (dim 1 of (B, S, d))."""
+    ``seq_scatter_sum`` along the sequence (dim 1 of (B, S, d)).
+
+    A column block's input is the identity both ways. Its copies'
+    cotangents stay partial, one part a rank: under the sharded step's
+    convention every path from a replicated value ends in a sum over the
+    tensor axis (a row block's ``tp_sum`` backward, ``seq_gather``'s
+    reduce-scatter, the all-gather's transpose, the gradient sum of a leaf
+    computed whole), and the backward is linear in the cotangents, so the
+    parts are added there once each."""
 
     def __init__(self, rules, mesh):
         self.rules, self.mesh = rules, mesh
@@ -507,9 +475,6 @@ class TensorParallel:
     @property
     def group(self):
         return self.mesh.group(self.axis)
-
-    def copy(self, x):
-        return x if self.size == 1 else tp_copy(x, self.group, self.mesh)
 
     def sum(self, x):
         return x if self.size == 1 else tp_sum(x, self.group, self.mesh)
@@ -530,7 +495,7 @@ class TensorParallel:
         return x[:, self.coord * step:(self.coord + 1) * step]
 
     def col_in(self, x):
-        return self.gather_seq(x) if self.seq_parallel else self.copy(x)
+        return self.gather_seq(x) if self.seq_parallel else x
 
     def row_out(self, x):
         return self.scatter_seq(x) if self.seq_parallel else self.sum(x)

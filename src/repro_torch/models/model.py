@@ -201,10 +201,9 @@ def _norm_f(cfg):
 def _unembed(params, h, cfg, tp=None):
     if cfg.tie_embeddings:
         return L.unembed_apply(params["embed"], h, tp, cfg.d_model)
-    if tp is None:
-        return h @ params["unembed"]["w"]
-    L.expect_cut("unembed/w", params["unembed"]["w"], 1, cfg.vocab, tp)
-    return tp.copy(h) @ params["unembed"]["w"]
+    if tp is not None:
+        L.expect_cut("unembed/w", params["unembed"]["w"], 1, cfg.vocab, tp)
+    return h @ params["unembed"]["w"]
 
 
 def whole_logits(logits):

@@ -54,12 +54,12 @@ The design is simple and right first:
   on the forward (``dist.collectives``' differentiable ones in the MoE
   layers and the tensor-parallel blocks) has its transpose as backward
   (all-to-all <-> the same all-to-all, all-gather -> reduce-scatter of the
-  sum, all-reduce -> all-reduce; a column block's input, the identity,
-  takes the mean of its copies' cotangents). A leaf's gradient is then
-  the sum over the ranks holding a copy of it in compute (every rank for
-  a leaf computed whole, the batch axes for a leaf computed cut on the
-  model axis), of which each rank keeps the slices its optimizer state
-  holds. This counts the global loss once: the mean of the data
+  sum, all-reduce -> all-reduce; a column block's input is the identity
+  both ways, its copies' cotangents left partial for these sums to add).
+  A leaf's gradient is then the sum over the ranks holding a copy of it
+  in compute (every rank for a leaf computed whole, the batch axes for a
+  leaf computed cut on the model axis), of which each rank keeps the
+  slices its optimizer state holds. This counts the global loss once: the mean of the data
   shards' ``ce`` plus the aux term's mean over every token shard. The
   sums run in the gradients' dtype (bf16 for bf16 weights; float32 for
   microbatches, whose sum is float32), a leaf at a time on the carrier,

@@ -1,6 +1,6 @@
 """The tensor-parallel train path (``models.forward_train`` and ``loss_fn``
 under active rules on the rank's compute leaves, ``models.local_params``)
-and its tensor-axis collectives (``dist.collectives.tp_copy``, ``tp_sum``,
+and its tensor-axis collectives (``dist.collectives.tp_sum``,
 ``seq_gather``, ``seq_scatter_sum``), against the JAX package.
 
 Eight gloo ranks on the CPU (spawned once for the module through
@@ -24,10 +24,12 @@ wait for.
 Tolerances: the logits (gathered over the vocabulary), the loss, ``ce``
 and the aux within ``MODEL_TOL`` (1e-4) of the reference's; the pairs'
 adjoints and the vocabulary-parallel cross entropy (value and gradient,
-against the whole one) in float64 within ``ADJOINT_TOL`` (1e-12). Planted
-faults that must fail: ``tp_copy``'s backward without its all-reduce
-(the copies' cotangents then differ: no transpose onto replicated
-inputs), and the wrong KV head taken (the forward leaves the tolerance).
+against the whole one) in float64 within ``ADJOINT_TOL`` (1e-12). A
+planted fault that must fail: the wrong KV head taken (the forward leaves
+the tolerance). A column block's input is the identity both ways; the
+faults of the sums its copies' cotangents meet (a row block's, the
+sequence gather's) are planted in the sharded step, against the
+reference's jit (``tests/test_torch_train_sharded.py``).
 """
 
 import os
@@ -59,7 +61,7 @@ AXES = ("data", "model")
 ARCHS = ("tinyllama-1.1b", "mixtral-8x7b", "deepseek-v3-671b")
 MODES = {"tp": False, "sp": True}  # name -> seq_parallel
 ROWS, SEQ = 4, 16
-PAIRS = ("tp_copy", "tp_sum", "seq_gather", "seq_scatter_sum", "gather_cols")
+PAIRS = ("tp_sum", "seq_gather", "seq_scatter_sum", "gather_cols")
 
 
 def tokens(vocab):
@@ -93,35 +95,23 @@ def models(rank, mesh, flat):
     return out
 
 
-def adjoints(mesh, planted=False):
-    """<A x, y> and <x, Aᵀ y> on this rank, float64, for each pair, and
-    Aᵀ y of ``tp_copy`` (whose input is the same on every rank of the
-    model group). ``planted``: ``tp_copy``'s backward without its
-    all-reduce."""
+def adjoints(mesh):
+    """<A x, y> and <x, Aᵀ y> on this rank, float64, for each pair."""
     group = mesh.group("model")
     gen = torch.Generator().manual_seed(100 + mesh.rank)
-    same = torch.Generator().manual_seed(7 + mesh.coords["data"])  # one value a model group
-    real = CL._copies_mean_transpose
-    if planted:
-        CL._copies_mean_transpose = lambda g, group: g
     ops = {
-        "tp_copy": lambda x: CL.tp_copy(x, group, mesh=mesh),
         "tp_sum": lambda x: CL.tp_sum(x, group, mesh=mesh),
         "seq_gather": lambda x: CL.seq_gather(x, 1, group, mesh=mesh),
         "seq_scatter_sum": lambda x: CL.seq_scatter_sum(x, 1, group, mesh=mesh),
         "gather_cols": lambda x: CL.TensorParallel(SH.ShardRules(), mesh).gather_cols(x[0]),
     }
     out = {}
-    try:
-        for op, fn in ops.items():
-            x = torch.randn((2, 8, 3), generator=same if op == "tp_copy" else gen,
-                            dtype=torch.float64).requires_grad_(True)
-            ax = fn(x)
-            y = torch.randn(ax.shape, generator=gen, dtype=torch.float64)
-            (aty,) = torch.autograd.grad(ax, x, y)
-            out[op] = (float((ax * y).sum()), float((x * aty).sum()), aty.numpy())
-    finally:
-        CL._copies_mean_transpose = real
+    for op, fn in ops.items():
+        x = torch.randn((2, 8, 3), generator=gen, dtype=torch.float64).requires_grad_(True)
+        ax = fn(x)
+        y = torch.randn(ax.shape, generator=gen, dtype=torch.float64)
+        (aty,) = torch.autograd.grad(ax, x, y)
+        out[op] = (float((ax * y).sum()), float((x * aty).sum()))
     return out
 
 
@@ -200,7 +190,7 @@ def run_rank(rank, group, layout, params_path):
         flat = dict(f)
     mesh = LM.make_mesh(MESH, AXES, device="cpu")
     return {"coords": mesh.coords, "models": models(rank, mesh, flat),
-            "adjoints": adjoints(mesh), "planted_copy": adjoints(mesh, planted=True),
+            "adjoints": adjoints(mesh),
             "xent": xent(mesh), "kv_pick": kv_pick(mesh, flat),
             "wrong_kv": wrong_kv(mesh, flat)}
 
@@ -337,35 +327,11 @@ def test_seq_parallel_is_the_same_forward(runs, arch):
 
 @pytest.mark.parametrize("op", PAIRS)
 def test_pair_adjoints(runs, op):
-    """<A x, y> = <x, Aᵀ y> summed over the 8 ranks, in float64 (``tp_copy``
-    on inputs the same across each model group)."""
+    """<A x, y> = <x, Aᵀ y> summed over the 8 ranks, in float64."""
     ranks, _ = runs
     lhs = sum(r["adjoints"][op][0] for r in ranks)
     rhs = sum(r["adjoints"][op][1] for r in ranks)
     assert abs(lhs - rhs) <= ADJOINT_TOL * max(1.0, abs(lhs)), (op, lhs, rhs)
-
-
-def _copy_cotangents_replicated(ranks, what) -> bool:
-    return all(np.array_equal(r[what]["tp_copy"][2], ranks[i - i % MESH[1]][what]["tp_copy"][2])
-               for i, r in enumerate(ranks))
-
-
-def test_copy_backward_is_replicated(runs):
-    """``tp_copy``'s backward gives every rank of a model group the same
-    cotangent, the mean of the copies' (its transpose onto inputs the same
-    on every rank), and it differs between the model groups."""
-    ranks, _ = runs
-    assert _copy_cotangents_replicated(ranks, "adjoints")
-    assert not np.array_equal(ranks[0]["adjoints"]["tp_copy"][2],
-                              ranks[MESH[1]]["adjoints"]["tp_copy"][2])
-
-
-def test_planted_copy_without_all_reduce_fails(runs):
-    """A planted fault: ``tp_copy``'s backward without its all-reduce hands
-    each rank its own cotangent, so the copies of one replicated input
-    carry different cotangents and the transpose does not hold."""
-    ranks, _ = runs
-    assert not _copy_cotangents_replicated(ranks, "planted_copy")
 
 
 def test_vocab_parallel_xent_is_the_whole_one(runs):

@@ -58,7 +58,10 @@ step 1 are exact. The ranks also hold the differentiable collectives'
 adjoints (float64, ``ADJOINT_TOL``), the fused round trip's among them,
 what that round trip saves for its backward, its layer's gradients
 against ``dragonfly``'s, four planted faults that must fail the
-comparison (one quantizes each rank's shard on its own), a planted
+comparison (one quantizes each rank's shard on its own), two on the
+tensor axis that must fail it and the comparison with the reference's
+jit (a row block's output, and under ``seq_parallel`` the sequence
+gather, each with a backward that does not sum), a planted
 truncating cast of the codes that only the cap on differing codes
 (``FLIP_SHARE``) rejects at the codes, the mesh's
 compression of planted gradients against ``compression.compress_tree``
@@ -397,6 +400,18 @@ def planted(name, flat, rank, fault):
             return g.chunk(n)[r].contiguous()
 
         patch(CL, "_gather_transpose", slice_only)
+    elif fault == "row_sum_no_backward":  # a row block's output: each rank's own cotangent
+        def row_sum(x, group, mesh=None):
+            return CL._Collective.apply(x, lambda t: CL._f32_sum(t, group), lambda g: g, mesh)
+
+        patch(CL, "tp_sum", row_sum)
+    elif fault == "seq_gather_no_sum":  # its backward: the rank's block, not the sum's
+        def gather_block(x, dim, group, mesh=None):
+            n, r = torch.distributed.get_world_size(group), torch.distributed.get_rank(group)
+            return CL._Collective.apply(x, lambda t: CL._gather_along(t, dim, group),
+                                        lambda g: g.chunk(n, dim)[r].contiguous(), mesh)
+
+        patch(CL, "seq_gather", gather_block)
     elif fault == "per_shard_compress":
         patch(TS, "_compress", per_shard_compress)
     elif fault == "truncated_codes":
@@ -410,7 +425,7 @@ def planted(name, flat, rank, fault):
             patch(TS, "_missing_grad", lambda path, batch, leaf: torch.zeros(
                 leaf.shape, dtype=torch.float32, device=leaf.device))
     try:
-        return run_case(name, flat, rank, steps=1)
+        return run_case(name, flat, rank, steps=STEPS if fault in TP_FAULTS else 1)
     except (RuntimeError, NotImplementedError) as e:
         SH.clear_active()
         return {"error": f"{type(e).__name__}: {e}"}
@@ -496,7 +511,11 @@ def truncating_quantize(g):
 MESH_CODES = ("tiny_fsdp_compress", "mix_compress")
 FAULTS = {"seed_unscaled": "tiny_fsdp", "gather_no_sum": "mix_xla", "no_backward": "mix_xla",
           "none_as_zeros": "mix_xla", "per_shard_compress": "tiny_fsdp_compress",
-          "truncated_codes": "tiny_fsdp_compress"}
+          "truncated_codes": "tiny_fsdp_compress", "row_sum_no_backward": "tiny_fsdp",
+          "seq_gather_no_sum": "tiny_fsdp_sp"}
+#: the tensor-axis faults: each runs the case's STEPS steps, held to the
+#: reference's jit and to the one-process step as the case is
+TP_FAULTS = ("row_sum_no_backward", "seq_gather_no_sum")
 
 
 def run_rank(rank, group, layout, params_path):
@@ -741,25 +760,50 @@ def _numpy(tree):
     return O.unflatten(tree, [x.numpy() for _, x in O.flatten(tree)])
 
 
+def assert_matches_reference(ref, name, results):
+    """``results``, every rank's ``run_case`` of ``name`` (rank 0's with the
+    gathered state), against the reference's jit of the case."""
+    want_p, want_s = reference_state(ref, name)
+    got_p, got_s = unflat(results[0]["state"], "params"), unflat(results[0]["state"], "opt")
+    assert_tree_close(got_p, _numpy(want_p), MODEL_TOL, "params")
+    assert_tree_close(got_s["mu"], _numpy(want_s["mu"]), MODEL_TOL, "opt")
+    assert int(got_s["step"]) == int(want_s["step"]) == STEPS
+    key = SAME_AS.get(name, name)
+    for res in results:
+        for i, m in enumerate(res["metrics"]):
+            for k in ("loss", "grad_norm"):
+                want = float(ref[f"{key}{SEP}metrics{SEP}{i}{SEP}{k}"])
+                assert abs(m[k] - want) <= LOSS_TOL * abs(want), (name, i, k, m[k], want)
+            assert set(m) == {k.split(SEP)[-1] for k in ref
+                              if k.startswith(f"{key}{SEP}metrics{SEP}{i}{SEP}")}
+
+
 @pytest.mark.parametrize("name", REF_CASES)
 def test_sharded_step_matches_the_reference_jit(runs, name):
     """Two steps, gathered: every leaf of the parameters and the optimizer
     state within MODEL_TOL of the reference's sharded jit, loss and
     grad_norm within LOSS_TOL at each step, on every rank."""
     ranks, ref, _ = runs
-    want_p, want_s = reference_state(ref, name)
-    got_p, got_s = gathered(ranks, name)
-    assert_tree_close(got_p, _numpy(want_p), MODEL_TOL, "params")
-    assert_tree_close(got_s["mu"], _numpy(want_s["mu"]), MODEL_TOL, "opt")
-    assert int(got_s["step"]) == int(want_s["step"]) == STEPS
-    key = SAME_AS.get(name, name)
-    for r in ranks:
-        for i, m in enumerate(r["cases"][name]["metrics"]):
-            for k in ("loss", "grad_norm"):
-                want = float(ref[f"{key}{SEP}metrics{SEP}{i}{SEP}{k}"])
-                assert abs(m[k] - want) <= LOSS_TOL * abs(want), (name, i, k, m[k], want)
-            assert set(m) == {k.split(SEP)[-1] for k in ref
-                              if k.startswith(f"{key}{SEP}metrics{SEP}{i}{SEP}")}
+    assert_matches_reference(ref, name, [r["cases"][name] for r in ranks])
+
+
+@pytest.mark.parametrize("fault", TP_FAULTS)
+def test_planted_tp_faults_fail_the_reference_jit(runs, oracles, fault):
+    """A row block's output whose backward leaves each rank its own
+    cotangent (no sum over the tensor axis), and under ``seq_parallel`` a
+    sequence gather whose backward takes the rank's block without the
+    sum: each moves the two steps off the reference's jit and off the
+    one-process step (the unfaulted cases hold both, above). A column
+    block's input is the identity both ways: these are the sums that its
+    copies' partial cotangents meet."""
+    ranks, ref, _ = runs
+    name = FAULTS[fault]
+    results = [r["faults"][fault] for r in ranks]
+    assert all("error" not in res for res in results), results[0]
+    with pytest.raises(AssertionError):
+        assert_matches_reference(ref, name, results)
+    p, s, metrics, _, codes = oracles[name]
+    assert _fails_comparison(name, results[0], p, s, metrics[0], codes)
 
 
 @pytest.mark.parametrize("name", list(CASES))
@@ -845,8 +889,8 @@ def test_collective_adjoints(runs, op):
 
 
 def _fails_comparison(name, res, p, s, m, codes):
-    """Whether a planted fault's one step is off the one-process step: its
-    state (no value set aside), its loss or its grad_norm."""
+    """Whether a planted fault's steps are off the one-process step's as
+    many: its state (no value set aside), its first loss or grad_norm."""
     got_p, got_s = unflat(res["state"], "params"), unflat(res["state"], "opt")
     cfg = case_cfg(get_smoke_config(CASES[name][0]), name)
     try:
