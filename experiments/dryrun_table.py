@@ -14,7 +14,10 @@ Cells skipped on both meshes are listed after the table. With
 ``--before`` it prints, for every train and prefill cell, the peak GiB
 and TFLOP of the traced rank in BEFORE_DIR (another commit's sweep) and
 in DIR side by side, "pod1 / pod2" each, the counts of cells that fit
-80 GiB in each, and each cell whose status differs.
+80 GiB in each, and each cell whose status differs. With
+``--before-decode`` the same for the decode cells (decode_32k, long_500k):
+peak and argument GiB and collective GB of the traced rank, before and
+after.
 """
 
 import json
@@ -56,24 +59,27 @@ def load(path) -> dict:
     return rows
 
 
-def compare(before_path, path=DIR) -> None:
+def compare(before_path, path=DIR, decode=False) -> None:
     before, after = load(before_path), load(path)
 
     def pair(by_mesh, key):
         return " / ".join(cell(by_mesh.get(m))[key] for m in ("pod1", "pod2"))
 
-    print("| arch | shape | peak GiB before | peak GiB after | TFLOP before | TFLOP after |")
-    print("|---|---|---|---|---|---|")
+    keys = ("peak", "arg", "coll") if decode else ("peak", "tflop")
+    heads = {"peak": "peak GiB", "arg": "arg GiB", "coll": "collective GB", "tflop": "TFLOP"}
+    print("| arch | shape | " + " | ".join(f"{heads[k]} before | {heads[k]} after" for k in keys)
+          + " |")
+    print("|---|---|" + "---|---|" * len(keys))
     for key in sorted(set(before) | set(after)):
         arch, shape, tag = key
         b, a = before.get(key, {}), after.get(key, {})
         if not any(r["status"] == "ok" for r in list(b.values()) + list(a.values())):
             continue
-        if shape.startswith("decode") or shape.startswith("long"):
+        if (shape.startswith("decode") or shape.startswith("long")) != decode:
             continue
         name = f"{shape} ({tag})" if tag else shape
-        print(f"| {arch} | {name} | {pair(b, 'peak')} | {pair(a, 'peak')} | {pair(b, 'tflop')} "
-              f"| {pair(a, 'tflop')} |")
+        print(f"| {arch} | {name} | "
+              + " | ".join(f"{pair(b, k)} | {pair(a, k)}" for k in keys) + " |")
     for label, rows in (("before", before), ("after", after)):
         cells = [r for by_mesh in rows.values() for r in by_mesh.values() if r["status"] == "ok"]
         fits = sum(r["memory"]["fits_80gib"] for r in cells)
@@ -107,5 +113,7 @@ def main(path=DIR) -> None:
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--before"]:
         compare(*sys.argv[2:])
+    elif sys.argv[1:2] == ["--before-decode"]:
+        compare(*sys.argv[2:], decode=True)
     else:
         main(*sys.argv[1:])

@@ -55,10 +55,15 @@ and sums in the sharded train step (``train.train_step``).
 ``dragonfly_round_trip`` differentiates the fused round trip: its
 backward replays the same wave pipeline on the cotangent, each wave's
 compute the VJP of the forward's at that wave's arrivals.
+
+``TensorParallel`` is the tensor axis as the dense layers compute on it;
+``lse_combine`` joins the ranks' partial attentions over their blocks of
+a sequence-sharded cache by their log-sum-exp (the decode's split-KV).
 """
 
 from __future__ import annotations
 
+import copy
 import functools
 
 import torch
@@ -476,6 +481,17 @@ class TensorParallel:
     def group(self):
         return self.mesh.group(self.axis)
 
+    def for_decode(self) -> "TensorParallel":
+        """The axis as the decode computes on it: ``col_in`` the identity and
+        ``row_out`` the sum, whatever ``seq_parallel`` says (one token a row
+        has no sequence to cut, and the reference's decode never reads the
+        field)."""
+        if not self.seq_parallel:
+            return self
+        tp = copy.copy(self)
+        tp.seq_parallel = False
+        return tp
+
     def sum(self, x):
         return x if self.size == 1 else tp_sum(x, self.group, self.mesh)
 
@@ -509,6 +525,33 @@ class TensorParallel:
 
     def max(self, x):
         return all_max(x, self.group, self.mesh) if self.size > 1 else x.detach()
+
+    def gather_last(self, x):
+        """The ranks' blocks of ``x`` along its last dim, concatenated in
+        group order (the backward sums each block's cotangents over the
+        axis, as ``all_gather``'s)."""
+        if self.size == 1:
+            return x
+        return all_gather(x.movedim(-1, 0).contiguous(), self.group,
+                          mesh=self.mesh).movedim(0, -1)
+
+
+def lse_combine(o: torch.Tensor, m: torch.Tensor, l: torch.Tensor,  # noqa: E741
+                tp: TensorParallel) -> torch.Tensor:
+    """The softmax attention of each query over the keys of every rank's
+    block, from the ranks' partials over their own blocks (split-KV): ``o``
+    (..., e) the unnormalised float32 Σ exp(s − m)·v, ``m`` (...) the row
+    max of the scores, ``l`` (...) Σ exp(s − m). With M the max of ``m``
+    over the axis each partial weighs exp(m − M), and one float32 sum over
+    the axis carries the weighted ``o`` and ``l`` together: Σ o·w / Σ l·w.
+    A rank that sees no key fills its scores with a finite -1e30, so its
+    ``m`` is that fill and its weight exactly 0 (the rank that owns the
+    query's position sees at least that key). Outside autograd."""
+    if tp.size == 1:
+        return o / l[..., None]
+    w = torch.exp(m - tp.max(m))
+    both = tp.sum(torch.cat([o * w[..., None], (l * w)[..., None]], dim=-1))
+    return both[..., :-1] / both[..., -1:]
 
 
 def tensor_parallel() -> TensorParallel | None:

@@ -21,12 +21,15 @@ step gathers it (``models.compute_specs``: the attention, the dense MLP,
 the embedding and the unembedding stay cut on the model axis, the rank
 computing its heads and its vocabulary slice), then
 ``models.forward_train`` (last-token logits of the rank's vocabulary
-slice, K4 on); for decode each parameter gathered whole but the MoE
-expert stacks, then ``models.decode_step`` at ``pos = seq_len - 1``,
-which also gathers each cache leaf over the axes other than the batch
-axes and cuts it back after the step. ``--seq-parallel`` cuts the
-residual stream along the sequence between blocks in the train and
-prefill cells; the decode does not read it.
+slice, K4 on); for decode the parameters gathered to the same compute
+specs, then the tensor-parallel ``models.decode_step`` at ``pos =
+seq_len - 1`` on the rank's shard of each attention cache (its rows and
+its block of the sequence, never gathered: split-KV attention joined by
+log-sum-exp), each Mamba, mLSTM or sLSTM state gathered over the axes
+other than the batch axes for its mixer, which runs whole, and cut back
+after the step. ``--seq-parallel`` cuts the residual stream along the
+sequence between blocks in the train and prefill cells; the decode does
+not read it.
 
 Counts, all taken while the one trace runs (``Counters``), exact, where
 the reference extrapolates from depth-1 and depth-2 compiles because XLA
@@ -82,6 +85,7 @@ from repro_torch.dist import sharding as SH
 from repro_torch.kernels.flash_attention.flash_attention import flash_attention
 from repro_torch.launch.mesh import make_mesh, make_rules, production_layout
 from repro_torch.models import model as M
+from repro_torch.models import transformer as T
 from repro_torch.models.moe import EXPERT_FF_DIM
 from repro_torch.train import optimizer as O
 from repro_torch.train import train_step as TS
@@ -292,22 +296,18 @@ def _experts_cut(cfg, rules, tokens: int) -> bool:
     return not rules.expert_parallel(cfg.moe.num_experts) or tokens % rules.model_axis_size == 0
 
 
-def _gathered(cfg, params, pspecs, like, rules, mesh, cut: bool, decode: bool = False):
-    """Each parameter gathered to the spec it is computed under. The
-    prefill's (``decode`` False) is the sharded step's
-    (``models.compute_specs``: the tensor-parallel leaves and the MoE
-    expert stacks kept cut on the model axis, the rest whole); the
-    decode's is whole, but the MoE expert stacks, kept cut. Where
-    ``cut`` is False (the sparse MoE path) the expert stacks are whole."""
+def _gathered(cfg, params, pspecs, like, rules, mesh, cut: bool):
+    """Each parameter gathered to the spec it is computed under, as the
+    sharded step gathers it (``models.compute_specs``: the tensor-parallel
+    leaves and the MoE expert stacks kept cut on the model axis, the rest
+    whole). Where ``cut`` is False (the sparse MoE path) the expert stacks
+    are whole."""
     cspecs = M.compute_specs(cfg, rules)
     out = []
     for path, x in O.flatten(like):
         spec = O.get(pspecs, path)
         k = O.get(cspecs, path)
-        if path[-1] in EXPERT_FF_DIM and "router" in O.get(like, path[:-1]):
-            if not cut:
-                k = tuple(None for _ in k)
-        elif decode:
+        if not cut and path[-1] in EXPERT_FF_DIM and "router" in O.get(like, path[:-1]):
             k = tuple(None for _ in k)
         out.append(TS._regather(O.get(params, path), spec, k, x, mesh))
     return O.unflatten(like, out)
@@ -353,17 +353,26 @@ def trace_prefill(cfg, shape, rules) -> Trace:
     return Trace(leaves, make, run)
 
 
-def _cache_keep(spec, rules) -> tuple:
-    """A cache leaf's compute spec: its batch-axes entries kept, the rest whole."""
+def _state_keep(spec, rules) -> tuple:
+    """A recurrent state's compute spec: its batch-axes entries kept, the
+    rest whole."""
     batch = set(SH.spec_axes(rules.batch_axes))
     return tuple(e if e is not None and set(SH.spec_axes(e)) <= batch else None for e in spec)
 
 
+def _recurrent_state(path, cfg) -> bool:
+    """Whether the decode state at ``path`` (of ``init_cache``' tree) is a
+    Mamba, mLSTM or sLSTM member's, whose mixer runs on whole leaves."""
+    return path[0] == "stack" and T.layer_kinds(cfg)[path[1]][0] in T.RECURRENT
+
+
 def trace_decode(cfg, shape, rules) -> Trace:
-    """``decode_step`` at ``pos = seq_len - 1`` on the rank's rows: the
-    parameters gathered, each cache leaf gathered over the axes other than
-    the batch axes and cut back to the rank's shard after. A batch that the
-    data axis (16) does not divide is replicated, as in the reference."""
+    """The tensor-parallel ``decode_step`` at ``pos = seq_len - 1`` on the
+    rank's rows: the parameters gathered to their compute specs, each
+    attention cache leaf the rank's shard as held (never gathered), each
+    recurrent state gathered over the axes other than the batch axes and
+    cut back to the rank's shard after. A batch that the data axis (16)
+    does not divide is replicated, as in the reference."""
     pspecs = M.param_specs(cfg, rules)
     cspecs = M.cache_specs(cfg, rules, shape.seq_len >= 262144)
     batch_ax = rules.batch_axes
@@ -389,19 +398,21 @@ def trace_decode(cfg, shape, rules) -> Trace:
         act_rules, mesh = SH.active()
         with torch.no_grad():
             cut = cfg.moe is None or _experts_cut(cfg, act_rules, _rows(b))
-            tree = _gathered(cfg, params, pspecs, like, act_rules, mesh, cut, decode=True)
-            paths = [path for path, _ in O.flatten(cache)]
-            keep = [_cache_keep(O.get(cspecs, path), act_rules) for path in paths]
-            whole = O.unflatten(cache, [
-                TS._regather(O.get(held, path), O.get(cspecs, path), k, O.get(cache, path), mesh)
-                for path, k in zip(paths, keep)])
-            logits, new = M.decode_step(tree, whole, b, shape.seq_len - 1, cfg)
+            tree = _gathered(cfg, params, pspecs, like, act_rules, mesh, cut)
+            states = {path: _state_keep(O.get(cspecs, path), act_rules)
+                      for path, _ in O.flatten(cache) if _recurrent_state(path, cfg)}
+            given = O.unflatten(cache, [
+                TS._regather(t, O.get(cspecs, path), states[path], O.get(cache, path), mesh)
+                if path in states else t for path, t in O.flatten(held)])
+            logits, new = M.decode_step(tree, given, b, shape.seq_len - 1, cfg)
             back = []
-            for path, k in zip(paths, keep):
-                t, spec = O.get(cache, path), O.get(cspecs, path)
-                outer = SH.held_slices(k, t.shape, mesh.coords, mesh.sizes)
-                inner = SH.held_slices(spec, t.shape, mesh.coords, mesh.sizes)
-                back.append(O.get(new, path)[TS._subslice(outer, inner)].contiguous())
+            for path, t in O.flatten(new):
+                if path in states:
+                    whole, spec = O.get(cache, path), O.get(cspecs, path)
+                    outer = SH.held_slices(states[path], whole.shape, mesh.coords, mesh.sizes)
+                    inner = SH.held_slices(spec, whole.shape, mesh.coords, mesh.sizes)
+                    t = t[TS._subslice(outer, inner)].contiguous()
+                back.append(t)
             return logits, O.unflatten(cache, back)
 
     return Trace(leaves, make, run)

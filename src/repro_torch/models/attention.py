@@ -22,6 +22,20 @@ gathered and the rank computes every head its block touches (a head cut
 between two blocks is computed on both), and keeps its block's columns
 of the output. The output projection's partial leaves through
 ``tp.row_out``. MLA's ``wq_a``, ``wkv_a`` and norms stay whole.
+
+The decode forms under ``tp`` (the decode under active rules) hold each
+cache as the rank's block of the sequence, as the reference's
+``cache_specs`` cut it: positions [c·S_loc, (c+1)·S_loc) of the cache's
+``m``·S_loc, never gathered. The new token's q, k and v (MLA: q) are the
+rank's columns of the projections, gathered whole over the axis in one
+all-gather (B·(H + 2·Hkv)·hd values); the rank that owns a row's position
+writes its new key and value there, no other rank writes; every query
+head attends over the rank's block, masked by global key positions, and
+the ranks' float32 partials join by their log-sum-exp
+(``dist.collectives.lse_combine``). The rank then takes its own heads'
+columns of the output through its row-cut ``wo`` and a sum over the
+axis. MLA expands its block of the latent cache through ``wkv_b``
+gathered whole, every step, as the one-process form does.
 """
 
 from __future__ import annotations
@@ -29,6 +43,7 @@ from __future__ import annotations
 import torch
 from torch.autograd.profiler import record_function
 
+from repro_torch.dist import collectives as CL
 from repro_torch.kernels.flash_attention.ops import gqa_attention
 from repro_torch.kernels.flash_attention.ref import attention_ref
 from repro_torch.models import layers as L
@@ -154,13 +169,17 @@ def _gqa_train_tp(params, x, cfg, positions, mrope_positions, use_kernel, tp):
     return tp.row_out(o @ params["wo"])
 
 
-def gqa_decode(params, x, cache, cfg, position, mrope_positions=None):
+def gqa_decode(params, x, cache, cfg, position, mrope_positions=None, tp=None):
     """x: (B, 1, d); cache: {'k','v'}: (B, kv_heads, max_seq, hd); position
     an int OR a (B,) tensor (per-slot positions — continuous batching).
-    The new key and value are written into ``cache`` in place."""
+    The new key and value are written into ``cache`` in place. With ``tp``
+    the leaves are the rank's cut and the cache its (B, kv_heads, S_loc,
+    hd) block of the sequence (module docstring)."""
     B = x.shape[0]
     hd = cfg.head_dim
     pos_b = torch.as_tensor(position, dtype=torch.long, device=x.device).expand(B)
+    if tp is not None:
+        return _gqa_decode_tp(params, x, cache, cfg, pos_b, mrope_positions, tp), cache
     q, k, v = _project_qkv(params, x, cfg, positions=pos_b[:, None],
                            mrope_positions=mrope_positions)
     ck, cv = cache["k"], cache["v"]
@@ -181,6 +200,69 @@ def gqa_decode(params, x, cache, cfg, position, mrope_positions=None):
     o = torch.einsum("bhgk,bhkd->bhgd", p, cv.float())
     o = o.reshape(B, 1, cfg.n_heads * hd).to(x.dtype)
     return o @ params["wo"], cache
+
+
+def _gather_columns(tp, *parts):
+    """Each of ``parts`` (..., n_i) the rank's block of a projection's
+    columns: the whole projections, gathered in one all-gather."""
+    widths = [t.shape[-1] for t in parts]
+    whole = tp.gather_last(torch.cat(parts, dim=-1))
+    whole = whole.reshape(*whole.shape[:-1], tp.size, sum(widths))
+    return [t.flatten(-2) for t in whole.split(widths, dim=-1)]
+
+
+def _owned(pos_b, S_loc: int, tp):
+    """(at, mine) of each row: its position within the rank's block of the
+    sequence (clamped into it), and whether the rank's block holds it."""
+    at = pos_b - tp.coord * S_loc
+    return at.clamp(0, S_loc - 1), (at >= 0) & (at < S_loc)
+
+
+def _visible(pos_b, S_loc: int, tp, window):
+    """(B, S_loc): which keys of the rank's block each row's query sees, by
+    their global positions."""
+    kpos = tp.coord * S_loc + torch.arange(S_loc, device=pos_b.device)
+    valid = kpos[None, :] <= pos_b[:, None]
+    if window is not None:
+        valid &= kpos[None, :] > pos_b[:, None] - window
+    return valid
+
+
+def _joined(s, v, spec: str, tp):
+    """The softmax over every rank's keys of the masked float32 scores ``s``
+    (..., S_loc) of the rank's block, applied to ``v`` by the einsum
+    ``spec`` (its output (..., e) over the scores' leading dims): the
+    rank's partial (o, m, l), joined over the axis."""
+    m = s.amax(dim=-1)
+    p = torch.exp(s - m[..., None])
+    return CL.lse_combine(torch.einsum(spec, p, v), m, p.sum(dim=-1), tp)
+
+
+def _gqa_decode_tp(params, x, cache, cfg, pos_b, mrope_positions, tp):
+    H, Hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    L.expect_cut("wq", params["wq"], 1, H * hd, tp)
+    for key in ("wk", "wv"):
+        L.expect_cut(key, params[key], 1, Hkv * hd, tp)
+    L.expect_cut("wo", params["wo"], 0, H * hd, tp)
+    B = x.shape[0]
+    q, k, v = _gather_columns(tp, x @ params["wq"], x @ params["wk"], x @ params["wv"])
+    q, k = _rotate_qk(q.reshape(B, 1, H, hd), k.reshape(B, 1, Hkv, hd), cfg, pos_b[:, None],
+                      mrope_positions)
+    v = v.reshape(B, 1, Hkv, hd)
+    ck, cv = cache["k"], cache["v"]
+    S_loc = ck.shape[2]
+    at, mine = _owned(pos_b, S_loc, tp)
+    bidx = torch.arange(B, device=x.device)
+    ck[bidx, :, at] = torch.where(mine[:, None, None], k[:, 0].to(ck.dtype), ck[bidx, :, at])
+    cv[bidx, :, at] = torch.where(mine[:, None, None], v[:, 0].to(cv.dtype), cv[bidx, :, at])
+    G = H // Hkv
+    qh = q.reshape(B, 1, Hkv, G, hd)
+    s = torch.einsum("bqhgd,bhkd->bhgk", qh.float(), ck.float()) * (hd ** -0.5)
+    valid = _visible(pos_b, S_loc, tp, cfg.sliding_window)
+    s = torch.where(valid[:, None, None, :], s, -1e30)
+    o = _joined(s, cv.float(), "bhgk,bhkd->bhgd", tp)
+    o = o.reshape(B, 1, H * hd).to(x.dtype)
+    return tp.row_out(_own_columns(o, H, hd, tp, 0) @ params["wo"])
 
 
 def gqa_cache_init(cfg, batch, max_seq, dtype, device):
@@ -229,13 +311,17 @@ def mla_specs(cfg, rules):
     }
 
 
-def _mla_qkv(params, x, cfg, positions, H=None):
-    """``H`` the heads ``wq_b`` holds (all of them, or the rank's)."""
+def _mla_qkv(params, x, cfg, positions, H=None, gather_q=None):
+    """``H`` the heads ``wq_b`` holds (all of them, or the rank's); with
+    ``gather_q`` (the decode's tensor axis) ``wq_b`` is the rank's column
+    cut and q is gathered whole over the axis."""
     B, S, _ = x.shape
     m = cfg.mla
     q_lat = L.rmsnorm(params["q_norm"], x @ params["wq_a"])
-    q = (q_lat @ params["wq_b"]).reshape(B, S, H or cfg.n_heads,
-                                         m.qk_nope_head_dim + m.qk_rope_head_dim)
+    q = q_lat @ params["wq_b"]
+    if gather_q is not None:
+        (q,) = _gather_columns(gather_q, q)
+    q = q.reshape(B, S, H or cfg.n_heads, m.qk_nope_head_dim + m.qk_rope_head_dim)
     q_nope, q_rope = q.split([m.qk_nope_head_dim, m.qk_rope_head_dim], dim=-1)
     q_rope = L.apply_rope(q_rope, positions, cfg.rope_theta)
     c_kv, k_rope = (x @ params["wkv_a"]).split([m.kv_lora_rank, m.qk_rope_head_dim], dim=-1)
@@ -305,15 +391,20 @@ def _mla_train(params, x, cfg, positions, use_kernel, tp):
     return tp.row_out(o @ params["wo"])
 
 
-def mla_decode(params, x, cache, cfg, position):
+def mla_decode(params, x, cache, cfg, position, tp=None):
     """x: (B, 1, d); latent cache {'c_kv': (B, max_seq, r), 'k_rope':
     (B, max_seq, dr)}; position an int or a (B,) tensor. The new latent
     and rotary key are written into ``cache`` in place; the whole latent
-    cache is expanded through ``wkv_b`` every step, as in the JAX package."""
+    cache is expanded through ``wkv_b`` every step, as in the JAX package.
+    With ``tp`` the cache is the rank's (B, S_loc, ·) block of the
+    sequence, ``wq_b`` and ``wkv_b`` the rank's column cut and ``wo`` its
+    row cut (module docstring)."""
     m = cfg.mla
     B = x.shape[0]
     H = cfg.n_heads
     pos_b = torch.as_tensor(position, dtype=torch.long, device=x.device).expand(B)
+    if tp is not None:
+        return _mla_decode_tp(params, x, cache, cfg, pos_b, tp), cache
     q_nope, q_rope, c_kv_new, k_rope_new = _mla_qkv(params, x, cfg, pos_b[:, None])
     c, kr = cache["c_kv"], cache["k_rope"]
     bidx = torch.arange(B, device=x.device)
@@ -330,6 +421,32 @@ def mla_decode(params, x, cache, cfg, position):
     o = torch.einsum("bhqk,bkhd->bqhd", p, v.float())
     o = o.reshape(B, 1, H * m.v_head_dim).to(x.dtype)
     return o @ params["wo"], cache
+
+
+def _mla_decode_tp(params, x, cache, cfg, pos_b, tp):
+    m = cfg.mla
+    H = cfg.n_heads
+    L.expect_cut("wq_b", params["wq_b"], 1, H * (m.qk_nope_head_dim + m.qk_rope_head_dim), tp)
+    L.expect_cut("wkv_b", params["wkv_b"], 1, H * (m.qk_nope_head_dim + m.v_head_dim), tp)
+    L.expect_cut("wo", params["wo"], 0, H * m.v_head_dim, tp)
+    B = x.shape[0]
+    q_nope, q_rope, c_kv_new, k_rope_new = _mla_qkv(params, x, cfg, pos_b[:, None],
+                                                    gather_q=tp)
+    c, kr = cache["c_kv"], cache["k_rope"]
+    S_loc = c.shape[1]
+    at, mine = _owned(pos_b, S_loc, tp)
+    bidx = torch.arange(B, device=x.device)
+    c[bidx, at] = torch.where(mine[:, None], c_kv_new[:, 0].to(c.dtype), c[bidx, at])
+    kr[bidx, at] = torch.where(mine[:, None], k_rope_new[:, 0].to(kr.dtype), kr[bidx, at])
+    k_nope, v = _mla_expand_kv(dict(params, wkv_b=tp.gather_cols(params["wkv_b"])), c, cfg)
+    scale = (m.qk_nope_head_dim + m.qk_rope_head_dim) ** -0.5
+    s = torch.einsum("bqhd,bkhd->bhqk", q_nope.float(), k_nope.float())
+    s = s + torch.einsum("bqhd,bkd->bhqk", q_rope.float(), kr.float())
+    s = s * scale
+    s = torch.where(_visible(pos_b, S_loc, tp, None)[:, None, None, :], s, -1e30)
+    o = _joined(s, v.float(), "bhqk,bkhd->bhqd", tp)  # (B, H, 1, dv)
+    o = o.transpose(1, 2).reshape(B, 1, H * m.v_head_dim).to(x.dtype)
+    return tp.row_out(_own_columns(o, H, m.v_head_dim, tp, 0) @ params["wo"])
 
 
 def mla_cache_init(cfg, batch, max_seq, dtype, device):

@@ -21,7 +21,6 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from repro_torch.dist import collectives as CL
 
 
 def truncated_normal(gen: torch.Generator, shape, dtype, scale, device):
@@ -187,10 +186,7 @@ def embed_apply(params, tokens, tp=None, d=None):
     if tp is None:
         return params["table"][tokens]
     expect_cut("embed/table", params["table"], 1, d, tp)
-    x = params["table"][tokens]
-    if tp.size == 1:
-        return x
-    return CL.all_gather(x.movedim(-1, 0), tp.group, mesh=tp.mesh).movedim(0, -1)
+    return tp.gather_last(params["table"][tokens])
 
 
 def unembed_apply(params, x, tp=None, d=None):

@@ -25,7 +25,9 @@ looks up the rank's d-slice and gathers it, each block runs on the rank's
 heads and ff slice, and the logits come cut on the vocabulary, the cross
 entropy taking its max, its sum of exponentials and the target's logit
 over the axis (``softmax_xent``). ``whole_logits`` gathers them. The
-decode (``decode_step``) keeps whole leaves under rules, as before.
+decode (``decode_step``) is tensor-parallel on the same compute leaves,
+each attention cache the rank's block of the sequence (``cache_specs``),
+and returns every vocabulary entry of the rank's rows.
 """
 
 from __future__ import annotations
@@ -213,8 +215,7 @@ def whole_logits(logits):
     if tp is None or tp.size == 1:
         return logits
     with torch.no_grad():
-        return CL.all_gather(logits.movedim(-1, 0).contiguous(), tp.group,
-                             mesh=tp.mesh).movedim(0, -1)
+        return tp.gather_last(logits)
 
 
 def mtp_logits(params, h, batch, cfg, use_kernel=True):
@@ -310,6 +311,14 @@ def decode_step(params, cache, batch, position, cfg: ModelConfig):
     Returns (logits (B, vocab), cache): the KV caches are updated in place,
     the recurrent states (Mamba, mLSTM, sLSTM) come back as new tensors.
     ``decode_step_staged`` with every MoE boundary answered inline.
+
+    Under active rules the parameters are the rank's compute leaves
+    (``local_params``; a whole dense leaf raises ``ValueError``), the batch
+    the rank's rows, each attention cache leaf the rank's block of
+    ``cache_specs`` (its rows and its block of the sequence: never
+    gathered) and each recurrent state whole (its mixer runs on whole
+    leaves); the logits are the rank's rows, every vocabulary entry (the
+    reference's out-sharding).
     """
     return T.serve_inline(decode_step_staged(params, cache, batch, position, cfg), cfg)
 
@@ -324,16 +333,18 @@ def decode_step_staged(params, cache, batch, position, cfg: ModelConfig):
     multi-tenant fleet's engines (``serve.fleet``) decode with it, so that
     N tenants' expert dispatches share one combined program replay a
     boundary. The dense prefix (DeepSeek-V3) has no MoE member and runs
-    first, inline."""
+    first, inline. Under active rules as ``decode_step``."""
+    tp = T.decode_tp()
     if cfg.embeds_input and "embed" in batch:
         x = batch["embed"][:, None].to(_dtype(cfg.compute_dtype))
     else:
-        x = L.embed_apply(params["embed"], batch["token"][:, None]).to(_dtype(cfg.compute_dtype))
+        x = L.embed_apply(params["embed"], batch["token"][:, None], tp,
+                          cfg.d_model).to(_dtype(cfg.compute_dtype))
     mrope = batch.get("mrope_positions")
     for member, member_cache in zip(params.get("prefix", []), cache.get("prefix", [])):
         x = T.member_decode(member, x, member_cache, cfg, "attn", "mlp", position, mrope)[0]
     x, stack_cache = yield from T.stack_decode_staged(params["stack"], x, cache["stack"], cfg,
                                                       position, mrope)
     h = _norm_f(cfg)(params["final_norm"], x)
-    logits = _unembed(params, h, cfg)
+    logits = whole_logits(_unembed(params, h, cfg, tp))
     return logits[:, 0], {**cache, "stack": stack_cache}

@@ -22,7 +22,10 @@ summed over the stack in train form and dropped in decode form, as in the
 JAX package. An attention member's decode writes its KV cache in place; a
 recurrent member's returns a new state. Under active rules the train form
 is tensor-parallel on the rank's cut dense leaves, with the reference's
-``seq_parallel`` (``member_train``); the decode form keeps whole leaves.
+``seq_parallel`` (``member_train``); so is the decode form
+(``decode_tp``: the identity in and the sum out, whatever
+``seq_parallel`` says), each attention cache the rank's block of the
+sequence, the recurrent mixers on whole leaves and whole states.
 
 The sharding specs (``member_specs``, ``stack_specs``,
 ``stack_cache_specs``) follow the port's trees: one spec dict per layer,
@@ -174,25 +177,38 @@ def member_train(params, x, cfg, mixer, ffn, positions, mrope_positions, use_ker
     return x, aux
 
 
+def decode_tp():
+    """The active mesh's tensor axis as the decode computes on it
+    (``TensorParallel.for_decode``), or None with no rules active."""
+    tp = CL.tensor_parallel()
+    return None if tp is None else tp.for_decode()
+
+
 def member_decode_mixer(params, x, cache, cfg, mixer, position, mrope_positions):
     """The mixer half of one decode member: pre-norm mixer + residual.
-    Returns (x, cache) — the FFN half (if any) applies on top."""
+    Returns (x, cache) — the FFN half (if any) applies on top. Under active
+    rules (``decode_tp``) an attention mixer runs on the rank's cut leaves
+    and its block of the sequence of the cache (``attention``'s module
+    docstring); a Mamba, mLSTM or sLSTM mixer on whole leaves and a whole
+    state."""
     _check_kinds(mixer, "none")
     h = _norm(cfg)(params["norm1"], x)
     if mixer in RECURRENT:
         mx, cache = _RECURRENT[mixer][2](params["mixer"], h, cache, cfg)
     elif cfg.attention == "mla":
-        mx, cache = A.mla_decode(params["mixer"], h, cache, cfg, position)
+        mx, cache = A.mla_decode(params["mixer"], h, cache, cfg, position, tp=decode_tp())
     else:
-        mx, cache = A.gqa_decode(params["mixer"], h, cache, cfg, position, mrope_positions)
+        mx, cache = A.gqa_decode(params["mixer"], h, cache, cfg, position, mrope_positions,
+                                 tp=decode_tp())
     return x + mx, cache
 
 
 def member_decode(params, x, cache, cfg, mixer, ffn, position, mrope_positions):
-    """One decode member with its FFN computed inline. Returns (x, cache)."""
+    """One decode member with its FFN computed inline (under active rules
+    as ``member_train``'s, on one token a row). Returns (x, cache)."""
     x, cache = member_decode_mixer(params, x, cache, cfg, mixer, position, mrope_positions)
     if ffn != "none":
-        x = x + _ffn(params["ffn"], _norm(cfg)(params["norm2"], x), cfg, ffn)[0]
+        x = x + _ffn(params["ffn"], _norm(cfg)(params["norm2"], x), cfg, ffn, decode_tp())[0]
     return x, cache
 
 
@@ -263,8 +279,10 @@ def stack_decode_staged(stack_params, x, caches, cfg, position, mrope_positions=
     ``serve_inline`` drives it with each boundary's FFN computed inline
     (``model.decode_step``); the multi-tenant fleet
     (``serve.fleet.TenantFleet``) collects N tenants' yields and serves
-    them all with one combined program replay a boundary round."""
+    them all with one combined program replay a boundary round. Under
+    active rules the mixers and dense FFNs run as ``member_decode``'s."""
     norm = _norm(cfg)
+    tp = decode_tp()
     new_caches = []
     for params, cache, (mixer, ffn) in zip(stack_params, caches, layer_kinds(cfg)):
         x, cache = member_decode_mixer(params, x, cache, cfg, mixer, position, mrope_positions)
@@ -273,22 +291,24 @@ def stack_decode_staged(stack_params, x, caches, cfg, position, mrope_positions=
             y = yield (params["ffn"], norm(params["norm2"], x))
             x = x + torch.as_tensor(y).to(device=x.device, dtype=x.dtype)
         elif ffn != "none":
-            x = x + _ffn(params["ffn"], norm(params["norm2"], x), cfg, ffn)[0]
+            x = x + _ffn(params["ffn"], norm(params["norm2"], x), cfg, ffn, tp)[0]
     return x, new_caches
 
 
 def serve_inline(staged, cfg):
     """Run a staged decode (``stack_decode_staged`` or
     ``model.decode_step_staged``) to its end, answering each MoE boundary
-    with the FFN computed inline (``moe.moe_apply_auto``). Returns the
+    with the FFN computed inline (``moe.moe_apply_auto``; under active
+    rules the shared expert on the rank's cut, as ``_ffn``'s). Returns the
     generator's value."""
+    tp = decode_tp()
     y = None
     while True:
         try:
             ffn_params, h2 = staged.send(y)
         except StopIteration as stop:
             return stop.value
-        y = _ffn(ffn_params, h2, cfg, "moe")[0]
+        y = _ffn(ffn_params, h2, cfg, "moe", tp)[0]
 
 
 def stack_cache_init(cfg, batch, max_seq, dtype, device):
