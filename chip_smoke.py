@@ -84,8 +84,9 @@ one NVIDIA card, end to end.
    rank's query heads and the KV heads they read: TinyLlama-1.1B's 16/2
    at (2, 2048) of step 18 d and 2/1 at (2, 32768) of step 19 b,
    Mixtral-8x7B's 4/1 at (1, 8192) of step 13 b and 2/1 at (1, 4096) of
-   step 14 b with the window, DeepSeek-V3's MLA 8/8 at (1, 4096) and
-   (192, 128) of step 17 b), each against its plain version by the bf16
+   step 14 b with the window, DeepSeek-V3's MLA 8/8 at (1, 2048) and
+   (192, 128) of step 17 b, Jamba-1.5-Large's 32/4 at (1, 2048) and
+   (128, 128) of step 18 f), each against its plain version by the bf16
    bound and timed beside the plain version, SDPA and its bound, with its
    persistent grid's tiles;
 8. runs TinyLlama-1.1B's prefill forward at full width (22 layers,
@@ -256,8 +257,8 @@ one NVIDIA card, end to end.
    the vocabulary, the loss) and the route flips as in step 12; every
    rank's last-token logits the same bits; its ms, tokens/s and the
    all-reduce's share;
-15. serves two Mixtral-8x7B tenants at full width, the depth cut to 2 of
-   32 layers each (6.3 GB of bf16 a tenant), made on the card from seeds
+15. serves two Mixtral-8x7B tenants at full width, the depth cut to 1 of
+   32 layers each (3.2 GB of bf16 a tenant), made on the card from seeds
    0 and 1, through ``serve.fleet.TenantFleet`` over ``torch_dist``: 8
    processes share the card as the D3(2,2) host, each tenant a D3(1,2)
    guest (n_guest 4, 2 experts a guest device, 2 slots, C 16), every rank
@@ -307,8 +308,9 @@ one NVIDIA card, end to end.
    each model coordinate's 16 experts one ``bmm`` batch, as a rank runs
    them) and keeps only their outputs, and a control: the expert FFN of
    256 experts as one batch against 16 batches of 16, bits compared.
-   a) the MoE layer on hidden states (1, 4096, 7168) bf16 from the seed:
-   T_loc 256, C_loc 16, a (16, 16, 16, 7168) bf16 buffer of 58.7 MB a rank
+   a) the MoE layer on hidden states (1, 2048, 7168) bf16 from the seed
+   (``DS_EP_TOKENS``): T_loc 128, C_loc 8, a (16, 16, 8, 7168) bf16 buffer
+   of 29.4 MB a rank
    each way, in the four fixed modes through ``moe_apply_auto``: every
    rank's output the same bits, ``xla``, ``dragonfly`` and
    ``dragonfly_overlap`` the plain version's bits, the fused mode within
@@ -320,11 +322,11 @@ one NVIDIA card, end to end.
    a rank; then ``moe_collectives="auto"``: one decision measured and
    agreed by all 16 ranks, its output the bits of the mode it names, every
    candidate's µs beside the analytic ``moe_site_report`` at that key.
-   b) ``forward_train`` with K4 on tokens (1, 4096) from the seed in the
+   b) ``forward_train`` with K4 on tokens (1, 2048) from the seed in the
    ``dragonfly`` mode on each rank's compute leaves (``models.local_params``:
    MLA on 8 of the 128 heads, the dense MLPs and the shared expert on an ff
    slice, the embedding and the unembedding cut on the model axis too):
-   exactly 2 ``wgmma`` K4 launches a rank at (1, 4096, 8/8, 192, 128) (32
+   exactly 2 ``wgmma`` K4 launches a rank at (1, 2048, 8/8, 192, 128) (32
    in all), every rank's last-token logits (gathered over the vocabulary)
    the same bits, rank 0's within step 8's criteria of the one-process
    forward's, the MoE layer's routes by step 10's rule for it (each
@@ -381,7 +383,7 @@ one NVIDIA card, end to end.
    1 of 32 layers, mesh (2, 4) (8 experts, 2 a rank: EP; the model axis
    D3(4,1)) with ZeRO-1, one step in each of ``xla``, ``dragonfly`` and
    ``dragonfly_overlap_fused`` (since PR 25: its round trip differentiated
-   wave by wave) on tokens (2, 2048) from the seed (T_loc 512), against
+   wave by wave) on tokens (2, 1024) from the seed (T_loc 256), against
    the one-process step whose MoE layer is ``moe_apply_ep_plain(..., 2,
    4)``: in ``xla`` and in the fused mode loss, moe_aux and grad_norm
    within ``SHARDED_REL``, the first moment of the router and of each
@@ -414,7 +416,7 @@ one NVIDIA card, end to end.
    ``seeded_cache`` of ``DECODE_MAX_SEQ`` 32768 positions (filled below
    ``DECODE_START`` 32752 with N(0, ``DECODE_FILL_STD``²) bf16 values),
    the rank holding its block of 16384 positions (``models.cache_specs``);
-   ``DECODE_STEPS`` 16 steps of ``decode_step`` under the rules on its
+   ``DECODE_STEPS`` 8 steps of ``decode_step`` under the rules on its
    compute leaves (split-KV attention joined by log-sum-exp), each timed,
    against the same rank's one-process decode on whole leaves and the
    whole cache by step 8's bound, and the rank's block against the same
@@ -425,16 +427,43 @@ one NVIDIA card, end to end.
    whole-leaf decode's own bf16-against-float32 distance (its first
    ``DECODE_CONTROL_STEPS`` steps) and two planted
    faults, each of which it must reject: the join without its exp(m − M)
-   rescale, and the new token written into every rank's block.
+   rescale, and the new token written into every rank's block. f) and g)
+   in b's ranks, the Mamba, mLSTM and sLSTM mixers under
+   tensor parallelism (``recurrent_tp_jobs``, ``_recurrent_tp_job``):
+   Jamba-1.5-Large at full width cut to ``RECURRENT_JAMBA_LAYERS`` 2
+   layers (an attention and a Mamba member, each with the dense MLP; 2.85
+   B parameters), and xLSTM-1.3B at full width cut to one group of 8 (7
+   mLSTM, 1 sLSTM), both bf16 from the seed on each rank; the TP prefill
+   of (1, 2048) (Jamba) and (1, 512) (xLSTM) a data rank on the rank's
+   compute leaves (every mixer leaf at its tensor-axis cut), Jamba's with
+   exactly 1 ``wgmma`` K4 launch a rank at (1, 2048, 32/4, 128), xLSTM's
+   with none; ``RECURRENT_DECODE_STEPS`` 8 decode steps on the rank's
+   ``cache_specs`` shard of a ``seeded_cache`` (the recurrent states at
+   their shards; Jamba's attention cache 4096 positions, 2048 a rank);
+   each against the rank's run on whole leaves and the whole cache, and
+   both against the same whole-leaf run in float32, the control: every TP
+   output (the logits; the change over the steps of the rank's shard of
+   each recurrent state, by mixer and leaf name: the mLSTM's C of every
+   layer together, its n, its m, the sLSTM's c, …) no farther from
+   float32 than ``RECURRENT_CONTROL_FACTOR`` 2 times the whole leaves'
+   bf16 output, within step 8's max |Δ| of the whole leaves'; the
+   attention block's untouched positions the same bits; two planted
+   faults must fail it: in f's prefill the stored ``[x | z]`` columns of
+   ``w_in`` taken as the rank's channels' (no exchange), in g's decode
+   the sLSTM stepping on the rank's own ``h`` (no gather). Prints each
+   prefill's ms beside the whole leaves', the decode's ms a step, the
+   carrier's bytes, the worst state.
 
 19. (since PR 25) the dry run (``launch.dryrun``) in a process of its
    own, whose fake process group is process-global: a) on the meta
    device, rank by rank of the production meshes, TinyLlama-1.1B's
    train_4k (the sharded step), DeepSeek-V3's prefill_32k (EP, 16 experts
    a rank), Mixtral-8x7B's decode_32k (TP and the cache specs) on (16,
-   16), each ``ok``, and OLMo-1B's train_4k on (2, 16, 16) with FSDP,
+   16), each ``ok``, OLMo-1B's train_4k on (2, 16, 16) with FSDP,
    ``FAILED`` as in the reference (16 stacked layers over pod·data = 32),
-   one line each with its seconds; b) ``--on-card``: TinyLlama-1.1B's
+   and xLSTM-1.3B's decode_32k on (16, 16), ``ok``, its
+   recurrent states traced at their shards; one line each with its
+   seconds; b) ``--on-card``: TinyLlama-1.1B's
    prefill_32k, rank 0's share (2 × 32768 tokens, 22 K4 launches) run on
    the card under the fake world (the collectives' outputs unwritten, so
    only memory, counts and time are checked): the meta trace's peak within
@@ -479,23 +508,27 @@ The cells (layout D3(K, M) has n = K·M² routers):
               and the MTP block, tokens (1, 4096): C = 160 an expert, a
               (256, 160, 7168) bf16 dispatch buffer of 587 MB; K4 at
               (192, 128), 4 launches a forward, 5 a loss_fn;
-  fleet       two Mixtral-8x7B tenants of 2 layers each on D3(2,2), 8
+  fleet       two Mixtral-8x7B tenants of 1 layer each on D3(2,2), 8
               ranks sharing the card, D3(1,2) guests, 3 requests a tenant;
   Jamba       Jamba-1.5-Large, one period of 8 layers (1 attention, 7
   prefill     Mamba, 1 MoE FFN), tokens (1, 4096): K4 at (128, 128), 64/8
               heads, 1 launch a forward;
   xLSTM       xLSTM-1.3B whole, tokens (8, 2048), no kernel;
   DeepSeek EP DeepSeek-V3, 1 dense-prefix and 1 MoE layer, mesh (1, 16), 16 ranks
-              sharing the card, 16 of 256 experts a rank: T_loc 256, C_loc
-              16, a (16, 16, 16, 7168) bf16 buffer of 58.7 MB a rank each
-              way; the forward on tokens (1, 4096), K4 2 launches a rank;
+              sharing the card, 16 of 256 experts a rank: T_loc 128, C_loc
+              8, a (16, 16, 8, 7168) bf16 buffer of 29.4 MB a rank each
+              way; the forward on tokens (1, 2048), K4 2 launches a rank;
               one decode step of 16 rows over a 4096-position latent cache,
               256 positions a rank.
   sharded    TinyLlama-1.1B whole, mesh (2, 2), FSDP, 4 ranks sharing
   training   the card, tokens (4, 2048); Mixtral-8x7B 1 layer, mesh (2, 4),
-              EP with ZeRO-1, 8 ranks, tokens (2, 2048); no kernel.
+              EP with ZeRO-1, 8 ranks, tokens (2, 1024); no kernel.
   TP decode  TinyLlama-1.1B whole, mesh (2, 2), 4 ranks, 4 rows (2 a rank),
-              a 32768-position cache, 16384 a rank, 16 steps; no kernel.
+              a 32768-position cache, 16384 a rank, 8 steps; no kernel.
+  recurrent  Jamba-1.5-Large 2 layers (attention, Mamba), mesh (2, 2), 4
+  TP         ranks, tokens (2, 2048), K4 1 launch a rank; xLSTM-1.3B 8
+              layers, tokens (2, 512), no kernel; each 8 decode steps of 4
+              rows, the states at their shards.
 """
 
 from __future__ import annotations
@@ -526,6 +559,8 @@ PREFILL = (8, 2048)  # TinyLlama-1.1B prefill: batch, tokens (its published cont
 MIXTRAL_LAYERS = 8  # of 32: 8 layers of bf16 weights are 23.7 GB, all 32 are 93 GB
 MIXTRAL_TOKENS = (1, 8192)  # one sequence of twice the window
 DEEPSEEK_LAYERS = 4  # of 61: the 3 dense-prefix layers and 1 MoE layer (23.0 GB each)
+DS_EP_TOKENS = (1, 2048)  # step 17 a, b: cut from DEEPSEEK_TOKENS' (1, 4096) for the script's
+# time when steps 18 f and g came: T_loc 128, C_loc 8
 DS_EP_PREFIX = 1  # step 17: of the 3 dense-prefix layers (with the 1 MoE layer), cut from 3
 # for the script's time: each tensor-parallel layer adds two host all-reduces a forward
 DEEPSEEK_TOKENS = (1, 4096)  # its pre-training length; one sequence (the capacity couples a batch)
@@ -586,7 +621,8 @@ DS_DECODE_ROWS = 16  # 17 c: decode rows, one a rank of the model axis (EP takes
 DS_DECODE_SEQ = 4096  # 17 c: the cache's positions (its pre-training length), 256 a rank
 CHECKSUM_CHUNK = 1 << 24  # int16 values a bits checksum sums at once (128 MiB of int64)
 FLEET_HOST, FLEET_GUEST = (2, 2), (1, 2)  # D3(2,2): 8 ranks; two D3(1,2) guests of 4 devices
-FLEET_LAYERS = 2  # of Mixtral's 32, per tenant: 6.3 GB of bf16 weights each
+FLEET_LAYERS = 1  # of Mixtral's 32, per tenant: 3.2 GB of bf16 weights each; cut from 2 for the
+# script's time when steps 18 f and g came (every decode step replays one MoE boundary a layer)
 FLEET_SLOTS, FLEET_REQUESTS, FLEET_NEW, FLEET_MAX_SEQ = 2, 3, 4, 32  # FLEET_NEW cut from 8
 # for the script's time: every arm still decodes after its prefill, the evict comes mid-traffic
 FLEET_FFN_TOL = 1e-4  # float32 expert FFN, the replay's wave batches against one batch
@@ -608,9 +644,10 @@ TRAIN_SHARDED_STEPS = 1  # b: cut from 2 for the script's time; the CPU tests ru
 MIXTRAL_TRAIN_LAYERS = 1  # c: of 32; the one-process oracle's weights, gradients and Adam state
 # take about 20 GB at one layer, 38 at two
 MIXTRAL_TRAIN_MESH = (2, 4)  # c: 8 experts, 2 a model rank: EP; the model axis is D3(4,1)
-MIXTRAL_TRAIN_TOKENS = (2, 2048)  # c: (1, 2048) a data rank, T_loc 512; cut from (2, 4096),
-# where 8 ranks' plain attention (float32 (1, 32, 4096, 4096) scores, 2 GiB a copy) ran the card
-# out of memory (on one H100: 7.6 GiB a rank allocated when one asked for 2 more)
+MIXTRAL_TRAIN_TOKENS = (2, 1024)  # c: (1, 1024) a data rank, T_loc 256; cut from (2, 2048) for
+# the script's time when steps 18 f and g came, and before that from (2, 4096), where 8
+# ranks' plain attention (float32 (1, 32, 4096, 4096) scores, 2 GiB a copy) ran the card out of
+# memory (on one H100: 7.6 GiB a rank allocated when one asked for 2 more)
 MIXTRAL_TRAIN_MODES = ("xla", "dragonfly", "dragonfly_overlap_fused")
 #: c: the modes held to the first mode's bits (only the transport differs); the fused mode
 #: differentiates its wave pipeline wave by wave, another float order: held to the oracle
@@ -630,17 +667,29 @@ PREFILL_TP_REPS = 1  # d: timed TP prefills (and whole-leaf ones), each after a 
 #   from 2 for the script's time
 DECODE_MAX_SEQ = 32768  # e: the cache's positions, 16384 a rank on the model axis of 2
 DECODE_START = 32752  # e: positions below it hold bf16 values from the seed; decoding starts there
-DECODE_STEPS = 16  # e: decode steps, positions DECODE_START .. DECODE_START + 15
+DECODE_STEPS = 8  # e: decode steps, positions DECODE_START .. DECODE_START + 7; cut from 16 for
+#   the script's time when steps 18 f and g came
 DECODE_ROWS = 4  # e: 18 b's batch rows, 2 a data rank
 DECODE_CONTROL_STEPS = 4  # e: the first steps the float32 whole-leaf control decodes
 DECODE_FILL_STD = 2.0  # e, 17 c: the filled positions' N(0, std²): keys spread enough that a
 #   query's softmax leans on a few of them (at 0.5 it is near uniform over 32k positions)
+RECURRENT_JAMBA_LAYERS = 2  # f: of 72, layer 0 attention and layer 1 Mamba (attn_period 2), each
+#   with Jamba's dense MLP (moe None): 2.85 B parameters, 5.7 GB of bf16 a rank
+RECURRENT_JAMBA_TOKENS = (2, 2048)  # f: the prefill, (1, 2048) a data rank: K4 at (1, 2048, 32/4, 128)
+RECURRENT_XLSTM_LAYERS = 8  # g: of 48, one group: 7 mLSTM and 1 sLSTM
+RECURRENT_XLSTM_TOKENS = (2, 512)  # g: (1, 512) a data rank: 512 per-position gathers of h
+RECURRENT_DECODE_ROWS = 4  # f, g: decode rows, 2 a data rank
+RECURRENT_DECODE_SEQ = 4096  # f: Jamba's attention cache, 2048 positions a rank
+RECURRENT_DECODE_STEPS = 8  # f, g: decode steps from RECURRENT_DECODE_SEQ - 8
+RECURRENT_CONTROL_FACTOR = 2.0  # f, g: each TP output no farther from the float32 control (whole
+#   leaves) than this many times the whole leaves' bf16 output is, relative rms
 #: 19 a: (arch, shape, multi-pod, rules changes, tag, expected status) of the dry run on meta
 DRYRUN_CELLS = (
     ("tinyllama-1.1b", "train_4k", False, {}, "", "ok"),          # the sharded step
     ("deepseek-v3-671b", "prefill_32k", False, {}, "", "ok"),     # EP, 16 experts a rank
     ("mixtral-8x7b", "decode_32k", False, {}, "", "ok"),          # TP, the cache specs
     ("olmo-1b", "train_4k", True, {"fsdp": True}, "fsdp", "FAILED"),  # 16 layers over 32
+    ("xlstm-1.3b", "decode_32k", False, {}, "", "ok"),            # the recurrent states' shards
 )
 #: 19 b, c: the cells run on the card as well, each its rank's share: the prefill with K4,
 #: and the tensor-parallel decode over the rank's block of the sequence-sharded cache (no K4)
@@ -2459,10 +2508,10 @@ def deepseek_ep_phase(dev, seed):
     torch.cuda.synchronize()
     compact_s = time.perf_counter() - t0
     weight_gb = _nbytes(params) / 1e9
-    B, S = DEEPSEEK_TOKENS
+    B, S = DS_EP_TOKENS
     x = torch.randn((B, S, d), generator=torch.Generator(device=dev).manual_seed(seed),
                     device=dev).to(getattr(torch, cfg.compute_dtype))
-    tokens = torch.randint(1, cfg.vocab, DEEPSEEK_TOKENS, device=dev,
+    tokens = torch.randint(1, cfg.vocab, DS_EP_TOKENS, device=dev,
                            generator=torch.Generator(device=dev).manual_seed(seed))
     T_loc = B * S // ranks_n
     C = MOE.ep_capacity(cfg, T_loc)
@@ -2668,7 +2717,7 @@ def deepseek_ep_phase(dev, seed):
     parts_wall = max(rec["parts_wall_ms"] for rec in mod)
     ex = statistics.median(rec["parts"]["exchange_ms"] + rec["parts"]["gather_ms"] for rec in mod)
     model_rec = {"layers": f"{cfg.n_layers} of {full.n_layers} ({cfg.first_dense_layers} dense "
-                           f"prefix, 1 MoE) + MTP", "tokens": list(DEEPSEEK_TOKENS),
+                           f"prefix, 1 MoE) + MTP", "tokens": list(DS_EP_TOKENS),
                  "mode": "dragonfly", "ms": fwd_ms,
                  "first_ms": max(rec["first_ms"] for rec in mod),
                  "tokens_per_s": B * S / fwd_ms * 1e3,
@@ -2680,7 +2729,7 @@ def deepseek_ep_phase(dev, seed):
                  "loss_peak_gib_per_rank_max": max(rec["loss_peak_gib"] for rec in mod),
                  "metrics": got_m, "plain_metrics": want_m, "metrics_rel": metric_rel,
                  "loss_rel": loss_rel, "last_logits_vs_plain": vs_plain, "route_flips": flips,
-                 "k4_shape": [1, DEEPSEEK_TOKENS[1], cfg.n_heads // n_model, 192, 128],
+                 "k4_shape": [1, DS_EP_TOKENS[1], cfg.n_heads // n_model, 192, 128],
                  "last_logits_bits_equal_all_ranks": True}
     # c) the decode step over the sequence-sharded latent cache
     dec = [r["decode"] for r in ranks]
@@ -2849,6 +2898,7 @@ def k4_local_heads(dev, time_ms, bound) -> list:
     mcfg = get_config("mixtral-8x7b")
     ds_cfg = get_config("deepseek-v3-671b")
     ds_d = ds_cfg.mla.qk_nope_head_dim + ds_cfg.mla.qk_rope_head_dim
+    jcfg = get_config("jamba-1.5-large-398b")
     local_cases = [  # (where, B, S, Hq, Hkv, D, Dv, window)
         ("step 18 d: tinyllama-1.1b, model axis 2", TRAIN_SHARDED_TOKENS[0]
          // TRAIN_SHARDED_MESH[0], TRAIN_SHARDED_TOKENS[1], tl.n_heads // TRAIN_SHARDED_MESH[1],
@@ -2859,9 +2909,12 @@ def k4_local_heads(dev, time_ms, bound) -> list:
          mcfg.n_heads // EP_MESH[1], 1, mcfg.head_dim, mcfg.head_dim, mcfg.sliding_window),
         ("step 14 b: mixtral-8x7b TP, model axis 16", TP_FORWARD_TOKENS[0], TP_FORWARD_TOKENS[1],
          mcfg.n_heads // TP_MESH[1], 1, mcfg.head_dim, mcfg.head_dim, mcfg.sliding_window),
-        ("step 17 b: deepseek-v3-671b MLA, model axis 16", DEEPSEEK_TOKENS[0],
-         DEEPSEEK_TOKENS[1], ds_cfg.n_heads // DS_EP_MESH[1], ds_cfg.n_heads // DS_EP_MESH[1],
+        ("step 17 b: deepseek-v3-671b MLA, model axis 16", DS_EP_TOKENS[0],
+         DS_EP_TOKENS[1], ds_cfg.n_heads // DS_EP_MESH[1], ds_cfg.n_heads // DS_EP_MESH[1],
          ds_d, ds_cfg.mla.v_head_dim, None),
+        ("step 18 f: jamba-1.5-large-398b, model axis 2", RECURRENT_JAMBA_TOKENS[0]
+         // TRAIN_SHARDED_MESH[0], RECURRENT_JAMBA_TOKENS[1], jcfg.n_heads // TRAIN_SHARDED_MESH[1],
+         jcfg.n_kv_heads // TRAIN_SHARDED_MESH[1], jcfg.head_dim, jcfg.head_dim, None),
     ]
     local_heads = []
     for where, b_, sq, hq, hkv, d, dv, window in local_cases:
@@ -2973,7 +3026,8 @@ def train_sharded_rank(rank, group, layout, jobs, mesh_shape, seed):
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     mesh = make_mesh(mesh_shape, ("data", "model"), device="cuda")
-    jobs_by_part = {"d": _tp_prefill_job, "e": _tp_decode_job}
+    jobs_by_part = {"d": _tp_prefill_job, "e": _tp_decode_job, "f": _recurrent_tp_job,
+                    "g": _recurrent_tp_job}
     return {job["part"]: jobs_by_part.get(job["part"], _train_sharded_job)(rank, mesh, job, seed)
             for job in jobs}
 
@@ -2981,8 +3035,9 @@ def train_sharded_rank(rank, group, layout, jobs, mesh_shape, seed):
 def seeded_cache(cfg, rows, max_seq, start, seed, dev):
     """A bf16 decode cache of ``rows`` rows and ``max_seq`` positions whose
     positions below ``start`` hold N(0, ``DECODE_FILL_STD``²) values drawn
-    from ``seed`` on the card, the rest zeros: the same bits wherever it is
-    made from the same seed."""
+    from ``seed`` on the card, the rest zeros, and whose recurrent states
+    (Mamba, mLSTM, sLSTM) hold such values whole: the same bits wherever it
+    is made from the same seed."""
     import torch
 
     from repro_torch.models import model as M
@@ -2991,8 +3046,11 @@ def seeded_cache(cfg, rows, max_seq, start, seed, dev):
     cache = M.init_cache(cfg, rows, max_seq, torch.bfloat16, device=dev)
     gen = torch.Generator(device=dev).manual_seed(seed)
     for path, t in O.flatten(cache):
-        seq = t[:, :, :start] if path[-1] in ("k", "v") else t[:, :start]  # GQA (B, H, S, hd)
-        seq.normal_(0.0, DECODE_FILL_STD, generator=gen)
+        if path[-1] in ("k", "v"):  # GQA (B, H, S, hd)
+            t = t[:, :, :start]
+        elif path[-1] in ("c_kv", "k_rope"):  # MLA (B, S, r)
+            t = t[:, :start]
+        t.normal_(0.0, DECODE_FILL_STD, generator=gen)
     return cache
 
 
@@ -3011,6 +3069,30 @@ def every_rank_writes(pos_b, S_loc, tp):
     import torch
 
     return pos_b % S_loc, torch.ones_like(pos_b, dtype=torch.bool)
+
+
+def own_h_only(tp):
+    """A planted fault: a copy of the tensor axis ``tp`` whose all-gather
+    gives the rank's own block among zeros, so that the sLSTM steps on its
+    own ``h`` (no gather)."""
+    import copy
+
+    def gather_last(h):
+        out = h.new_zeros((*h.shape[:-1], h.shape[-1] * tp.size))
+        out[..., tp.coord * h.shape[-1]:(tp.coord + 1) * h.shape[-1]] = h
+        return out
+
+    bad = copy.copy(tp)
+    bad.gather_last = gather_last
+    return bad
+
+
+def planted_slstm(T):
+    """``transformer._RECURRENT``'s sLSTM entry with ``own_h_only``'s axis
+    given to its train and decode forms (the planted fault of step 18 g)."""
+    init, train, decode, state = T._RECURRENT["slstm"]
+    return (init, lambda p, x, cfg, tp=None: train(p, x, cfg, tp=own_h_only(tp)),
+            lambda p, x, s_, cfg, tp=None: decode(p, x, s_, cfg, tp=own_h_only(tp)), state)
 
 
 def block_vs_cache(block, cache, c, S_loc, written):
@@ -3142,6 +3224,25 @@ def _tp_decode_job(rank, mesh, job, seed):
     return out
 
 
+def _timed(fn, barrier: bool) -> list:
+    """The ms of ``PREFILL_TP_REPS`` calls of ``fn``, each after the one
+    before (the first call a warm-up, not kept), each from a barrier of the
+    world where ``barrier`` says so."""
+    import torch
+    import torch.distributed as dist
+
+    ms = []
+    for _ in range(PREFILL_TP_REPS + 1):
+        if barrier:
+            dist.barrier()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+    return ms[1:]
+
+
 def _tp_prefill_job(rank, mesh, job, seed):
     """Step 18 d, in 18 b's ranks: ``job["cfg"]`` (TinyLlama-1.1B whole,
     bf16) made whole from ``seed`` on the card; ``forward_train`` with K4
@@ -3162,7 +3263,6 @@ def _tp_prefill_job(rank, mesh, job, seed):
     bf16 forward against that float32 one (``bf16_control``: what bf16
     alone moves). Returns host data."""
     import torch
-    import torch.distributed as dist
 
     from repro_torch.dist import sharding as SH
     from repro_torch.kernels.flash_attention.flash_attention import flash_attention
@@ -3178,27 +3278,15 @@ def _tp_prefill_job(rank, mesh, job, seed):
     batch = TS.shard_batch({"tokens": torch.from_numpy(job["batch"]["tokens"])},
                            {"tokens": rules.tokens()}, mesh)
 
-    def timed(fn, barrier):
-        ms = []
-        for _ in range(PREFILL_TP_REPS + 1):
-            if barrier:
-                dist.barrier()
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            fn()
-            torch.cuda.synchronize()
-            ms.append((time.perf_counter() - t0) * 1e3)
-        return ms[1:]
-
     with torch.no_grad():
         zero_counts((flash_attention,))
         logits = M.forward_train(local, batch, cfg, use_kernel=True, remat=False)[0]
         torch.cuda.synchronize()
         k4 = {"launches": flash_attention.launches, "bodies": dict(flash_attention.body_launches)}
-        tp_ms = timed(lambda: M.forward_train(local, batch, cfg, True, remat=False), True)
+        tp_ms = _timed(lambda: M.forward_train(local, batch, cfg, True, remat=False), True)
         SH.clear_active()
         want = M.forward_train(whole, batch, cfg, use_kernel=True, remat=False)[0]
-        whole_ms = timed(lambda: M.forward_train(whole, batch, cfg, True, remat=False), False)
+        whole_ms = _timed(lambda: M.forward_train(whole, batch, cfg, True, remat=False), False)
         n = cfg.vocab // mesh.sizes["model"]
         c = mesh.coords["model"]
         mine = want[..., c * n:(c + 1) * n]
@@ -3239,6 +3327,333 @@ def _tp_prefill_job(rank, mesh, job, seed):
     del whole, local, got32, want32
     torch.cuda.empty_cache()
     return out
+
+
+def _widen(tree):
+    """Every tensor of a parameter or cache tree (dicts and lists) cast to
+    float32 in place, one leaf at a time (the bf16 leaf freed as its copy
+    is made)."""
+    import torch
+
+    for key in (tree if isinstance(tree, dict) else range(len(tree))):
+        if isinstance(tree[key], (dict, list)):
+            _widen(tree[key])
+        else:
+            tree[key] = tree[key].to(torch.float32)
+
+
+def _spread(got, want):
+    """(max |Δ|, relative rms) of ``got`` against ``want``, lists of tensors
+    taken as one vector, in float32."""
+    d2 = w2 = 0.0
+    top = 0.0
+    for g, w in zip(got, want):
+        diff = g.float() - w.float()
+        d2 += float(diff.square().sum())
+        w2 += float(w.float().square().sum())
+        top = max(top, float(diff.abs().max()))
+    return top, (d2 / max(w2, 1e-30)) ** 0.5
+
+
+def _recurrent_tp_job(rank, mesh, job, seed):
+    """Step 18 f (Jamba-1.5-Large, 2 layers) and g (xLSTM-1.3B, 8 layers),
+    in 18 b's ranks: ``job["cfg"]`` (bf16) made whole from ``seed`` on the
+    card. The prefill: ``forward_train`` with K4 on the rank's rows of
+    ``job["batch"]`` under the mesh's rules on its compute leaves
+    (``models.local_params``: every Mamba, mLSTM and sLSTM leaf cut as
+    ``param_specs`` cuts it), K4's launches and the carrier's bytes
+    counted, then the same rows on the whole leaves with no rules, both
+    timed; where ``job["planted"]`` is the unpaired ``w_in``, the TP
+    forward with the stored ``[x | z]`` columns of ``w_in`` taken as the
+    rank's channels' x and z (no exchange). The decode:
+    ``RECURRENT_DECODE_STEPS`` steps of ``decode_step`` under the rules on
+    the rank's ``cache_specs`` shard of every leaf of a ``seeded_cache``
+    (the recurrent states at their shards, never gathered), each timed
+    from a barrier; where ``job["planted"]`` is the sLSTM on the rank's own
+    ``h`` (``planted_slstm``), the same steps with it planted (its prefill
+    moves the logits too little for the check to see: 2.3 % rms against
+    the whole leaves' 1.9 % from float32, on one H100); then the same
+    steps on the whole leaves and the whole cache. Last the control: the
+    whole-leaf prefill and decode in float32 on the same weights and cache.
+    Each of the rank's outputs (its vocabulary slice of the prefill's
+    logits, the decode's logits, and the change of its shard of every
+    recurrent state over the steps, the new state less the seeded fill,
+    taken by mixer and leaf name: the mLSTM's C of every layer together,
+    its n, its m, the sLSTM's c, …) is measured against the whole leaves'
+    bf16 one and against the float32 one, beside the whole leaves' own
+    distance from float32. Returns host data."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.dist import collectives as CL
+    from repro_torch.dist import sharding as SH
+    from repro_torch.kernels.flash_attention.flash_attention import flash_attention
+    from repro_torch.models import model as M
+    from repro_torch.models import transformer as T
+    from repro_torch.train import optimizer as O
+    from repro_torch.train import train_step as TS
+
+    t_job = time.perf_counter()
+    cfg, dev = job["cfg"], mesh.device
+    plant = {"unpaired_w_in": (CL.TensorParallel, "own_parts", lambda self, x, parts: x),
+             "slstm_own_h": (T._RECURRENT, "slstm", planted_slstm(T))}.get(job["planted"])
+    n_d, m, c, dc = mesh.sizes["data"], mesh.sizes["model"], mesh.coords["model"], \
+        mesh.coords["data"]
+    SH.set_active(SH.ShardRules(), mesh)
+    rules = SH.active()[0]
+    whole = M.init_params(torch.Generator(device=dev).manual_seed(seed), cfg, device=dev)
+    local = M.local_params(whole, cfg, rules, mesh.coords, mesh.sizes)
+    batch = TS.shard_batch({"tokens": torch.from_numpy(job["batch"]["tokens"])},
+                           {"tokens": rules.tokens()}, mesh)
+    n = cfg.vocab // m
+
+    def forward(params, c_=cfg):
+        return M.forward_train(params, batch, c_, use_kernel=True, remat=False)[0]
+
+    def versus(tp, whole_, f32):
+        """The TP output against the whole leaves' and float32's."""
+        err, rel = _spread(tp, whole_)
+        return {"max_abs_err": err, "rel_rms": rel, "vs_f32_rel_rms": _spread(tp, f32)[1],
+                "whole_vs_f32_rel_rms": _spread(whole_, f32)[1]}
+
+    out = {"coords": mesh.coords, "rows": list(batch["tokens"].shape)}
+    with torch.no_grad():
+        # the prefill
+        zero_counts((flash_attention,))
+        mesh.carrier_copies = mesh.carrier_bytes = 0
+        logits = forward(local)
+        torch.cuda.synchronize()
+        k4 = {"launches": flash_attention.launches, "bodies": dict(flash_attention.body_launches)}
+        carrier = {"copies": mesh.carrier_copies, "bytes": mesh.carrier_bytes}
+        tp_ms = _timed(lambda: forward(local), True)
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        bad = None
+        if job["planted"] == "unpaired_w_in":
+            with patched(*plant):
+                bad = forward(local)
+        SH.clear_active()
+        want = forward(whole)[..., c * n:(c + 1) * n].clone()
+        whole_ms = _timed(lambda: forward(whole), False)
+        out["prefill"] = {"k4": k4, "carrier": carrier, "ms": tp_ms, "whole_ms": whole_ms,
+                          "logits": list(logits.shape), "peak_gib": peak,
+                          "finite": bool(torch.isfinite(logits).all())}
+
+        # the decode, the rank's shard of every cache leaf
+        R = RECURRENT_DECODE_ROWS
+        rows = slice(dc * R // n_d, (dc + 1) * R // n_d)
+        tokens = torch.from_numpy(job["decode_tokens"][:, rows]).to(dev)
+        start = RECURRENT_DECODE_SEQ - RECURRENT_DECODE_STEPS
+
+        def fresh():
+            return seeded_cache(cfg, tokens.shape[1], RECURRENT_DECODE_SEQ, start,
+                                seed + 1 + dc, dev)
+
+        cache = fresh()
+        cspecs = M.cache_specs(cfg, rules, False)
+        one = dict(mesh.sizes, data=1)  # the rows are already the rank's
+        at = dict(mesh.coords, data=0)
+
+        def shards(tree):
+            return {path: t[SH.local_slices(O.get(cspecs, path), t.shape, at, one)]
+                    for path, t in O.flatten(tree)}
+
+        fill = {path: t.clone() for path, t in shards(cache).items()}
+
+        def held_fill():
+            return O.unflatten(cache, [fill[path].clone() for path, _ in O.flatten(cache)])
+
+        held = held_fill()
+
+        def steps(params, state, sync_ranks, c_=cfg):
+            logits_, ms = [], []
+            for i in range(RECURRENT_DECODE_STEPS):
+                if sync_ranks:
+                    dist.barrier()
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                o, state = M.decode_step(params, state, {"token": tokens[i]}, start + i, c_)
+                torch.cuda.synchronize()
+                ms.append((time.perf_counter() - t0) * 1e3)
+                logits_.append(o)
+            return torch.stack(logits_), ms, state
+
+        SH.set_active(SH.ShardRules(), mesh)
+        mesh.carrier_copies = mesh.carrier_bytes = 0
+        got, tp_steps, held = steps(local, held, True)
+        carrier = {"copies": mesh.carrier_copies / RECURRENT_DECODE_STEPS,
+                   "bytes": mesh.carrier_bytes / RECURRENT_DECODE_STEPS}
+        bad_held = None
+        if job["planted"] == "slstm_own_h":
+            with patched(*plant):
+                bad_held = dict(O.flatten(steps(local, held_fill(), True)[2]))
+        SH.clear_active()
+        dwant, whole_steps, cache = steps(whole, cache, False)
+        attn = ("k", "v", "c_kv", "k_rope")
+        mine_new, want_new = dict(O.flatten(held)), shards(cache)
+        states = [p for p in mine_new if p[-1] not in attn]
+        kv = [p for p in mine_new if p[-1] in ("k", "v")]
+        block = (block_vs_cache([mine_new[p] for p in kv], [O.get(cache, p) for p in kv],
+                                c, RECURRENT_DECODE_SEQ // m, range(start, RECURRENT_DECODE_SEQ))
+                 if kv else None)
+        out["decode"] = {"ms": tp_steps, "whole_ms": whole_steps, "carrier_a_step": carrier,
+                         "finite": bool(torch.isfinite(got).all()), "state_leaves": len(states),
+                         "shapes_are_shards": all(tuple(mine_new[p].shape)
+                                                  == tuple(want_new[p].shape) for p in mine_new),
+                         "attention_block": block}
+        del local, held
+
+        # the control: whole leaves in float32, on the same weights and cache
+        _widen(whole)
+        cfg32 = dataclasses.replace(cfg, param_dtype="float32", compute_dtype="float32")
+        want32 = forward(whole, cfg32)[..., c * n:(c + 1) * n]
+        out["prefill"]["vs"] = versus([logits], [want], [want32])
+        out["planted"] = {"name": job["planted"]}
+        if bad is not None:
+            out["planted"]["prefill"] = versus([bad], [want], [want32])
+        del logits, want, want32, bad
+        cache32 = fresh()
+        _widen(cache32)
+        dwant32, _, cache32 = steps(whole, cache32, False, cfg32)
+        out["decode"]["vs"] = versus([got], [dwant], [dwant32])
+        ref32 = shards(cache32)
+
+        kinds = [mixer for mixer, _ in cfg.layer_kinds()] * cfg.n_groups
+        groups = {}  # "mixer/leaf" -> that leaf's paths in every layer of the mixer
+        for p in states:
+            groups.setdefault(f"{kinds[p[1]]}/{p[-1]}", []).append(p)
+
+        def changes(new):  # each state's change over the steps, by mixer and leaf name
+            return {name: versus([new[p].float() - fill[p].float() for p in ps],
+                                 [want_new[p].float() - fill[p].float() for p in ps],
+                                 [ref32[p].float() - fill[p].float() for p in ps])
+                    for name, ps in groups.items()}
+
+        out["decode"]["states"] = changes(mine_new)
+        if bad_held is not None:
+            out["planted"]["states"] = changes(bad_held)
+    del whole, cache, cache32, got, dwant, dwant32, fill, bad_held
+    torch.cuda.empty_cache()
+    out["job_s"] = time.perf_counter() - t_job
+    return out
+
+
+def recurrent_tp_jobs(dev) -> list:
+    """Step 18 f and g's jobs: Jamba-1.5-Large cut to
+    ``RECURRENT_JAMBA_LAYERS`` (an attention and a Mamba member, each with
+    the dense MLP) with the planted unpaired ``w_in``, and xLSTM-1.3B cut
+    to ``RECURRENT_XLSTM_LAYERS`` with the planted sLSTM on its own ``h``;
+    tokens from the seed."""
+    import torch
+
+    from repro_torch.configs import get_config
+
+    jamba = dataclasses.replace(get_config("jamba-1.5-large-398b"),
+                                n_layers=RECURRENT_JAMBA_LAYERS, attn_period=2, moe=None)
+    xlstm = dataclasses.replace(get_config("xlstm-1.3b"), n_layers=RECURRENT_XLSTM_LAYERS)
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+
+    def draw(vocab, shape):
+        return torch.randint(1, vocab, shape, device=dev, generator=gen).cpu().numpy()
+
+    return [{"part": part, "cfg": cfg, "batch": {"tokens": draw(cfg.vocab, tokens)},
+             "decode_tokens": draw(cfg.vocab, (RECURRENT_DECODE_STEPS, RECURRENT_DECODE_ROWS)),
+             "planted": {"f": "unpaired_w_in", "g": "slstm_own_h"}[part]}
+            for part, cfg, tokens in (("f", jamba, RECURRENT_JAMBA_TOKENS),
+                                      ("g", xlstm, RECURRENT_XLSTM_TOKENS))]
+
+
+def recurrent_tp_runs(ranks, cfgs, mesh_shape) -> tuple[list, int]:
+    """Step 18 f and g's records from the ranks' ``_recurrent_tp_job``
+    results (``ranks``: per rank, {part: record}; ``cfgs``: {part: config}),
+    each check required on every rank: the TP prefill's and decode's
+    logits and the change of the rank's shard of each recurrent state (by
+    mixer and leaf name) no farther from the float32 control than
+    ``RECURRENT_CONTROL_FACTOR`` times the whole leaves' bf16 ones are,
+    and within the model path's max |Δ| of the whole leaves'; each planted
+    fault outside that: the unpaired ``w_in`` in the prefill's logits, the
+    sLSTM on its own ``h`` in a state of the decode; K4
+    one ``wgmma`` launch a rank in Jamba's TP prefill, none in xLSTM's;
+    the attention block's untouched positions the same bits. Returns (the
+    records, K4's launches)."""
+    runs, k4_launches = [], 0
+    keys = ("max_abs_err", "rel_rms", "vs_f32_rel_rms", "whole_vs_f32_rel_rms")
+    for part, cfg in cfgs.items():
+        recs = [r[part] for r in ranks]
+        n_attn = sum(1 for mixer, _ in cfg.layer_kinds() * cfg.n_groups if mixer == "attn")
+        want_k4 = {"launches": n_attn, "bodies": {"mma_sync": 0, "wgmma": n_attn}}
+
+        def within(vs):
+            return (vs["vs_f32_rel_rms"] <= RECURRENT_CONTROL_FACTOR * vs["whole_vs_f32_rel_rms"]
+                    and vs["max_abs_err"] <= LOGIT_MAX_ABS)
+
+        def worst_state(states):
+            """The state farthest from float32 against the whole leaves' own
+            distance, with its name."""
+            name = max(states, key=lambda k: states[k]["vs_f32_rel_rms"]
+                       / max(states[k]["whole_vs_f32_rel_rms"], 1e-30))
+            return dict(states[name], state=name)
+
+        for r, rec in enumerate(recs):
+            pf, dec = rec["prefill"], rec["decode"]
+            require(pf["k4"] == want_k4, f"step 18 {part}, rank {r}: K4 launched {pf['k4']}, "
+                                         f"expected {want_k4}")
+            for key, vs, finite in (("prefill", pf["vs"], pf["finite"]),
+                                    ("decode", dec["vs"], dec["finite"]),
+                                    *((f"state {k}", v, True) for k, v in dec["states"].items())):
+                require(finite and within(vs), f"step 18 {part}, rank {r}: the TP {key} against "
+                                               f"whole leaves and float32: {vs}")
+            require(dec["shapes_are_shards"], f"step 18 {part}, rank {r}: a state is not at its "
+                                              "cache_specs shard")
+            blk = dec["attention_block"]
+            require(blk is None or (blk["untouched_same_bits"]
+                                    and blk["written_max_abs"] <= LOGIT_MAX_ABS),
+                    f"step 18 {part}, rank {r}: its attention block off the whole cache's: {blk}")
+            bad = rec["planted"]
+            caught = (any(not within(v) for v in bad["states"].values()) if "states" in bad
+                      else not within(bad["prefill"]))
+            require(caught, f"step 18 {part}, rank {r}: the planted {bad['name']} passes the "
+                            f"check: {bad}")
+        k4_launches += sum(rec["prefill"]["k4"]["launches"] for rec in recs)
+        tokens = sum(rec["rows"][0] * rec["rows"][1] for rec in recs) // mesh_shape[1]
+        tp_ms = statistics.median(max(rec["prefill"]["ms"][i] for rec in recs)
+                                  for i in range(PREFILL_TP_REPS))
+        whole_ms = statistics.median(max(rec["prefill"]["whole_ms"][i] for rec in recs)
+                                     for i in range(PREFILL_TP_REPS))
+        step_ms = [max(rec["decode"]["ms"][i] for rec in recs)
+                   for i in range(RECURRENT_DECODE_STEPS)]
+        whole_step = [max(rec["decode"]["whole_ms"][i] for rec in recs)
+                      for i in range(RECURRENT_DECODE_STEPS)]
+
+        def worst(get):
+            return {k: max(get(rec)[k] for rec in recs) for k in keys}
+
+        planted = {"name": recs[0]["planted"]["name"]}
+        if "prefill" in recs[0]["planted"]:
+            planted["prefill"] = worst(lambda rec: rec["planted"]["prefill"])
+        if "states" in recs[0]["planted"]:
+            planted["worst_state"] = [worst_state(rec["planted"]["states"]) for rec in recs]
+        runs.append({
+            "run": f"recurrent_tp {part}", "model": f"{cfg.name}, {cfg.n_layers} layers, bf16",
+            "mesh": list(mesh_shape), "rows_a_rank": recs[0]["rows"],
+            "k4_per_rank": recs[0]["prefill"]["k4"], "control_factor": RECURRENT_CONTROL_FACTOR,
+            "prefill": {"ms": tp_ms, "tokens_per_s": tokens / tp_ms * 1e3,
+                        "whole_leaves_ms": whole_ms,
+                        "whole_leaves_tokens_per_s": tokens / whole_ms * 1e3,
+                        "carrier_a_rank": recs[0]["prefill"]["carrier"],
+                        "vs": worst(lambda rec: rec["prefill"]["vs"]),
+                        "peak_gib_a_rank": max(rec["prefill"]["peak_gib"] for rec in recs)},
+            "decode": {"steps": RECURRENT_DECODE_STEPS, "rows": RECURRENT_DECODE_ROWS,
+                       "ms_a_step": statistics.median(step_ms[1:]), "first_step_ms": step_ms[0],
+                       "whole_ms_a_step": statistics.median(whole_step[1:]),
+                       "carrier_a_step_a_rank": recs[0]["decode"]["carrier_a_step"],
+                       "vs": worst(lambda rec: rec["decode"]["vs"]),
+                       "state_leaves": recs[0]["decode"]["state_leaves"],
+                       "worst_state": [worst_state(rec["decode"]["states"]) for rec in recs],
+                       "attention_blocks": [rec["decode"]["attention_block"] for rec in recs]},
+            "planted": planted,
+            "job_s": max(rec["job_s"] for rec in recs)})
+        emit(runs[-1])
+    return runs, k4_launches
 
 
 def _train_sharded_job(rank, mesh, job, seed):
@@ -3589,13 +4004,14 @@ def train_sharded_phase(dev, counters):
     data_e = {"tokens": torch.randint(
         1, full.vocab, (DECODE_STEPS, DECODE_ROWS), device=dev,
         generator=torch.Generator(device=dev).manual_seed(SEED)).cpu().numpy()}
+    recurrent = recurrent_tp_jobs(dev)
     ranks, free_ab, ranks_s = run_ranks(
         [job("a", cfg32, opt_cfg, {"fsdp": True}, data_a, want=want_state),
          job("a_compress", cfg32, opt_cfg, {"fsdp": True}, data_a, want=want_compress,
              compress=True),
          job("b", full, opt_cfg, {"fsdp": True}, data_b, steps=TRAIN_SHARDED_STEPS),
          job("d", full, opt_cfg, {}, data_b),
-         job("e", full, opt_cfg, {}, data_e)], mesh_ab)
+         job("e", full, opt_cfg, {}, data_e), *recurrent], mesh_ab)
 
     got = ranks[0]["a"]["modes"]["xla"]["metrics"][0]
     errs = ranks[0]["a"]["leaf_rel_err"]
@@ -3779,6 +4195,11 @@ def train_sharded_phase(dev, counters):
                  "planted_no_rescale": [rec["planted_no_rescale"] for rec in e],
                  "planted_every_rank_writes": [rec["planted_every_rank_writes"] for rec in e]})
     emit(runs[-1])
+
+    # f, g) the recurrent mixers under tensor parallelism, in b's ranks
+    recurrent_runs, f_k4 = recurrent_tp_runs(ranks, {j["part"]: j["cfg"] for j in recurrent},
+                                             mesh_ab)
+    runs.extend(recurrent_runs)
     del want_state, want_compress
     torch.cuda.ipc_collect()
     torch.cuda.empty_cache()
@@ -3896,7 +4317,7 @@ def train_sharded_phase(dev, counters):
     emit(runs[-1])
     torch.cuda.empty_cache()
     print(f"train_sharded: phase_s {time.perf_counter() - t_phase:.1f}", flush=True)
-    return runs, k4_launches
+    return runs, {"d": k4_launches, "f": f_k4}
 
 
 def serve_with_reuse(kit, cfg, params, dev, what):
@@ -4174,6 +4595,7 @@ def xlstm_phase(dev, kit):
     import torch
 
     from repro_torch.configs import get_config
+    from repro_torch.dist import collectives as CL
     from repro_torch.models import layers as L
     from repro_torch.models import model as M
     from repro_torch.models import transformer as T
@@ -4190,7 +4612,9 @@ def xlstm_phase(dev, kit):
     # from it printed beside
     layer = XL.mlstm_init(gen, cfg, torch.bfloat16, dev)
     x = torch.randn(B, S, cfg.d_model, generator=gen, device=dev).bfloat16()
-    heads = XL._mlstm_heads(layer, (x @ layer["w_up"]).chunk(2, dim=-1)[0], cfg)
+    dp = layer["w_if"].shape[0]
+    heads = XL._mlstm_heads(layer, (x @ layer["w_up"]).chunk(2, dim=-1)[0], (0, cfg.n_heads),
+                            (0, dp // cfg.n_heads), (0, dp), CL.TensorParallel.one_process())
     chunk = 256  # mlstm_train's
     got = XL.mlstm_chunked_inner(*heads, chunk)
     want = XL.mlstm_parallel_inner(*(h.double() for h in heads))
@@ -4306,13 +4730,16 @@ def xlstm_phase(dev, kit):
 
 @contextlib.contextmanager
 def patched(module, name, value):
-    """``module.name`` set to ``value`` inside the block."""
-    old = getattr(module, name)
-    setattr(module, name, value)
+    """``module.name`` (or a dict's entry ``name``) set to ``value`` inside
+    the block."""
+    get, put = ((dict.__getitem__, dict.__setitem__) if isinstance(module, dict)
+                else (getattr, setattr))
+    old = get(module, name)
+    put(module, name, value)
     try:
         yield
     finally:
-        setattr(module, name, old)
+        put(module, name, old)
 
 
 def unwritten_save(ckpt_dir, step, tree, **kwargs) -> str:
@@ -5840,12 +6267,14 @@ def main() -> None:
 
     # ------- 18. the sharded training step, 4 and 8 ranks on the card, no kernel
     t18 = time.perf_counter()
-    sharded_runs, d_k4 = train_sharded_phase(dev, all_counters + (cf.ring_put, cf.ring_signal,
-                                                                  cf.ring_wait_add))
+    sharded_runs, tp_k4 = train_sharded_phase(dev, all_counters + (cf.ring_put, cf.ring_signal,
+                                                                   cf.ring_wait_add))
     runs.extend(sharded_runs)
-    k4_rec["launches"] += d_k4
-    k4_rec["launches_by_path"]["tinyllama-1.1b TP prefill (step 18 d), all ranks"] = d_k4
-    k4_rec["body_launches"]["wgmma"] += d_k4
+    for part, path in (("d", "tinyllama-1.1b TP prefill (step 18 d), all ranks"),
+                       ("f", "jamba-1.5-large-398b TP prefill (step 18 f), all ranks")):
+        k4_rec["launches"] += tp_k4[part]
+        k4_rec["launches_by_path"][path] = tp_k4[part]
+        k4_rec["body_launches"]["wgmma"] += tp_k4[part]
     if time.perf_counter() - t18 > TRAIN_SHARDED_PHASE_S:
         print(f"train_sharded: the phase took {time.perf_counter() - t18:.0f} s, past its "
               f"{TRAIN_SHARDED_PHASE_S} s", flush=True)

@@ -58,7 +58,12 @@ compute the VJP of the forward's at that wave's arrivals.
 
 ``TensorParallel`` is the tensor axis as the dense layers compute on it;
 ``lse_combine`` joins the ranks' partial attentions over their blocks of
-a sequence-sharded cache by their log-sum-exp (the decode's split-KV).
+a sequence-sharded cache by their log-sum-exp (the decode's split-KV);
+``fetch_columns`` gives each rank the columns it wants of a last dim cut
+contiguously over the axis, one all-to-all whose backward is the reverse
+one: its channels of every part of a leaf whose parts lie side by side
+(``part_wants``: Mamba's ``[x | z]``, the sLSTM's ``[i | f | z | o]``),
+or the mLSTM's ``[x | gate]`` columns of the heads it computes.
 """
 
 from __future__ import annotations
@@ -438,6 +443,82 @@ def seq_scatter_sum(x: torch.Tensor, dim: int, group, mesh=None) -> torch.Tensor
                              lambda g: _gather_along(g, dim, group), mesh)
 
 
+def part_wants(parts: int, whole: int, n: int) -> tuple:
+    """What each of ``n`` ranks wants of a last dim of ``whole`` columns
+    made of ``parts`` equal parts side by side (Mamba's ``[x | z]``, the
+    sLSTM's ``[i | f | z | o]``) for ``fetch_columns``: rank r its channel
+    block r of every part, ``[part 0's block r | part 1's block r | …]``."""
+    if whole % parts or (whole // parts) % n:
+        raise ValueError(f"{parts} parts of {whole} columns do not split over the tensor axis "
+                         f"({n})")
+    W, w = whole // parts, whole // parts // n
+    return tuple(tuple((p * W + r * w, p * W + (r + 1) * w) for p in range(parts))
+                 for r in range(n))
+
+
+@functools.lru_cache(maxsize=None)
+def fetch_plan(wants: tuple, whole: int, r: int):
+    """The exchange ``fetch_columns`` runs on rank ``r``: a last dim of
+    ``whole`` columns cut into ``len(wants)`` equal blocks, block j on rank
+    j, rank j wanting the ascending, disjoint [start, stop) ranges
+    ``wants[j]``. Returns (order, send, recv): the rank's columns in the
+    order they leave (by the rank they go to, each run ascending; a column
+    several ranks want leaves once for each), how many go to each rank,
+    how many come from each."""
+    n = len(wants)
+    blk = whole // n
+    lo, hi = r * blk, (r + 1) * blk
+
+    def cut(ranges, a, b):
+        return [c for start, stop in ranges for c in range(max(start, a), min(stop, b))]
+
+    runs = [cut(want, lo, hi) for want in wants]
+    order = tuple(c - lo for run in runs for c in run)
+    recv = tuple(len(cut(wants[r], j * blk, (j + 1) * blk)) for j in range(n))
+    return order, tuple(map(len, runs)), recv
+
+
+@functools.lru_cache(maxsize=None)
+def _plan_index(wants: tuple, whole: int, r: int, device) -> torch.Tensor:
+    """``fetch_plan``'s order as an index tensor on ``device``, made once."""
+    return torch.tensor(fetch_plan(wants, whole, r)[0], dtype=torch.long, device=device)
+
+
+def _exchange_cols(x: torch.Tensor, send, recv, group) -> torch.Tensor:
+    """An all-to-all along the last dim: ``send[j]`` columns to rank j (in
+    order), ``recv[j]`` from rank j, concatenated in rank order."""
+    rows = x.movedim(-1, 0).contiguous()
+    out = rows.new_empty((sum(recv), *rows.shape[1:]))
+    dist.all_to_all_single(out, rows, list(recv), list(send), group=group)
+    return out.movedim(0, -1)
+
+
+def fetch_columns(x: torch.Tensor, wants: tuple, group, mesh=None) -> torch.Tensor:
+    """The columns this rank wants (``wants[rank]``, in ascending order) of a
+    last dim cut contiguously over the group, from its stored block ``x``
+    (..., whole / n): one all-to-all (``fetch_plan``). Its backward, the
+    SPMD transpose, is the reverse all-to-all of the cotangents, each
+    added into the column it came from (a column that several ranks
+    fetched gets the sum of their cotangents). With a ``mesh``, on its
+    carrier."""
+    n, r = dist.get_world_size(group), dist.get_rank(group)
+    if n == 1:
+        return x
+    whole = x.shape[-1] * n
+    _, send, recv = fetch_plan(wants, whole, r)
+
+    def forward(t):
+        return _exchange_cols(t.index_select(-1, _plan_index(wants, whole, r, t.device)),
+                              send, recv, group)
+
+    def backward(g):
+        back = _exchange_cols(g, recv, send, group)
+        idx = _plan_index(wants, whole, r, back.device)
+        return back.new_zeros((*back.shape[:-1], whole // n)).index_add_(-1, idx, back)
+
+    return _Collective.apply(x, forward, backward, mesh)
+
+
 def all_max(x: torch.Tensor, group, mesh=None) -> torch.Tensor:
     """The elementwise maximum over the group, outside autograd (a shift
     that cancels, as a log-sum-exp's max). With a ``mesh``, on its carrier."""
@@ -453,8 +534,9 @@ def all_max(x: torch.Tensor, group, mesh=None) -> torch.Tensor:
 
 
 class TensorParallel:
-    """The tensor axis of the active mesh as the dense layers compute on
-    it (``tensor_parallel``): its size, this rank's coordinate, its group
+    """The tensor axis of the active mesh as the dense layers and the
+    mixers compute on it (``tensor_parallel``): its size, this rank's
+    coordinate, its group
     (made when first asked for), the mesh whose carrier the collectives
     travel on, and whether the residual stream is cut along the sequence
     between blocks (``ShardRules.seq_parallel``). ``col_in`` and
@@ -476,6 +558,16 @@ class TensorParallel:
         self.size = mesh.sizes[self.axis]
         self.coord = mesh.coords[self.axis]
         self.seq_parallel = bool(rules.seq_parallel)
+
+    @classmethod
+    def one_process(cls) -> "TensorParallel":
+        """The axis of one process, size 1: every collective the identity,
+        every leaf whole. The recurrent mixers run their one body on it
+        where no axis is given."""
+        tp = cls.__new__(cls)
+        tp.rules = tp.mesh = tp.axis = None
+        tp.size, tp.coord, tp.seq_parallel = 1, 0, False
+        return tp
 
     @property
     def group(self):
@@ -522,6 +614,21 @@ class TensorParallel:
         if self.size == 1:
             return w
         return all_gather(w.t(), self.group, mesh=self.mesh).t()
+
+    def own_parts(self, x, parts: int):
+        """The rank's channels of every one of ``parts`` equal parts from its
+        stored block of a last dim cut contiguously over the axis
+        (``part_wants``): a ``[x | z]`` leaf's rank r < m/2 holds only x
+        columns, its rank r ≥ m/2 only z columns."""
+        if self.size == 1:
+            return x
+        return self.fetch(x, part_wants(parts, x.shape[-1] * self.size, self.size))
+
+    def fetch(self, x, wants: tuple):
+        """The columns this rank wants, ``wants[coord]``, from its stored
+        block of a last dim cut contiguously over the axis
+        (``fetch_columns``)."""
+        return x if self.size == 1 else fetch_columns(x, wants, self.group, self.mesh)
 
     def max(self, x):
         return all_max(x, self.group, self.mesh) if self.size > 1 else x.detach()

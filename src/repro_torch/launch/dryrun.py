@@ -17,17 +17,17 @@ and dtypes, no storage), so no card and no host holds the mesh. The code
 that runs is the port's: ``train.train_step.make_sharded_train_step``
 with the reference's settings (remat on, the arch's microbatches), and
 for prefill each parameter gathered to its compute spec as the sharded
-step gathers it (``models.compute_specs``: the attention, the dense MLP,
-the embedding and the unembedding stay cut on the model axis, the rank
-computing its heads and its vocabulary slice), then
-``models.forward_train`` (last-token logits of the rank's vocabulary
-slice, K4 on); for decode the parameters gathered to the same compute
-specs, then the tensor-parallel ``models.decode_step`` at ``pos =
-seq_len - 1`` on the rank's shard of each attention cache (its rows and
-its block of the sequence, never gathered: split-KV attention joined by
-log-sum-exp), each Mamba, mLSTM or sLSTM state gathered over the axes
-other than the batch axes for its mixer, which runs whole, and cut back
-after the step. ``--seq-parallel`` cuts the residual stream along the
+step gathers it (``models.compute_specs``: the mixers (attention, Mamba,
+mLSTM, sLSTM), the dense MLP, the embedding and the unembedding stay cut
+on the model axis, the rank computing its heads, its channels and its
+vocabulary slice), then ``models.forward_train`` (last-token logits of
+the rank's vocabulary slice, K4 on); for decode the parameters gathered
+to the same compute specs, then the tensor-parallel
+``models.decode_step`` at ``pos = seq_len - 1`` on the rank's shard of
+every cache leaf, never gathered: each attention cache its rows and its
+block of the sequence (split-KV attention joined by log-sum-exp), each
+Mamba, mLSTM or sLSTM state its rows and its block of the inner or
+feature dim. ``--seq-parallel`` cuts the residual stream along the
 sequence between blocks in the train and prefill cells; the decode does
 not read it.
 
@@ -85,7 +85,6 @@ from repro_torch.dist import sharding as SH
 from repro_torch.kernels.flash_attention.flash_attention import flash_attention
 from repro_torch.launch.mesh import make_mesh, make_rules, production_layout
 from repro_torch.models import model as M
-from repro_torch.models import transformer as T
 from repro_torch.models.moe import EXPERT_FF_DIM
 from repro_torch.train import optimizer as O
 from repro_torch.train import train_step as TS
@@ -353,26 +352,12 @@ def trace_prefill(cfg, shape, rules) -> Trace:
     return Trace(leaves, make, run)
 
 
-def _state_keep(spec, rules) -> tuple:
-    """A recurrent state's compute spec: its batch-axes entries kept, the
-    rest whole."""
-    batch = set(SH.spec_axes(rules.batch_axes))
-    return tuple(e if e is not None and set(SH.spec_axes(e)) <= batch else None for e in spec)
-
-
-def _recurrent_state(path, cfg) -> bool:
-    """Whether the decode state at ``path`` (of ``init_cache``' tree) is a
-    Mamba, mLSTM or sLSTM member's, whose mixer runs on whole leaves."""
-    return path[0] == "stack" and T.layer_kinds(cfg)[path[1]][0] in T.RECURRENT
-
-
 def trace_decode(cfg, shape, rules) -> Trace:
     """The tensor-parallel ``decode_step`` at ``pos = seq_len - 1`` on the
     rank's rows: the parameters gathered to their compute specs, each
-    attention cache leaf the rank's shard as held (never gathered), each
-    recurrent state gathered over the axes other than the batch axes and
-    cut back to the rank's shard after. A batch that the data axis (16)
-    does not divide is replicated, as in the reference."""
+    cache leaf (attention cache or recurrent state) the rank's shard as
+    held, never gathered. A batch that the data axis (16) does not divide
+    is replicated, as in the reference."""
     pspecs = M.param_specs(cfg, rules)
     cspecs = M.cache_specs(cfg, rules, shape.seq_len >= 262144)
     batch_ax = rules.batch_axes
@@ -399,21 +384,7 @@ def trace_decode(cfg, shape, rules) -> Trace:
         with torch.no_grad():
             cut = cfg.moe is None or _experts_cut(cfg, act_rules, _rows(b))
             tree = _gathered(cfg, params, pspecs, like, act_rules, mesh, cut)
-            states = {path: _state_keep(O.get(cspecs, path), act_rules)
-                      for path, _ in O.flatten(cache) if _recurrent_state(path, cfg)}
-            given = O.unflatten(cache, [
-                TS._regather(t, O.get(cspecs, path), states[path], O.get(cache, path), mesh)
-                if path in states else t for path, t in O.flatten(held)])
-            logits, new = M.decode_step(tree, given, b, shape.seq_len - 1, cfg)
-            back = []
-            for path, t in O.flatten(new):
-                if path in states:
-                    whole, spec = O.get(cache, path), O.get(cspecs, path)
-                    outer = SH.held_slices(states[path], whole.shape, mesh.coords, mesh.sizes)
-                    inner = SH.held_slices(spec, whole.shape, mesh.coords, mesh.sizes)
-                    t = t[TS._subslice(outer, inner)].contiguous()
-                back.append(t)
-            return logits, O.unflatten(cache, back)
+            return M.decode_step(tree, held, b, shape.seq_len - 1, cfg)
 
     return Trace(leaves, make, run)
 

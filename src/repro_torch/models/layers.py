@@ -37,11 +37,20 @@ def rmsnorm_init(d, dtype, device):
     return {"scale": torch.ones((d,), dtype=dtype, device=device)}
 
 
-def rmsnorm(params, x, eps=1e-5):
+def rmsnorm(params, x, eps=1e-5, tp=None):
+    """With ``tp`` (of size > 1) ``x`` is the rank's block of a last dim cut
+    evenly over the tensor axis: the mean square from the float32 sum of
+    squares summed over the axis, the scale's block."""
     xf = x.float()
-    var = (xf * xf).mean(-1, keepdim=True)
+    scale = params["scale"]
+    if tp is None or tp.size == 1:
+        var = (xf * xf).mean(-1, keepdim=True)
+    else:
+        w = x.shape[-1]
+        var = tp.sum((xf * xf).sum(-1, keepdim=True)) / (w * tp.size)
+        scale = scale[tp.coord * w:(tp.coord + 1) * w]
     y = xf * torch.rsqrt(var + eps)
-    return (y * params["scale"].float()).to(x.dtype)
+    return (y * scale.float()).to(x.dtype)
 
 
 def layernorm_init(d, dtype, device, elementwise=True):

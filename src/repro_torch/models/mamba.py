@@ -22,6 +22,23 @@ The discretisation ``exp(dt·A)`` and ``dt·x·B`` is computed in float32 and
 package. The mixer runs under the profiler label ``mixer.mamba``, its scan
 under ``mamba.scan``. ``mamba_specs`` gives each parameter's sharding
 spec as a plain tuple.
+
+Under the tensor axis (``tp``: the train and decode paths under active
+rules) the mixer runs on the rank's leaves as ``mamba_specs`` cuts them,
+on channel block c of di (di / m channels at coordinate c of m), the
+block the decode states are cut to (``conv`` (b, None, t), ``ssm``
+(b, t, None)). ``w_in`` (d, 2·di) is ``[x | z]`` cut contiguously over
+all its columns, so rank c < m/2 holds x columns only and rank c ≥ m/2 z
+columns only: the rank multiplies by its stored columns and one
+all-to-all of those activations (``TensorParallel.own_parts``, B·S·2·di/m
+values a rank each way) gives it the x and z of its own channels; no
+weight moves. ``conv_w``, ``conv_b``, ``w_dt``, ``dt_bias``, ``A_log``
+and ``D`` are per channel and local. ``w_bcdt`` is a row block: the
+(…, 2N + dt_rank) partial products are summed over the axis (float32).
+The scan runs unchanged on the rank's channels, with no collective
+inside; ``w_out`` is a row block, its partial leaving through
+``tp.row_out``. Without an axis the same body runs on
+``TensorParallel.one_process()``, where every collective is the identity.
 """
 
 from __future__ import annotations
@@ -32,6 +49,7 @@ import torch
 import torch.nn.functional as F
 from torch.autograd.profiler import record_function
 
+from repro_torch.dist.collectives import TensorParallel
 from repro_torch.models import layers as L
 
 #: Positions of one chunk, scanned step by step.
@@ -92,26 +110,46 @@ def _mm(a, w):
     return a.to(dt) @ w.to(dt)
 
 
-def _ssm_params(params, xc, m):
-    """xc: (..., di) conv output -> dt (..., di), B, C (..., d_state)."""
-    bcdt = _mm(xc, params["w_bcdt"])
+def _ssm_params(params, xc, m, tp):
+    """xc: (..., di) conv output -> dt (..., di), B, C (..., d_state). xc is
+    the rank's channels and ``w_bcdt`` its rows: the (..., 2N + dt_rank)
+    partial products are summed over the axis."""
+    bcdt = tp.sum(_mm(xc, params["w_bcdt"]))
     Bm, Cm, dt_in = torch.split(bcdt, [m.d_state, m.d_state, m.dt_rank], dim=-1)
     dt = F.softplus(_mm(dt_in, params["w_dt"]) + params["dt_bias"])
     return dt, Bm, Cm
 
 
-def scan_inputs(params, x, cfg):
+def expect_cuts(params, cfg, tp) -> None:
+    """Raise ``ValueError`` naming the first leaf that is not the rank's cut
+    on the tensor axis (``mamba_specs``)."""
+    di = cfg.mamba.expand * cfg.d_model
+    for name, dim, whole in (("w_in", 1, 2 * di), ("conv_w", 1, di), ("conv_b", 0, di),
+                             ("w_bcdt", 0, di), ("w_dt", 1, di), ("dt_bias", 0, di),
+                             ("A_log", 0, di), ("D", 0, di), ("w_out", 0, di)):
+        L.expect_cut(name, params[name], dim, whole, tp)
+
+
+def in_proj(params, x, tp):
+    """(xi, z) (..., di) of ``x @ w_in``: the rank's channels of each, from
+    its stored ``[x | z]`` columns (``TensorParallel.own_parts``)."""
+    return tp.own_parts(x @ params["w_in"], 2).chunk(2, dim=-1)
+
+
+def scan_inputs(params, x, cfg, tp=None):
     """The scan's inputs for x (B, S, d): the conv output ``xc`` and gate
     ``z`` (B, S, di), ``dt`` (B, S, di), ``Bm``, ``Cm`` (B, S, N) and
-    ``A`` (di, N) in float32."""
+    ``A`` (di, N) in float32. With ``tp`` on the rank's channel block
+    (module docstring): di is the rank's di / m."""
     m = cfg.mamba
     S = x.shape[1]
-    xi, z = (x @ params["w_in"]).chunk(2, dim=-1)  # (B, S, di)
+    tp = tp or TensorParallel.one_process()
+    xi, z = in_proj(params, x, tp)  # (B, S, di)
     # depthwise causal conv1d: a sum of d_conv shifted products
     pad = F.pad(xi, (0, 0, m.d_conv - 1, 0))
     xc = sum(pad[:, i:i + S, :] * params["conv_w"][i] for i in range(m.d_conv)) + params["conv_b"]
     xc = F.silu(xc)
-    dt, Bm, Cm = _ssm_params(params, xc, m)
+    dt, Bm, Cm = _ssm_params(params, xc, m, tp)
     A = -torch.exp(params["A_log"].float())
     return xc, z, dt, Bm, Cm, A
 
@@ -280,29 +318,40 @@ def _out(params, y, xc, z, dtype):
     return (y.to(dtype) * F.silu(z)) @ params["w_out"]
 
 
-def mamba_train(params, x, cfg):
-    """x: (B, S, d) -> (B, S, d). Chunked scan over S."""
+def mamba_train(params, x, cfg, tp=None):
+    """x: (B, S, d) -> (B, S, d). Chunked scan over S. With ``tp`` on the
+    rank's cut leaves and channel block, ``x`` entering through
+    ``tp.col_in`` and the partial output leaving through ``tp.row_out``."""
     with record_function("mixer.mamba"):
-        xc, z, dt, Bm, Cm, A = scan_inputs(params, x, cfg)
+        tp = tp or TensorParallel.one_process()
+        expect_cuts(params, cfg, tp)
+        x = tp.col_in(x)
+        xc, z, dt, Bm, Cm, A = scan_inputs(params, x, cfg, tp)
         with record_function("mamba.scan"):
             y = selective_scan(dt, xc, Bm, Cm, A)
-        return _out(params, y, xc, z, x.dtype)
+        out = _out(params, y, xc, z, x.dtype)
+        return tp.row_out(out)
 
 
-def mamba_decode(params, x, state, cfg):
+def mamba_decode(params, x, state, cfg, tp=None):
     """x: (B, 1, d); state: {'conv': (B, d_conv-1, di), 'ssm': (B, di, N)}.
-    Returns (out (B, 1, d), new state); the state is not changed in place."""
+    Returns (out (B, 1, d), new state); the state is not changed in place.
+    With ``tp`` the leaves are the rank's cut and the state its channel
+    block (``cache_specs``: (b, None, t) and (b, t, None)), never gathered;
+    the partial output is summed over the axis."""
     m = cfg.mamba
-    xi, z = (x[:, 0] @ params["w_in"]).chunk(2, dim=-1)  # (B, di)
+    tp = tp or TensorParallel.one_process()
+    expect_cuts(params, cfg, tp)
+    xi, z = in_proj(params, x[:, 0], tp)  # (B, di)
     conv = state["conv"]
     window = torch.cat([conv, xi[:, None].to(torch.promote_types(conv.dtype, xi.dtype))], dim=1)
     xc = F.silu((window * params["conv_w"][None]).sum(1) + params["conv_b"])
-    dt, Bm, Cm = _ssm_params(params, xc, m)
+    dt, Bm, Cm = _ssm_params(params, xc, m, tp)
     A = -torch.exp(params["A_log"].float())
     a, bx = _discretize(dt, xc, Bm, A)  # (B, di, N)
     h = a * state["ssm"].float() + bx
     y = (h * Cm.float()[:, None, :]).sum(-1)
-    out = _out(params, y, xc, z, x.dtype)[:, None]
+    out = tp.row_out(_out(params, y, xc, z, x.dtype))[:, None]
     return out, {"conv": window[:, 1:], "ssm": h.to(state["ssm"].dtype)}
 
 

@@ -18,16 +18,19 @@ leading entry, and each prefix layer's cache the stack's first member's.
 
 Under active rules (``dist.sharding.set_active``) the train path
 (``forward_train``, ``loss_fn``) is tensor-parallel on the mesh's tensor
-axis and takes the rank's compute leaves (``compute_specs``: the dense
-leaves cut as ``param_specs`` cuts them on that axis, everything else
-whole; ``local_params`` cuts a whole tree so, as views): the embedding
-looks up the rank's d-slice and gathers it, each block runs on the rank's
-heads and ff slice, and the logits come cut on the vocabulary, the cross
-entropy taking its max, its sum of exponentials and the target's logit
-over the axis (``softmax_xent``). ``whole_logits`` gathers them. The
-decode (``decode_step``) is tensor-parallel on the same compute leaves,
-each attention cache the rank's block of the sequence (``cache_specs``),
-and returns every vocabulary entry of the rank's rows.
+axis and takes the rank's compute leaves (``compute_specs``: the mixers',
+the FFNs', the embedding's and the unembedding's leaves cut as
+``param_specs`` cuts them on that axis, everything else whole;
+``local_params`` cuts a whole tree so, as views): the embedding looks up
+the rank's d-slice and gathers it, each block runs on the rank's heads,
+Mamba, mLSTM or sLSTM channels and ff slice, and the logits come cut on
+the vocabulary, the cross entropy taking its max, its sum of exponentials
+and the target's logit over the axis (``softmax_xent``). ``whole_logits``
+gathers them. The decode (``decode_step``) is tensor-parallel on the same
+compute leaves, each cache leaf the rank's ``cache_specs`` shard (an
+attention cache its block of the sequence, a recurrent state its block
+of the inner or feature dim), and returns every vocabulary entry of the
+rank's rows.
 """
 
 from __future__ import annotations
@@ -106,27 +109,19 @@ def param_specs(cfg: ModelConfig, rules):
     return s
 
 
-def _member_cut(path, cfg) -> bool:
+def _member_cut(path) -> bool:
     """Whether the leaf at ``path`` (of ``init_params``' tree) is computed
-    cut on the tensor axis: the attention of an attention member, its
-    dense MLP or a MoE layer's shared expert and expert stacks, the
-    embedding table and the unembedding. The rest (norms, the router, the
-    Mamba, mLSTM and sLSTM mixers, MLA's ``wq_a`` and ``wkv_a``, the MTP
-    projection) is computed whole."""
+    cut on the tensor axis: a member's mixer (attention, Mamba, mLSTM or
+    sLSTM) and FFN (the dense MLP, a MoE layer's shared expert and expert
+    stacks) in the stack, the dense prefix and the MTP block, the
+    embedding table and the unembedding, each as far as its spec cuts it
+    (norms, the router, MLA's ``wq_a`` and ``wkv_a``, the mLSTM's
+    block-diagonal ``wq``, ``wk``, ``wv`` are whole in their specs). The
+    rest (the final norm, the MTP projection and norm) is computed whole."""
     if path[0] in ("embed", "unembed"):
         return True
-    if path[0] == "stack":
-        mixer, _ = T.layer_kinds(cfg)[path[1]]
-        at = 2
-    elif path[0] == "prefix":
-        mixer, at = "attn", 2
-    elif path[0] == "mtp" and path[1] == "block":
-        mixer, at = "attn", 2
-    else:
-        return False
-    if path[at] == "mixer":
-        return mixer == "attn"
-    return path[at] == "ffn"
+    member = path[0] in ("stack", "prefix") or path[:2] == ("mtp", "block")
+    return member and path[2] in ("mixer", "ffn")
 
 
 def compute_specs(cfg: ModelConfig, rules):
@@ -138,7 +133,7 @@ def compute_specs(cfg: ModelConfig, rules):
     from repro_torch.train import optimizer as O  # the tree helpers; train imports models
 
     def keep(path, spec):
-        if not _member_cut(path, cfg):
+        if not _member_cut(path):
             return tuple(None for _ in spec)
         return tuple(e if e == rules.tensor_axis else None for e in spec)
 
@@ -313,12 +308,12 @@ def decode_step(params, cache, batch, position, cfg: ModelConfig):
     ``decode_step_staged`` with every MoE boundary answered inline.
 
     Under active rules the parameters are the rank's compute leaves
-    (``local_params``; a whole dense leaf raises ``ValueError``), the batch
-    the rank's rows, each attention cache leaf the rank's block of
-    ``cache_specs`` (its rows and its block of the sequence: never
-    gathered) and each recurrent state whole (its mixer runs on whole
-    leaves); the logits are the rank's rows, every vocabulary entry (the
-    reference's out-sharding).
+    (``local_params``; a whole leaf where a cut one is due raises
+    ``ValueError``), the batch the rank's rows, and each cache leaf the
+    rank's block of ``cache_specs``, never gathered: an attention cache its
+    rows and its block of the sequence, a Mamba, mLSTM or sLSTM state its
+    rows and its block of the inner or feature dim; the logits are the
+    rank's rows, every vocabulary entry (the reference's out-sharding).
     """
     return T.serve_inline(decode_step_staged(params, cache, batch, position, cfg), cfg)
 

@@ -21,11 +21,13 @@ tensor-parallel path on this rank's data shard; its load-balance loss is
 summed over the stack in train form and dropped in decode form, as in the
 JAX package. An attention member's decode writes its KV cache in place; a
 recurrent member's returns a new state. Under active rules the train form
-is tensor-parallel on the rank's cut dense leaves, with the reference's
+is tensor-parallel on the rank's cut leaves (every mixer, attention,
+Mamba, mLSTM or sLSTM, and the dense FFNs), with the reference's
 ``seq_parallel`` (``member_train``); so is the decode form
 (``decode_tp``: the identity in and the sum out, whatever
 ``seq_parallel`` says), each attention cache the rank's block of the
-sequence, the recurrent mixers on whole leaves and whole states.
+sequence and each recurrent state the rank's block of its inner or
+feature dim (``stack_cache_specs``), never gathered.
 
 The sharding specs (``member_specs``, ``stack_specs``,
 ``stack_cache_specs``) follow the port's trees: one spec dict per layer,
@@ -132,9 +134,9 @@ def _ffn(params, h2, cfg, ffn, tp=None):
 
 
 def _whole(fn, h, tp):
-    """``fn`` (a mixer or FFN computed on whole leaves in this slice) on the
-    rank's rows: under ``seq_parallel`` on the gathered sequence, and its
-    output cut back to the rank's block."""
+    """``fn`` (the routed experts, which take their own EP or TP path) on
+    the rank's rows: under ``seq_parallel`` on the gathered sequence, and
+    its output cut back to the rank's block."""
     if tp is None or not tp.seq_parallel:
         return fn(h)
     out = fn(tp.gather_seq(h))
@@ -147,22 +149,22 @@ def member_train(params, x, cfg, mixer, ffn, positions, mrope_positions, use_ker
     """-> (x, aux): aux is the MoE load-balance loss, a float32 zero for
     any other FFN.
 
-    Under active rules (``dist.collectives.tensor_parallel``) the
-    attention (GQA or MLA), the dense MLP and a MoE layer's shared expert
-    run on the rank's leaves cut on the tensor axis (their specs' cuts; a
-    whole leaf raises ``ValueError`` naming it), their partial outputs
-    summed over the axis; Mamba, mLSTM and sLSTM run on whole leaves, and
-    the MoE layer's experts take the EP or TP path. With
-    ``seq_parallel`` the residual ``x`` is the rank's (B, S / m, d) block of
-    the sequence: each norm runs on the block, the sequence is gathered
-    before the mixer and the FFN, and their output reduce-scattered back to
-    the block (a module on whole leaves: its output cut to the block)."""
+    Under active rules (``dist.collectives.tensor_parallel``) the mixer
+    (GQA, MLA, Mamba, mLSTM or sLSTM), the dense MLP and a MoE layer's
+    shared expert run on the rank's leaves cut on the tensor axis (their
+    specs' cuts; a whole leaf raises ``ValueError`` naming it), their
+    partial outputs summed over the axis, and the MoE layer's experts take
+    the EP or TP path. With ``seq_parallel`` the residual ``x`` is the
+    rank's (B, S / m, d) block of the sequence: each norm runs on the
+    block, the sequence is gathered before the mixer and the FFN, and
+    their output reduce-scattered back to the block (the routed experts,
+    on whole rows: their output cut to the block)."""
     _check_kinds(mixer, ffn)
     tp = CL.tensor_parallel()
     norm = _norm(cfg)
     h = norm(params["norm1"], x)
     if mixer in RECURRENT:
-        x = x + _whole(lambda h: _RECURRENT[mixer][1](params["mixer"], h, cfg), h, tp)
+        x = x + _RECURRENT[mixer][1](params["mixer"], h, cfg, tp=tp)
     elif cfg.attention == "mla":
         x = x + A.mla_train(params["mixer"], h, cfg, positions, use_kernel=use_kernel, tp=tp)
     else:
@@ -187,14 +189,15 @@ def decode_tp():
 def member_decode_mixer(params, x, cache, cfg, mixer, position, mrope_positions):
     """The mixer half of one decode member: pre-norm mixer + residual.
     Returns (x, cache) — the FFN half (if any) applies on top. Under active
-    rules (``decode_tp``) an attention mixer runs on the rank's cut leaves
-    and its block of the sequence of the cache (``attention``'s module
-    docstring); a Mamba, mLSTM or sLSTM mixer on whole leaves and a whole
-    state."""
+    rules (``decode_tp``) the mixer runs on the rank's cut leaves: an
+    attention mixer on its block of the sequence of the cache
+    (``attention``'s module docstring), a Mamba, mLSTM or sLSTM mixer on
+    the rank's shard of its state (``stack_cache_specs``; ``mamba`` and
+    ``xlstm``'s module docstrings)."""
     _check_kinds(mixer, "none")
     h = _norm(cfg)(params["norm1"], x)
     if mixer in RECURRENT:
-        mx, cache = _RECURRENT[mixer][2](params["mixer"], h, cache, cfg)
+        mx, cache = _RECURRENT[mixer][2](params["mixer"], h, cache, cfg, tp=decode_tp())
     elif cfg.attention == "mla":
         mx, cache = A.mla_decode(params["mixer"], h, cache, cfg, position, tp=decode_tp())
     else:

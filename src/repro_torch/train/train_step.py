@@ -42,12 +42,12 @@ The design is simple and right first:
 * compute gathers every leaf over the batch axes at the top of the step
   (all-gathers, and a broadcast from a layer's holder), to its compute
   spec (``models.compute_specs``): the leaves the train path computes
-  tensor-parallel (the attention, the dense MLP, a MoE layer's shared
-  expert, the embedding and the unembedding) and the MoE expert stacks
-  keep their cut on the model axis, the rest (norms, routers, the Mamba,
-  mLSTM and sLSTM mixers) is gathered whole; each rank runs
+  tensor-parallel (the attention, Mamba, mLSTM and sLSTM mixers, the
+  dense MLP, a MoE layer's shared expert, the embedding and the
+  unembedding) and the MoE expert stacks keep their cut on the model
+  axis, the rest (norms, routers) is gathered whole; each rank runs
   ``models.loss_fn`` (remat as in one process) on its batch rows, on its
-  heads and ff slice, its logits cut on the vocabulary (and, with
+  heads, channels and ff slice, its logits cut on the vocabulary (and, with
   ``seq_parallel``, its residual stream on its block of the sequence);
 * the gradient convention is the SPMD transpose: every rank seeds its
   backward with ``1 / n_ranks`` of its own loss copy, and every collective

@@ -7,8 +7,8 @@ Eight gloo ranks on the CPU (spawned once for the module through
 ``repro_torch.launch.mesh.spawn``) lay themselves out as a (2, 4) (data,
 model) mesh. For TinyLlama smoke (2 KV heads over 4), Mixtral smoke
 (window 32), DeepSeek smoke (MLA and its dense prefix) and Jamba smoke
-(its attention cut, its Mamba states whole) each rank takes its data
-shard of a cache of ``MAX_SEQ`` 128 positions, a block of 32 a rank,
+(its attention and its Mamba mixers cut, each Mamba state at its
+``cache_specs`` shard) each rank takes its data shard of a cache of ``MAX_SEQ`` 128 positions, a block of 32 a rank,
 holding random values below ``FILL`` (100), and decodes two steps: one
 at position 100 (Mixtral's window leaves ranks 0 and 1 no key), then one
 at the per-row positions ``POS``, owned by every rank of the axis (a row
@@ -25,7 +25,7 @@ its ``lower_decode`` sets them, on the same parameters
 ranks wait for.
 
 Tolerances: the logits within ``MODEL_TOL`` (1e-4) of the reference's;
-each rank's block of every attention cache leaf, and its rows of every
+each rank's block of every attention cache leaf, and its shard of every
 recurrent state, within ``CACHE_TOL`` (1e-5) of the reference's new
 cache (float32); the join of the ranks' partials in float64 within
 ``JOIN_TOL`` (1e-12) of the whole softmax. Planted faults that must
@@ -79,18 +79,10 @@ def rules_of(**kw):
     return SH.ShardRules(data_axis_size=MESH[0], model_axis_size=MESH[1], **kw)
 
 
-def is_state(path) -> bool:
-    """A Mamba, mLSTM or sLSTM state (kept whole over the model axis)."""
-    return path[-1] not in ATTN_LEAVES
-
-
 def held(path, whole, cspecs, coords):
-    """The rank's part of a whole cache leaf: an attention leaf cut by
-    ``cache_specs`` (its rows and its block of the sequence), a recurrent
-    state its rows whole."""
-    if is_state(path):
-        step = whole.shape[0] // MESH[0]
-        return whole[coords["data"] * step:(coords["data"] + 1) * step]
+    """The rank's part of a whole cache leaf, cut by ``cache_specs``: an
+    attention leaf its rows and its block of the sequence, a recurrent
+    state its rows and its block of the inner or feature dim."""
     return whole[SH.local_slices(O.get(cspecs, path), whole.shape, coords,
                                  dict(zip(AXES, MESH)))]
 
@@ -362,9 +354,9 @@ def test_decode_matches_the_reference_jit(runs, arch, step):
 @pytest.mark.parametrize("arch", ARCHS)
 def test_cache_blocks_match_the_reference(runs, arch):
     """After both steps each rank's block of every attention cache leaf (its
-    rows, its 32 positions) is the reference's new cache's, and its rows of
-    every recurrent state too, within CACHE_TOL: the owner wrote each new
-    token and no other rank did."""
+    rows, its 32 positions) is the reference's new cache's, and its shard
+    of every recurrent state too, within CACHE_TOL: the owner wrote each
+    new token and no other rank did."""
     ranks, ref = runs
     cfg = get_smoke_config(arch)
     want = port_cache(ref, f"{arch}{SEP}cache", cfg)

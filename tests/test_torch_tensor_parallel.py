@@ -401,21 +401,37 @@ class _Mesh:
     coords = {"data": 0, "model": 1}
 
 
+#: (arch, layer, mixer leaf) of the recurrent mixers' concatenated leaves
+RECURRENT_LEAVES = {"mamba/w_in": ("jamba-1.5-large-398b", 1, "w_in"),
+                    "mlstm/w_up": ("xlstm-1.3b", 0, "w_up"),
+                    "slstm/w_gates": ("xlstm-1.3b", 7, "w_gates"),
+                    "slstm/r_gates": ("xlstm-1.3b", 7, "r_gates")}
+
+
 @pytest.mark.parametrize("leaf", ["wq", "wk", "wo", "w_in", "w_gate", "w_out", "table",
-                                  "unembed"])
+                                  "unembed", *RECURRENT_LEAVES])
 def test_a_whole_leaf_raises(leaf):
-    """Under the tensor axis a dense leaf of its whole shape, where the
-    rank's cut is due, raises ``ValueError`` naming it; nothing falls
-    back."""
-    cfg = get_smoke_config("tinyllama-1.1b")
+    """Under the tensor axis a dense or mixer leaf of its whole shape, where
+    the rank's cut is due, raises ``ValueError`` naming it; nothing falls
+    back. The recurrent mixers' concatenated leaves (Mamba's ``[x | z]``
+    ``w_in``, the mLSTM's ``[x | gate]`` ``w_up``, the sLSTM's ``[i | f |
+    z | o]`` ``w_gates`` and ``r_gates``) included."""
+    arch, at, name = RECURRENT_LEAVES.get(leaf, ("tinyllama-1.1b", 0, leaf))
+    cfg = get_smoke_config(arch)
     whole = TM.init_params(0, cfg, device="cpu")
     rules = SH.ShardRules(model_axis_size=4, data_axis_size=1)
     lp = TM.local_params(whole, cfg, rules, _Mesh.coords, _Mesh.sizes)
     tp = CL.TensorParallel(rules, _Mesh)
     x = torch.zeros((1, 8, cfg.d_model))
     pos = torch.arange(8).expand(1, 8)
-    layer = whole["stack"][0]
-    if leaf in ("wq", "wk", "wo"):
+    layer = whole["stack"][at]
+    if leaf in RECURRENT_LEAVES:
+        from repro_torch.models import transformer as T
+
+        kind = cfg.layer_kinds()[at][0]
+        mixer = dict(lp["stack"][at]["mixer"], **{name: layer["mixer"][name]})
+        call = lambda: T._RECURRENT[kind][1](mixer, x, cfg, tp=tp)  # noqa: E731
+    elif leaf in ("wq", "wk", "wo"):
         mixer = dict(lp["stack"][0]["mixer"], **{leaf: layer["mixer"][leaf]})
         call = lambda: A.gqa_train(mixer, x, cfg, pos, use_kernel=False, tp=tp)  # noqa: E731
     elif leaf.startswith("w_"):
@@ -426,7 +442,7 @@ def test_a_whole_leaf_raises(leaf):
                                      tp, cfg.d_model)
     else:
         call = lambda: TM._unembed(dict(lp, unembed=whole["unembed"]), x, cfg, tp)  # noqa: E731
-    with pytest.raises(ValueError, match=leaf if leaf != "unembed" else "unembed/w"):
+    with pytest.raises(ValueError, match=name if leaf != "unembed" else "unembed/w"):
         call()
 
 
@@ -434,10 +450,14 @@ def test_a_whole_leaf_raises(leaf):
 def test_compute_specs_keep_the_dense_cuts(arch):
     """At full width on the production axes, every leaf's compute spec is
     ``param_specs``' with its entries other than the tensor axis dropped,
-    and the tensor axis dropped too where the leaf is computed whole: a
-    Mamba, mLSTM or sLSTM mixer, a norm, a router, MLA's ``wq_a`` and
-    ``wkv_a``, the MTP projection. Every attention member's ``wo`` and
-    every dense MLP's ``w_out`` keep their row cut."""
+    and the tensor axis dropped too where the leaf is computed whole (the
+    final norm, the MTP projection and norm; a member's norms, router,
+    MLA's ``wq_a`` and ``wkv_a`` and the mLSTM's block-diagonal ``wq``,
+    ``wk`` and ``wv`` have no tensor entry to keep). Every attention
+    member's ``wo``, every dense MLP's ``w_out`` and every Mamba, mLSTM
+    and sLSTM leaf keep their cut: the concatenated ``w_in``, ``w_up``,
+    ``w_gates`` and ``r_gates`` by columns, ``w_out`` and ``w_down`` by
+    rows."""
     cfg = get_config(arch)
     rules = SH.ShardRules(fsdp=True)
     cspecs, pspecs = TM.compute_specs(cfg, rules), TM.param_specs(cfg, rules)
@@ -453,17 +473,24 @@ def test_compute_specs_keep_the_dense_cuts(arch):
         else:
             assert len(c) == len(p), path
             assert all(e in (None, rules.tensor_axis) for e in c), (path, c)
-            whole = (path[-1] in ("wq_a", "wkv_a", "router", "scale", "bias", "proj")
-                     or (path[0] == "stack" and path[2] == "mixer" and kinds[path[1]][0] != "attn"))
+            whole = path[-1] in ("wq_a", "wkv_a", "router", "scale", "bias", "proj")
             want = tuple(None if whole or e != rules.tensor_axis else e for e in p)
             assert tuple(c) == want, (path, c, p)
 
     walk(cspecs, pspecs)
+    t = rules.tensor_axis
+    cuts = {"mamba": {"w_in": (None, t), "w_bcdt": (t, None), "w_out": (t, None)},
+            "mlstm": {"w_up": (None, t), "w_if": (t, None), "w_down": (t, None),
+                      "wq": (None, None, None)},
+            "slstm": {"w_gates": (None, t), "r_gates": (None, t), "b_gates": (t,),
+                      "w_out": (t, None)}}
     for layer, (mixer, ffn) in zip(cspecs["stack"], kinds):
         if mixer == "attn":
-            assert layer["mixer"]["wo"] == (rules.tensor_axis, None)
+            assert layer["mixer"]["wo"] == (t, None)
+        for key, spec in cuts.get(mixer, {}).items():
+            assert layer["mixer"][key] == spec, (mixer, key)
         if ffn == "mlp":
-            assert layer["ffn"]["w_out"] == (rules.tensor_axis, None)
+            assert layer["ffn"]["w_out"] == (t, None)
 
 
 #: (query heads, KV heads) a rank hands K4 on the tensor-parallel paths

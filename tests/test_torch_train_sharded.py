@@ -29,7 +29,8 @@ included) in ``xla``, ``dragonfly`` and ``dragonfly_overlap``, and at
 ``dragonfly_overlap_fused`` (its round trip differentiated wave by wave)
 and in ``auto`` with the ranks' tuner forced to that mode; DeepSeek smoke at (2, 4)
 (MLA, the shared expert, the dense prefix, the MTP block); Jamba smoke at
-(2, 4) (Mamba's ``_SelectiveScan`` under the step); the factored
+(2, 4) (Mamba's ``_SelectiveScan`` under the step, on the rank's
+channels); the factored
 optimizer on TinyLlama smoke widened to d 128 and d_ff 256, so that
 ``_factorable`` holds on leaves whose last or second-to-last dim is
 sharded (``wq``, the MLP, the embedding); and ``compress_grads`` on
@@ -41,9 +42,9 @@ reference's compressed step raises on every model (its
 ``seq_parallel`` on TinyLlama smoke with FSDP, Mixtral smoke's ``xla`` EP
 case and DeepSeek smoke (the residual stream cut along the sequence
 between blocks), held to the reference's jit with ``seq_parallel=True``.
-Every case computes the attention, the dense MLP, the shared expert, the
-embedding and the unembedding tensor-parallel on the model axis
-(``models.compute_specs``). The JAX side runs the EP cases'
+Every case computes the mixers (attention, Mamba), the dense MLP, the
+shared expert, the embedding and the unembedding tensor-parallel on the
+model axis (``models.compute_specs``). The JAX side runs the EP cases'
 ``xla`` mode and its fused mode: its three exchange-only modes are
 bit-identical (``tests/test_torch_moe_ep.py``), and ``auto`` forced to the
 fused mode runs the fused mode.
